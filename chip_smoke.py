@@ -12,14 +12,30 @@ Phases, each fatal on failure:
      gate scene (untrained, seed 0) and on the trained 512^2 frame, with and
      without the mesh pass; then the whole gate-scene forward on the card
      against the same forward on the CPU.
-  3. the main path: the trained 57,600-face avatar rendered at 512^2 by
+  3. the eval path: the trained 57,600-face avatar rendered at 512^2 by
      ``gom_forward(train=False)`` on three frames (the packed frame and two
      with a perturbed pose vector and camera), with every launch count set
      to 0 just before and read just after; drop counters, overflow and
-     finiteness are checked; then the forward and the kernel are timed.
-Its last four lines are the forward timings as JSON, the kernels JSON line,
-the card line and the result JSON.  Without a CUDA card it exits non-zero and
-prints no result.
+     finiteness are checked; then the forward and kernel B1 are timed.
+  4. the train path:
+     a. kernels B2/B3 (splat blend) and B4/B5 (mesh raster) against their
+        plain versions on the card, forward outputs and entry gradients for
+        the cotangents of a real loss, on the gate scene and on the trained
+        512^2 frame; each kernel and plain version timed there;
+     b. one gate-scene train step on the card against the same step on the
+        CPU: loss terms and the step's gradients;
+     c. the main path: 5 ``Trainer.step`` calls on the trained avatar at
+        512^2 (its train config, the optimizer fast-forwarded to its
+        iteration), over the three frames with the port's own eval renders
+        as targets, every launch count set to 0 just before and read just
+        after; B2-B5 must launch once per step, nothing may be dropped and
+        every loss, gradient and parameter must be finite;
+     d. the train step timed (median and p90 over 20 steps), with each
+        kernel's work and bound.
+Each phase prints its seconds.  The last five lines are the forward timings
+as JSON, the train-step timings as JSON, the kernels JSON line, the card line
+and the result JSON.  Without a CUDA card it exits non-zero and prints no
+result.
 """
 
 from __future__ import annotations
@@ -40,6 +56,14 @@ import torch
 # shading within 1e-4 wherever the hits agree.
 CLOSE_TOL, CLOSE_FRAC, WORST_MAX = 1e-4, 0.9995, 5e-3
 HIT_FRAC, SEL_TOL = 0.999, 1e-4
+# train kernels against their plain versions, the JAX package's own
+# kernel-vs-jnp tolerances (tests/test_train_kernels_interpret.py): B2 by the
+# rule above; B3's entry gradients > 99.9 % within 2e-4 + 1e-3 |plain|; B4
+# hit as above, the normal within 1e-5 where the hits agree, the soft
+# silhouette > 99.9 % within 1e-4; B5's entry gradients > 99.9 % within
+# 5e-3; every value finite
+GRAD_FRAC, GRAD_ATOL, GRAD_RTOL = 0.999, 2e-4, 1e-3
+NORMAL_TOL, SOFT_TOL, MESH_GRAD_TOL = 1e-5, 1e-4, 5e-3
 
 # Published H100 SXM peaks (H100 SXM data sheet): float32 outside the
 # tensor cores and HBM bandwidth, at the full 700 W power limit.
@@ -58,8 +82,31 @@ SPLAT_OPS, MESH_OPS = 27, 19
 # throughput), 132 SMs, 1.98 GHz boost clock (H100 SXM data sheet).
 PEAK_EXP_PER_S = 16 * 132 * 1.98e9
 
-# 100 timed forwards: the p90 has 10 samples beyond it
+# fp32 operations of the train kernels, counted from their sources
+# (csrc/splat_composite.cu, csrc/mesh_raster.cu), and their exp/log on the
+# special-function units.  Per live splat pair (the pixel's transmittance not
+# yet spent): B2 as B1's splat term, 27 and one exp; B3 28 in pass A (the
+# replay and the u w sum) and 72 in pass B (16 for the alpha, 40 for the
+# alpha, conic, mean, opacity and color gradients, 9 to add each pair's
+# nine values into its entry's sums, 7 for the transmittance and the
+# suffix), two exps.  Per swept mesh pair, the hard term: 31 in B4 (the
+# barycentrics from the vertices with two divisions, the depth and the
+# z-test), 64 in B5 (both passes).  Per soft pair (valid entry, tile not yet
+# saturated): 81 in B4 (three edge projections of 24, the sign, sigmoid and
+# log1p), an exp and a log; 329 in B5 (the soft term in both passes and the
+# hand-written chain, 167 with the six coordinate sums), two exps, two logs.
+B2_OPS, B3_OPS, B2_SFU, B3_SFU = 27, 100, 1, 2
+B4_HARD, B4_SOFT, B5_HARD, B5_SOFT, B4_SFU, B5_SFU = 31, 81, 64, 329, 2, 4
+
+# 100 timed forwards: the p90 has 10 samples beyond it; 20 timed train
+# steps after 3 warm-up steps
 FORWARD_ITERS, KERNEL_ITERS, PLAIN_ITERS = 100, 50, 5
+TRAIN_STEPS, TRAIN_WARMUP, TRAIN_ITERS = 5, 3, 20
+# the gate-scene train step, card against CPU: every loss term within rtol
+# 1e-3 (LPIPS runs its convolutions in bfloat16, which cuDNN and the CPU
+# round differently: rtol 1e-2), each parameter leaf's gradient within 5 %
+# of its norm (relative L2)
+STEP_RTOL, STEP_LPIPS_RTOL, STEP_GRAD_REL = 1e-3, 1e-2, 5e-2
 
 
 def require(ok, message: str) -> None:
@@ -215,38 +262,368 @@ def b1_work(table, bins, ncmax: int):
     return ops, nbytes, int(swept.sum()), pairs, live
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; the port's smoke test runs on an NVIDIA GPU", file=sys.stderr)
-        return 1
-    from gomavatar_tpu_torch import cuda_build
-    from gomavatar_tpu_torch.convert import load_trained
-    from gomavatar_tpu_torch.ops import frame_render as FR
+# ---- the train kernels B2-B5 --------------------------------------------------
+
+def train_kernel_inputs(params, statics, cfg, frame):
+    """The inputs of kernels B2-B5 for one frame, as the train forward builds
+    them: (bins, splat entries, mesh entries, mesh entry validity,
+    sigma_px2)."""
+    from gomavatar_tpu_torch.models.gom import posed_vertices, train_geometry
+    from gomavatar_tpu_torch.ops.mesh_raster import mesh_entries, project_faces, soft_sigma_px2
+    from gomavatar_tpu_torch.ops.splat.projection import project_gaussians
+    from gomavatar_tpu_torch.ops.splat.render import gaussian_entries
+
+    K, E = frame["K"], frame["E"]
+    with torch.no_grad():
+        verts_obs = posed_vertices(
+            params, statics, cfg, frame["cnl_gtfms"], frame["dst_Rs"], frame["dst_Ts"], frame["dst_posevec"],
+        )
+        g = train_geometry(params, statics, cfg, verts_obs, K, E)
+        bins = g["bins"]
+        proj = project_gaussians(g["centroids"], g["cov"], K, E, cfg.img_size)
+        s_entries = gaussian_entries(proj, g["colors"], g["opacity"], bins).contiguous()
+        tris_xy, tris_z, in_front = project_faces(verts_obs, statics.faces, K, E)
+        m_entries, m_valid = mesh_entries(tris_xy, tris_z, in_front, g["normals_cam"], statics.faces, bins)
+    return bins, s_entries, m_entries.contiguous(), m_valid, soft_sigma_px2(1e-4, cfg.img_size)
+
+
+def tile_batched_grad(entries, tile_count, outputs_fn, cotangents, tiles_per_batch):
+    """d sum_i <outputs_i, cotangents_i> / d entries for a plain version,
+    taken over batches of tiles and summed.  Tiles are independent given
+    the entries, so each batch's autograd graph holds only its own tiles: at
+    512^2 the graph of the whole frame would not fit in device memory."""
+    leaf = entries.detach().requires_grad_(True)
+    total = torch.zeros_like(entries)
+    tiles = torch.nonzero(tile_count > 0).flatten()
+    for b in range(0, tiles.numel(), tiles_per_batch):
+        keep = torch.zeros_like(tile_count, dtype=torch.bool)
+        keep[tiles[b : b + tiles_per_batch]] = True
+        outs = outputs_fn(leaf, torch.where(keep, tile_count, torch.zeros_like(tile_count)))
+        dot = sum((o * g).sum() for o, g in zip(outs, cotangents))
+        total += torch.autograd.grad(dot, leaf)[0]
+    return total
+
+
+def check_grad(label, kernel, plain, keep, atol, rtol=0.0):
+    """Gradients on the slots a kernel owns (``keep``): > 99.9 % within
+    atol + rtol |plain|, every value finite.  Returns the worst difference."""
+    require(bool(torch.isfinite(kernel).all() and torch.isfinite(plain).all()), f"{label}: non-finite gradients")
+    k, p = kernel[keep], plain[keep]
+    d = (k - p).abs()
+    frac = float((d <= atol + rtol * p.abs()).float().mean())
+    worst = float(d.max())
+    print(f"  {label}: {frac * 100:.4f} % of {k.numel()} values within {atol:g} + {rtol:g}|plain|, "
+          f"worst {worst:.3g} (largest |plain| {float(p.abs().max()):.3g})")
+    require(frac > GRAD_FRAC, f"{label}: outside the criteria")
+    return worst
+
+
+def splat_work(entries, tile_start, tile_count, C, num_tiles_x, ncmax):
+    """(chunks read, live pairs) of one B2 call on this data: a tile reads a
+    chunk while any pixel's transmittance is unspent; a (pixel, entry) pair
+    is live while the pixel's transmittance before the entry is >= 1e-4 (the
+    pairs the kernel evaluates).  B3 reads and evaluates the same, twice."""
+    from gomavatar_tpu_torch.ops.splat.binning import CHUNK
+    from gomavatar_tpu_torch.ops.splat.reference import T_EPS
+    from gomavatar_tpu_torch.ops.splat.tiled_jnp import chunk_alpha, tile_pixels
+
+    tiles = torch.nonzero(tile_count > 0).flatten()
+    start, count = tile_start[tiles].long(), tile_count[tiles].long()
+    px, py = tile_pixels(tiles, num_tiles_x)
+    lane = torch.arange(CHUNK, device=entries.device)
+    log_t = torch.zeros_like(px)
+    chunks = live = 0
+    log_eps = float(np.log(T_EPS))
+    with torch.no_grad():
+        for k in range(min(int(count.max()) // CHUNK, ncmax)):
+            read = (k * CHUNK < count) & (log_t.amax(dim=1) >= log_eps)
+            idx = torch.clamp_max(start + k * CHUNK, entries.shape[1] - CHUNK)[:, None] + lane
+            alpha = chunk_alpha(entries[0:2, idx].permute(1, 2, 0), entries[2:5, idx].permute(1, 2, 0),
+                                entries[5, idx] * read[:, None], px, py)  # (n, CHUNK, P)
+            log1m = torch.log1p(-alpha)
+            cum = torch.cumsum(log1m, dim=1) + log_t[:, None, :]
+            live += int(((cum - log1m >= log_eps) & read[:, None, None]).sum())
+            chunks += int(read.sum())
+            log_t = cum[:, -1]
+    return chunks, live
+
+
+def mesh_work(entries, tile_start, tile_count, num_tiles_x, sigma_px2, ncmax):
+    """(swept pairs, soft pairs) of one B4 call on this data: every chunk of
+    a segment is swept by the z-buffer; a chunk's soft term runs on its
+    valid entries until every pixel of the tile has sum log(1 - p) < -18."""
+    from gomavatar_tpu_torch.ops.mesh_raster import _ONE_MINUS, _point_tri_sq_dist
+    from gomavatar_tpu_torch.ops.mesh_raster_pallas import _LOG_SAT
+    from gomavatar_tpu_torch.ops.splat.binning import CHUNK
+    from gomavatar_tpu_torch.ops.splat.tiled_jnp import P, tile_pixels
+
+    tiles = torch.nonzero(tile_count > 0).flatten()
+    start, count = tile_start[tiles].long(), tile_count[tiles].long()
+    px, py = tile_pixels(tiles, num_tiles_x)
+    px, py = px[:, :, None], py[:, :, None]
+    lane = torch.arange(CHUNK, device=entries.device)
+    log_om = torch.zeros(px.shape[:2], device=entries.device)
+    swept = soft = 0
+    with torch.no_grad():
+        for k in range(min(int(count.max()) // CHUNK, ncmax)):
+            in_seg = k * CHUNK < count
+            live = in_seg & (log_om.amax(dim=1) > _LOG_SAT)
+            e = entries[:, torch.clamp_max(start + k * CHUNK, entries.shape[1] - CHUNK)[:, None] + lane][:, :, None, :]
+            x0, y0, x1, y1, x2, y2 = e[0], e[1], e[2], e[3], e[4], e[5]
+            denom = (y1 - y2) * (x0 - x2) + (x2 - x1) * (y0 - y2)
+            denom = torch.where(denom.abs() < 1e-12, torch.ones_like(denom), denom)
+            w0 = ((y1 - y2) * (px - x2) + (x2 - x1) * (py - y2)) / denom
+            w1 = ((y2 - y0) * (px - x2) + (x0 - x2) * (py - y2)) / denom
+            inside = (w0 >= 0) & (w1 >= 0) & (1.0 - w0 - w1 >= 0)
+            d2 = _point_tri_sq_dist(px, py, x0, y0, x1, y1, x2, y2)
+            prob = torch.sigmoid(-torch.where(inside, -d2, d2) / sigma_px2)
+            valid = (e[12] > 0) & live[:, None, None]
+            term = torch.log1p(-torch.clamp_max(prob, _ONE_MINUS))
+            log_om = log_om + torch.where(valid, term, torch.zeros_like(term)).sum(dim=-1)
+            swept += int(in_seg.sum()) * CHUNK * P
+            soft += int(valid.sum()) * P
+    return swept, soft
+
+
+def compare_b2b3(label, bins, entries, t_rgb, t_mask, timed: bool):
+    """Kernels B2 and B3 against their plain version on the same entries; the
+    cotangents are those of the rgb L1 + 5 x mask L1 loss against (t_rgb,
+    t_mask), summed over pixels rather than averaged so that the gradients
+    are O(1) and the absolute tolerance bites.  Returns {"B2": (worst, ms, plain ms), "B3": ...} (times only
+    when ``timed``) and the inputs of the work count."""
+    from gomavatar_tpu_torch.ops.splat import pallas_kernel as SK
+
+    C, TX, TY = 3, bins.num_tiles_x, bins.num_tiles_y
+    start, count = bins.tile_start, bins.tile_count
+    color_k, alpha_k = SK.splat_fwd(entries, start, count, C, TX)
+    with torch.no_grad():
+        color_p, alpha_p = SK.composite_plain_entries(entries, start, count, C, TX, TY)
+    img_k, a_k = SK._untile(color_k, alpha_k, TX, TY, C)
+    img_p, a_p = SK._untile(color_p, alpha_p, TX, TY, C)
+    worst2 = max(check_close(f"{label} B2 color", img_k, img_p), check_close(f"{label} B2 alpha", a_k, a_p))
+
+    img = img_k.detach().requires_grad_(True)
+    alpha = a_k.detach().requires_grad_(True)
+    loss = (img - t_rgb).abs().sum() + 5.0 * (alpha - t_mask).abs().sum()
+    g_img, g_alpha = torch.autograd.grad(loss, (img, alpha))
+    g_color_t, g_alpha_t = SK._retile(g_img, g_alpha, TX, TY, C)
+    d_k = SK.select_d_entries(SK.splat_bwd(entries, start, count, g_color_t, g_alpha_t, C, TX),
+                              bins.entry_valid, start, count, 6 + C)
+
+    def plain_outputs(leaf, counts):
+        return SK.composite_plain_entries(leaf, start, counts, C, TX, TY)
+
+    d_p = tile_batched_grad(entries, count, plain_outputs, (g_color_t, g_alpha_t), 64)
+    keep = SK.select_d_entries(torch.ones_like(d_p), bins.entry_valid, start, count, 6 + C) > 0
+    worst3 = check_grad(f"{label} B3 d_entries", d_k, d_p, keep, GRAD_ATOL, GRAD_RTOL)
+    out = {"B2": [worst2], "B3": [worst3]}
+    if timed:
+        out["B2"] += [cuda_ms(lambda: SK.splat_fwd(entries, start, count, C, TX), KERNEL_ITERS),
+                      cuda_ms(lambda: SK.composite_plain_entries(entries, start, count, C, TX, TY), PLAIN_ITERS)]
+        out["B3"] += [cuda_ms(lambda: SK.splat_bwd(entries, start, count, g_color_t, g_alpha_t, C, TX), KERNEL_ITERS),
+                      cuda_ms(lambda: tile_batched_grad(entries, count, plain_outputs, (g_color_t, g_alpha_t), 64), 2)]
+        for k in ("B2", "B3"):
+            print(f"  {label}: {k} kernel {out[k][1]:.4f} ms, plain version {out[k][2]:.3f} ms")
+    return out
+
+
+def compare_b4b5(label, bins, entries, valid, sigma_px2, shadow, t_rgb, t_mask, albedo, timed: bool):
+    """Kernels B4 and B5 against their plain version on the same entries;
+    the cotangents are those of the train loss's rgb L1 through the shadow
+    MLP (``shadow(normal)`` times ``albedo`` against t_rgb) and of the
+    normal-mask L1 of the soft silhouette against the dilated t_mask, summed
+    over pixels as in :func:`compare_b2b3`."""
+    from gomavatar_tpu_torch.losses import dilate_mask
+    from gomavatar_tpu_torch.ops import mesh_raster_pallas as MK
+    from gomavatar_tpu_torch.ops.mesh_raster import mesh_composite_plain
+
+    TX, TY = bins.num_tiles_x, bins.num_tiles_y
+    start, count = bins.tile_start, bins.tile_count
+    hard_k, soft_k = MK.mesh_fwd(entries, start, count, TX, True, sigma_px2)
+    with torch.no_grad():
+        hard_p, soft_p = mesh_composite_plain(entries, start, count, TX, TY, True, sigma_px2)
+    n_k, hit_k, s_k = MK._untile_outputs(hard_k, soft_k, TX, TY)
+    n_p, hit_p, s_p = MK._untile_outputs(hard_p, soft_p, TX, TY)
+    same = hit_k == hit_p
+    both = same & (hit_k > 0)
+    hit_frac = float(same.float().mean())
+    n_worst = float((n_k - n_p).abs().amax(dim=-1)[both].max())
+    print(f"  {label} B4: hit equal on {hit_frac * 100:.4f} %, normal worst {n_worst:.3g} over "
+          f"{int(both.sum())} hit pixels")
+    require(hit_frac >= HIT_FRAC and n_worst <= NORMAL_TOL, f"{label} B4 hard pass: outside the criteria")
+    sd = (s_k - s_p).abs()
+    s_frac = float((sd <= SOFT_TOL).float().mean())
+    print(f"  {label} B4 soft: {s_frac * 100:.4f} % within {SOFT_TOL:g}, worst {float(sd.max()):.3g}")
+    require(bool(torch.isfinite(s_k).all()) and s_frac > GRAD_FRAC, f"{label} B4 soft: outside the criteria")
+    worst4 = max(n_worst, float(sd.max()))
+
+    normal = n_k.detach().requires_grad_(True)
+    soft = s_k.detach().requires_grad_(True)
+    H, W = soft.shape
+    shading = shadow(normal.reshape(-1, 3)).reshape(H, W, 1) * 2.0
+    loss = (albedo * shading - t_rgb).abs().sum() + (soft - dilate_mask(t_mask, 7)).abs().sum()
+    g_normal, g_soft = torch.autograd.grad(loss, (normal, soft))
+    g_hard_t, g_soft_t = MK._retile_cotangents(g_normal, g_soft, TX, TY)
+    d_k = MK.select_d_entries(MK.mesh_bwd(entries, start, count, g_hard_t, g_soft_t, TX, True, sigma_px2),
+                              valid, start, count, MK.NCH)
+
+    def plain_outputs(leaf, counts):
+        return mesh_composite_plain(leaf, start, counts, TX, TY, True, sigma_px2)
+
+    d_p = tile_batched_grad(entries, count, plain_outputs, (g_hard_t, g_soft_t), 32)
+    keep = MK.select_d_entries(torch.ones_like(d_p), valid, start, count, MK.NCH) > 0
+    rows = torch.zeros((MK.NCH, 1), dtype=torch.bool, device=keep.device)
+    rows[0:6] = rows[9:12] = True  # the coordinates and the summed normal
+    worst5 = check_grad(f"{label} B5 d_entries", d_k, d_p, keep & rows, MESH_GRAD_TOL)
+    out = {"B4": [worst4], "B5": [worst5]}
+    if timed:
+        out["B4"] += [cuda_ms(lambda: MK.mesh_fwd(entries, start, count, TX, True, sigma_px2), KERNEL_ITERS),
+                      cuda_ms(lambda: mesh_composite_plain(entries, start, count, TX, TY, True, sigma_px2),
+                              PLAIN_ITERS)]
+        out["B5"] += [cuda_ms(lambda: MK.mesh_bwd(entries, start, count, g_hard_t, g_soft_t, TX, True, sigma_px2),
+                              KERNEL_ITERS),
+                      cuda_ms(lambda: tile_batched_grad(entries, count, plain_outputs, (g_hard_t, g_soft_t), 32), 2)]
+        for k in ("B4", "B5"):
+            print(f"  {label}: {k} kernel {out[k][1]:.4f} ms, plain version {out[k][2]:.3f} ms")
+    return out
+
+
+def bound(ops: float, sfu: float, nbytes: float):
+    """(bound_ms, bound_by, ms of the fp32 operations, of the special-function
+    operations, of the bytes) at the H100's peaks."""
+    t_ops = ops / PEAK_FP32_FLOPS * 1e3
+    t_sfu = sfu / PEAK_EXP_PER_S * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    by = "bytes" if t_bytes >= max(t_ops, t_sfu) else "operations"
+    return max(t_ops, t_sfu, t_bytes), by, t_ops, t_sfu, t_bytes
+
+
+def train_kernel_bounds(bins, s_entries, m_entries, sigma_px2, C=3):
+    """The least time of B2-B5 on this frame's data, each the larger of its
+    fp32 and special-function operations at peak and the bytes it must move
+    (each input read once, each output written once) at the memory rate.
+    Returns {kernel: (bound_ms, bound_by, description)}."""
+    from gomavatar_tpu_torch.ops.splat.binning import CHUNK
+    from gomavatar_tpu_torch.ops.splat.tiled_jnp import NCMAX, P
+
+    start, count, TX = bins.tile_start, bins.tile_count, bins.num_tiles_x
+    T = count.shape[0]
+    s_chunks, live = splat_work(s_entries, start, count, C, TX, NCMAX)
+    swept, soft = mesh_work(m_entries, start, count, TX, sigma_px2, NCMAX)
+    m_chunks = swept // (CHUNK * P)
+    owned = int(torch.clamp_max(torch.div(count, CHUNK, rounding_mode="floor"), NCMAX).sum())
+    row = CHUNK * 4  # bytes of one row of a chunk
+    ints = 8 * T  # tile_start, tile_count
+    work = {
+        "B2": (B2_OPS * live, B2_SFU * live, s_chunks * (6 + C) * row + T * (C + 1) * P * 4 + ints),
+        "B3": (B3_OPS * live, B3_SFU * live,
+               s_chunks * (6 + C) * row + T * (C + 1) * P * 4 + owned * s_entries.shape[0] * row + ints),
+        "B4": (B4_HARD * swept + B4_SOFT * soft, B4_SFU * soft, m_chunks * 13 * row + T * 5 * P * 4 + ints),
+        "B5": (B5_HARD * swept + B5_SOFT * soft, B5_SFU * soft,
+               m_chunks * 13 * row + T * 5 * P * 4 + owned * m_entries.shape[0] * row + ints),
+    }
+    out = {}
+    for name, (ops, sfu, nbytes) in work.items():
+        b, by, t_ops, t_sfu, t_bytes = bound(ops, sfu, nbytes)
+        out[name] = (b, by, f"{ops:.4g} fp32 ops ({t_ops:.4f} ms), {sfu:.4g} exp/log ({t_sfu:.4f} ms), "
+                            f"{nbytes} bytes ({t_bytes:.4f} ms)")
+    print(f"  train kernel work: {s_chunks} splat chunks read, {live} live splat pairs; {m_chunks} mesh chunks "
+          f"swept ({swept} pairs), {soft} soft pairs")
+    return out
+
+
+def train_batch(params, statics, cfg, frame, target_frame):
+    """A train batch at ``frame`` whose targets are the port's own eval
+    render at ``target_frame``, composited on black (bgcolor zeros)."""
+    from gomavatar_tpu_torch.losses import unpack
+
+    dev = frame["K"].device
+    with torch.no_grad():
+        rgb, mask, _ = forward(params, statics, cfg, target_frame, device=dev.type)
+    bg = torch.zeros(3, device=dev)
+    return dict(frame, bgcolor=bg, target_rgbs=unpack(rgb, mask, bg, clamp=True), target_masks=mask)
+
+
+def make_trainer(params, statics, cfg, i_iter, device):
+    """A Trainer of the trained avatar's train config, started from
+    (params, statics, cfg) at ``i_iter`` with no subdivision left to do."""
+    from gomavatar_tpu_torch.models.lpips import load_lpips
+    from gomavatar_tpu_torch.scene import trained_train_cfg
+    from gomavatar_tpu_torch.trainer import Trainer
+
+    train_cfg = trained_train_cfg()
+    phase = len(train_cfg["model"]["subdivide_iters"])
+    return Trainer(train_cfg, lpips_params=load_lpips(device)[0], device=device,
+                   state=(params, statics, cfg, i_iter, phase))
+
+
+def step_gradients(trainer):
+    """The gradient of every leaf in the trainer's first step: Adam's first
+    moments start at 0, so after one step they are (1 - 0.9) x gradient."""
+    require(trainer.opt_state.count == 1, "the gradients are read after the first step")
+    return [m / (1.0 - 0.9) for m in trainer.opt_state.mu]
+
+
+def gate_train_scene(device):
+    """The gate scene with its per-face so3, scale and colors drawn from a
+    numpy seed (a fresh model's are constant, and the so3 gradient at 0 is
+    rounding noise)."""
     from gomavatar_tpu_torch.scene import gate_scene
 
-    t_start = time.perf_counter()
-    card = card_line()
-    kind = torch.cuda.get_device_name(0)
-    print(f"card: {card}")
-    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.device_count()} device(s)")
+    params, statics, cfg, frame = gate_scene(device=device, seed=0)
+    rng = np.random.default_rng(0)
+    F = cfg.num_faces
 
-    # ---- 1. build
-    t0 = time.perf_counter()
-    logs = cuda_build.build_all()
-    print(f"[1] built {sorted(logs) or 'nothing (cached)'} in {time.perf_counter() - t0:.1f} s")
-    for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line or "error" in line.lower():
-                print(f"  {name}: {line.strip()}")
+    def dev(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device)
 
-    # ---- 2. kernel vs plain, on the card
+    params["so3"] = dev(0.2 * rng.standard_normal((F, 3)))
+    params["scale"] = dev(1.0 + 0.2 * rng.standard_normal((F, 3)))
+    params["appearance"] = {"colors": dev(rng.uniform(0.05, 0.95, (F, 3)))}
+    return params, statics, cfg, frame
+
+
+def compare_gate_step(i_iter):
+    """One gate-scene train step on the card and on the CPU from the same
+    params and batch: the loss terms and every leaf's gradient."""
+    out = {}
+    g_params, g_statics, g_cfg, g_frame = gate_train_scene("cuda")
+    batch = train_batch(g_params, g_statics, g_cfg, g_frame, perturbed_frames(g_frame)[1])
+    for device in ("cuda", "cpu"):
+        params, statics, cfg, _ = gate_train_scene(device)
+        tr = make_trainer(params, statics, cfg, i_iter, device)
+        total, losses = tr.step({k: v.to(device) for k, v in batch.items()})
+        out[device] = ({"total": float(total), **{k: float(v) for k, v in losses.items()}}, step_gradients(tr))
+    (lc, gc), (lh, gh) = out["cuda"], out["cpu"]
+    require(set(lc) == set(lh), "the card and the CPU give different loss terms")
+    for k in sorted(lc):
+        rtol = STEP_LPIPS_RTOL if k in ("lpips", "total") else STEP_RTOL
+        ok = abs(lc[k] - lh[k]) <= rtol * abs(lh[k]) + 1e-7
+        print(f"  gate step {k}: card {lc[k]:.7g}, CPU {lh[k]:.7g}")
+        require(ok, f"gate step {k}: the card and the CPU differ by more than rtol {rtol:g}")
+    rels = []
+    for i, (a, b) in enumerate(zip(gc, gh)):
+        a = a.cpu()
+        require(bool(torch.isfinite(a).all()), f"gate step: non-finite gradient in leaf {i}")
+        rels.append(float(torch.linalg.norm(a - b) / torch.clamp_min(torch.linalg.norm(b), 1e-30)))
+    print(f"  gate step gradients, relative L2 difference per leaf: " + " ".join(f"{r:.2g}" for r in rels))
+    worst = max(range(len(rels)), key=rels.__getitem__)
+    require(rels[worst] <= STEP_GRAD_REL, f"gate step: leaf {worst} gradient off by {rels[worst]:.3g} of its norm")
+
+
+def phase_kernels_b1(card):
+    from gomavatar_tpu_torch.convert import load_trained
+    from gomavatar_tpu_torch.ops.frame_render import NCMAX as NCMAX_B1
+    from gomavatar_tpu_torch.scene import gate_scene
+
     print(f"[2] kernel B1 vs its plain version on the card ({card})")
     g_params, g_statics, g_cfg, g_frame = gate_scene(device="cuda", seed=0)
     table, bins, _ = frame_inputs(g_params, g_statics, g_cfg, g_frame)
     compare_b1("gate 64^2", table, bins, g_cfg.img_size)
 
     t0 = time.perf_counter()
-    params, statics, cfg, frame = load_trained(device="cuda")
+    trained = load_trained(device="cuda")
+    params, statics, cfg, frame = trained
     print(f"  trained avatar loaded: {cfg.num_faces} faces at {cfg.img_size}, "
           f"{time.perf_counter() - t0:.1f} s")
     t_table, t_bins, _ = frame_inputs(params, statics, cfg, frame)
@@ -257,9 +634,21 @@ def main() -> int:
     rgb_h, mask_h, _ = forward(*gate_scene(device="cpu", seed=0), device="cpu")
     check_close("gate forward rgb", rgb_c.cpu(), rgb_h)
     check_close("gate forward mask", mask_c.cpu(), mask_h)
+    ops, nbytes, n_entries, pairs, live = b1_work(t_table, t_bins, NCMAX_B1)
+    b1_bound, b1_by, t_ops, t_exp, t_bytes = bound(ops, live, nbytes)
+    print(f"  B1 work: {int(t_bins.n_active)} active tiles, {n_entries} swept entries, {pairs} pairs, "
+          f"{live} live splat pairs; {ops:.4g} fp32 ops ({t_ops:.4f} ms at 67 TFLOP/s), "
+          f"{live} exps ({t_exp:.4f} ms at {PEAK_EXP_PER_S:.3g}/s), "
+          f"{nbytes} bytes ({t_bytes:.4f} ms at 3.35 TB/s)")
+    b1 = {"max_abs_err": max_abs_err, "ms": b1_ms, "plain_ms": plain_ms, "bound_ms": b1_bound, "bound_by": b1_by}
+    return trained, b1
 
-    # ---- 3. the main path
-    print("[3] main path: gom_forward(train=False) on the trained avatar at 512^2")
+
+def phase_eval_path(trained, card):
+    from gomavatar_tpu_torch.ops import frame_render as FR
+
+    params, statics, cfg, frame = trained
+    print("[3] eval path: gom_forward(train=False) on the trained avatar at 512^2")
     frames = perturbed_frames(frame)
     FR.frame_sweep.launches = 0
     outs = [forward(params, statics, cfg, f) for f in frames]
@@ -277,7 +666,7 @@ def main() -> int:
         require(float(mask.mean()) > 0.01, f"frame {i}: empty render")
         require(dropped == 0 and overflow == 0, f"frame {i}: binning dropped entries")
     print(f"  B1 launches: {launches} for {len(frames)} frames")
-    require(launches == len(frames), "the main path did not launch B1 once per frame")
+    require(launches == len(frames), "the eval path did not launch B1 once per frame")
 
     # timings (after the counted run)
     for _ in range(3):
@@ -291,39 +680,172 @@ def main() -> int:
         per_frame.append((time.perf_counter() - t0) * 1e3)
     fwd_ms = statistics.median(per_frame)
     fwd_p90 = statistics.quantiles(per_frame, n=10)[-1]
-
-    ops, nbytes, n_entries, pairs, live = b1_work(t_table, t_bins, FR.NCMAX)
-    t_ops = ops / PEAK_FP32_FLOPS * 1e3
-    t_exp = live / PEAK_EXP_PER_S * 1e3
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    bound_ms = max(t_ops, t_exp, t_bytes)
     print(f"  forward: median {fwd_ms:.3f} ms/frame, p90 {fwd_p90:.3f} ms over {FORWARD_ITERS} frames "
           f"({1e3 / fwd_ms:.2f} frames/s at the median) on {card}")
-    print(f"  B1: {b1_ms:.4f} ms/launch, plain version {plain_ms:.3f} ms, on {card}")
-    print(f"  B1 work: {int(t_bins.n_active)} active tiles, {n_entries} swept entries, {pairs} pairs, "
-          f"{live} live splat pairs; {ops:.4g} fp32 ops ({t_ops:.4f} ms at 67 TFLOP/s), "
-          f"{live} exps ({t_exp:.4f} ms at {PEAK_EXP_PER_S:.3g}/s), "
-          f"{nbytes} bytes ({t_bytes:.4f} ms at 3.35 TB/s)")
+    return launches, {"median_ms": fwd_ms, "p90_ms": fwd_p90, "fps": 1e3 / fwd_ms, "frames": FORWARD_ITERS}
 
-    result = {
-        "kernels": [
-            {
-                "name": "B1 frame_render",
-                "route": "cuda",
-                "source": "gomavatar_tpu_torch/csrc/frame_render.cu",
-                "replaces": "gomavatar_tpu/ops/frame_render.py:74",
-                "launches": launches,
-                "max_abs_err": max_abs_err,
-                "ms": b1_ms,
-                "plain_ms": plain_ms,
-                "bound_ms": bound_ms,
-                "bound_by": "bytes" if t_bytes >= max(t_ops, t_exp) else "operations",
-                "library_ms": None,
-            }
-        ],
-    }
-    print(json.dumps({"forward": {"median_ms": fwd_ms, "p90_ms": fwd_p90, "fps": 1e3 / fwd_ms,
-                                  "frames": FORWARD_ITERS, "seconds": time.perf_counter() - t_start}}))
+
+def phase_train_kernels(trained):
+    """Phase 4a: B2-B5 against their plain versions at 64^2 and 512^2;
+    returns {kernel: {max_abs_err, ms, plain_ms, bound_ms, bound_by}}."""
+    from gomavatar_tpu_torch.models import modules as M
+    from gomavatar_tpu_torch.ops.splat import pallas_kernel as SK
+    from gomavatar_tpu_torch.scene import gate_scene
+
+    print("[4a] kernels B2-B5 vs their plain versions on the card")
+    results = {}
+    g_params, g_statics, g_cfg, g_frame = gate_scene(device="cuda", seed=0)
+    for label, (params, statics, cfg, frame), timed in (
+        ("gate 64^2", (g_params, g_statics, g_cfg, g_frame), False),
+        ("trained 512^2", trained, True),
+    ):
+        bins, s_e, m_e, m_v, s2 = train_kernel_inputs(params, statics, cfg, frame)
+        tel = bins.telemetry
+        print(f"  {label}: {int((bins.tile_count > 0).sum())} non-empty tiles, entries {tuple(s_e.shape)}, "
+              f"max tile entries {int(tel.max_tile_entries)}, dropped {int(tel.total_dropped())}")
+        with torch.no_grad():
+            t_rgb, t_mask, _ = forward(params, statics, cfg, perturbed_frames(frame)[1])
+        out = compare_b2b3(label, bins, s_e, t_rgb, t_mask, timed)
+        color_k, alpha_k = SK.splat_fwd(s_e, bins.tile_start, bins.tile_count, 3, bins.num_tiles_x)
+        albedo = SK._untile(color_k, alpha_k, bins.num_tiles_x, bins.num_tiles_y, 3)[0]
+        sh = cfg.module_cfg("shadow")
+        out.update(compare_b4b5(label, bins, m_e, m_v, s2, lambda n: M.shadow_apply(params["shadow"], sh, n),
+                                t_rgb, t_mask, albedo, timed))
+        for k, v in out.items():
+            r = results.setdefault(k, {"max_abs_err": 0.0})
+            r["max_abs_err"] = max(r["max_abs_err"], v[0])
+            if timed:
+                r["ms"], r["plain_ms"] = v[1], v[2]
+        if timed:
+            for k, (b, by, desc) in train_kernel_bounds(bins, s_e, m_e, s2).items():
+                results[k].update(bound_ms=b, bound_by=by)
+                print(f"  {k}: {results[k]['ms']:.4f} ms, plain version {results[k]['plain_ms']:.3f} ms, "
+                      f"bound {b:.4f} ms by {by}: {desc}")
+    return results
+
+
+def phase_train_path(trained, card):
+    """Phases 4b-4d: the gate step card vs CPU, the main path with its
+    launch counts, the train-step timings.  Returns (launches, timings)."""
+    from gomavatar_tpu_torch.convert import trained_meta
+    from gomavatar_tpu_torch.ops import frame_render as FR
+    from gomavatar_tpu_torch.ops import mesh_raster_pallas as MK
+    from gomavatar_tpu_torch.ops.splat import pallas_kernel as SK
+    from gomavatar_tpu_torch.optim import tree_leaves
+
+    i_iter = int(trained_meta()["iter"])
+    print(f"[4b] one gate-scene train step at iteration {i_iter}, card vs CPU")
+    compare_gate_step(i_iter)
+
+    params, statics, cfg, frame = trained
+    print(f"[4c] train path: {TRAIN_STEPS} Trainer.step calls on the trained avatar at 512^2 from iteration {i_iter}")
+    frames = perturbed_frames(frame)
+    batches = [train_batch(params, statics, cfg, f, f) for f in frames]
+    trainer = make_trainer(params, statics, cfg, i_iter, "cuda")
+    before = [p.clone() for p in tree_leaves(trainer.params)]
+    wrappers = {"B1": FR.frame_sweep, "B2": SK.splat_fwd, "B3": SK.splat_bwd, "B4": MK.mesh_fwd, "B5": MK.mesh_bwd}
+    torch.cuda.synchronize()
+    for w in wrappers.values():
+        w.launches = 0
+    steps = [trainer.step(batches[i % len(batches)]) for i in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    for i, (total, losses) in enumerate(steps):
+        terms = {k: float(v) for k, v in losses.items()}
+        print(f"  step {i}: total {float(total):.6g}, " + ", ".join(f"{k} {v:.5g}" for k, v in terms.items()))
+        require(all(np.isfinite(v) for v in terms.values()) and np.isfinite(float(total)), f"step {i}: non-finite loss")
+        dropped = terms["bin_drop_budget"] + terms["bin_drop_buffer"] + terms["bin_drop_ncmax"]
+        require(dropped == 0, f"step {i}: the binning dropped entries")
+    print(f"  launches over {TRAIN_STEPS} steps: {launches}")
+    for k in ("B2", "B3", "B4", "B5"):
+        require(launches[k] == TRAIN_STEPS, f"the train path did not launch {k} once per step")
+    after = tree_leaves(trainer.params)
+    moments = list(trainer.opt_state.mu) + list(trainer.opt_state.nu)
+    require(all(bool(torch.isfinite(p).all()) for p in after + moments), "non-finite parameters or gradients")
+    changed = sum(not torch.equal(a, b) for a, b in zip(after, before))
+    print(f"  {changed} of {len(after)} parameter leaves changed; every parameter and moment finite")
+    require(changed == len(after), "a parameter leaf did not change")
+
+    print(f"[4d] train step timed over {TRAIN_ITERS} steps after {TRAIN_WARMUP} warm-up steps")
+    for i in range(TRAIN_WARMUP):
+        trainer.step(batches[i % len(batches)])
+    torch.cuda.synchronize()
+    per_step = []
+    for i in range(TRAIN_ITERS):
+        t0 = time.perf_counter()
+        trainer.step(batches[i % len(batches)])
+        torch.cuda.synchronize()
+        per_step.append((time.perf_counter() - t0) * 1e3)
+    med = statistics.median(per_step)
+    p90 = statistics.quantiles(per_step, n=10)[-1]
+    print(f"  train step: median {med:.3f} ms, p90 {p90:.3f} ms ({1e3 / med:.3f} steps/s at the median) on {card}")
+    return launches, {"median_ms": med, "p90_ms": p90, "steps_per_s": 1e3 / med, "steps": TRAIN_ITERS}
+
+
+KERNELS = {
+    "B1": ("B1 frame_render", "gomavatar_tpu_torch/csrc/frame_render.cu", "gomavatar_tpu/ops/frame_render.py:74"),
+    "B2": ("B2 splat_fwd", "gomavatar_tpu_torch/csrc/splat_composite.cu",
+           "gomavatar_tpu/ops/splat/pallas_kernel.py:164"),
+    "B3": ("B3 splat_bwd", "gomavatar_tpu_torch/csrc/splat_composite.cu",
+           "gomavatar_tpu/ops/splat/pallas_kernel.py:241"),
+    "B4": ("B4 mesh_fwd", "gomavatar_tpu_torch/csrc/mesh_raster.cu",
+           "gomavatar_tpu/ops/mesh_raster_pallas.py:126"),
+    "B5": ("B5 mesh_bwd", "gomavatar_tpu_torch/csrc/mesh_raster.cu",
+           "gomavatar_tpu/ops/mesh_raster_pallas.py:203"),
+}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's smoke test runs on an NVIDIA GPU", file=sys.stderr)
+        return 1
+    from gomavatar_tpu_torch import cuda_build
+
+    t_start = time.perf_counter()
+    card = card_line()
+    kind = torch.cuda.get_device_name(0)
+    print(f"card: {card}")
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.device_count()} device(s)")
+
+    def done(phase, t0):
+        print(f"  phase {phase}: {time.perf_counter() - t0:.1f} s")
+
+    # ---- 1. build
+    t0 = time.perf_counter()
+    logs = cuda_build.build_all()
+    print(f"[1] built {sorted(logs) or 'nothing (cached)'} in {time.perf_counter() - t0:.1f} s")
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "error" in line.lower():
+                print(f"  {name}: {line.strip()}")
+    done(1, t0)
+
+    t0 = time.perf_counter()
+    trained, b1 = phase_kernels_b1(card)
+    done(2, t0)
+    t0 = time.perf_counter()
+    b1_launches, fwd = phase_eval_path(trained, card)
+    done(3, t0)
+    t0 = time.perf_counter()
+    train_kernels = phase_train_kernels(trained)
+    done("4a", t0)
+    t0 = time.perf_counter()
+    train_launches, train = phase_train_path(trained, card)
+    done("4b-4d", t0)
+
+    measured = {"B1": dict(b1, launches=b1_launches)}
+    for k in ("B2", "B3", "B4", "B5"):
+        measured[k] = dict(train_kernels[k], launches=train_launches[k])
+    result = {"kernels": []}
+    for k, (name, source, replaces) in KERNELS.items():
+        m = measured[k]
+        result["kernels"].append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": m["launches"],
+            "max_abs_err": m["max_abs_err"], "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+            "bound_by": m["bound_by"], "library_ms": None,
+        })
+    print(json.dumps({"forward": fwd}))
+    print(json.dumps({"train_step": train, "seconds": time.perf_counter() - t_start}))
     print(json.dumps(result))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

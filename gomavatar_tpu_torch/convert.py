@@ -36,6 +36,46 @@ def params_from_jax(tree, device="cuda"):
     return torch.tensor(np.asarray(tree, dtype=np.float32), device=device)
 
 
+def lpips_from_jax(jax_params, device="cuda"):
+    """The JAX package's VGG LPIPS params (conv weights HWIO, heads (C, 1))
+    -> this package's (conv weights OIHW for ``F.conv2d``)."""
+    convs = [
+        {"w": torch.tensor(np.asarray(c["w"], np.float32).transpose(3, 2, 0, 1).copy(), device=device),
+         "b": torch.tensor(np.asarray(c["b"], np.float32), device=device)}
+        for c in jax_params["convs"]
+    ]
+    heads = [torch.tensor(np.asarray(h, np.float32), device=device) for h in jax_params["heads"]]
+    return {"convs": convs, "heads": heads}
+
+
+def adam_state_from_optax(opt_state, device="cuda"):
+    """An optax state of the JAX package's ``make_optimizer`` chain ->
+    ``optim.AdamState``: Adam's count and moments (leaves in sorted-key
+    order, as ``optim.tree_leaves`` lists them) and the decay schedule's
+    count (0 when the chain has no schedule)."""
+    from gomavatar_tpu_torch.optim import AdamState, tree_leaves
+
+    found = {}
+
+    def walk(s):
+        fields = getattr(s, "_fields", None)
+        if fields == ("count", "mu", "nu"):
+            found["adam"] = s
+        elif fields == ("count",):
+            found["schedule"] = int(np.asarray(s.count))
+        elif isinstance(s, (tuple, list)):
+            for x in s:
+                walk(x)
+
+    walk(opt_state)
+    adam = found["adam"]
+
+    def moments(tree):
+        return [torch.tensor(np.asarray(a, np.float32), device=device) for a in tree_leaves(tree)]
+
+    return AdamState(int(np.asarray(adam.count)), moments(adam.mu), moments(adam.nu), found.get("schedule", 0))
+
+
 def unflatten_params(npz) -> dict:
     """``params/a/0/b`` keys of a flat npz -> nested dicts; all-integer-keyed
     dicts become lists (the MLPs' ``layers``)."""
@@ -84,3 +124,12 @@ def load_trained(path=TRAINED, device="cuda"):
             for k in FRAME_KEYS
         }
     return params, statics, gom_cfg, frame
+
+
+def load_trained_state(path=TRAINED, device="cuda"):
+    """(state, frame) of the trained avatar, where ``state`` = (params,
+    statics, gom_cfg, i_iter, phase) starts a ``trainer.Trainer`` where its
+    training stopped."""
+    params, statics, gom_cfg, frame = load_trained(path, device)
+    meta = trained_meta(path)
+    return (params, statics, gom_cfg, int(meta["iter"]), int(meta["phase"])), frame

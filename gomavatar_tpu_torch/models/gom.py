@@ -1,17 +1,20 @@
-"""The GoM (Gaussians-on-Mesh) avatar model, eval half (port of
+"""The GoM (Gaussians-on-Mesh) avatar model (port of
 gomavatar_tpu/models/gom.py).
 
 State is split three ways, as in the reference:
   * ``params``: learnable tensors in a plain dict (vertices, per-face
     so3/scale, appearance colors, MLP weights, optionally lbs logits);
-  * ``GoMStatics``: per-phase non-learnable tensors (faces, vertex->face
-    incidence, fixed lbs weights);
+  * ``GoMStatics``: per-phase non-learnable tensors (faces, mesh topology,
+    target edge lengths, fixed lbs weights);
   * ``GoMConfig``: static Python scalars.
 
-``gom_forward(train=False)`` is the novel-view eval frame: pose refinement
--> non-rigid offsets -> FK + LBS -> ``render_frame_eval`` (per-face geometry
-table, per-face shadow MLP, sorted binning, kernel B1, untile, shading).
-The train path is not ported yet.
+Both paths start with pose refinement -> non-rigid offsets -> FK + LBS.
+``gom_forward(train=False)`` is the novel-view eval frame:
+``render_frame_eval`` (per-face geometry table, per-face shadow MLP, sorted
+binning, kernel B1, untile, shading).  ``gom_forward(train=True)`` is the
+differentiable train frame: Steiner covariances, one union binning shared
+by the splat blend (kernels B2/B3) and the mesh raster with its soft
+silhouette (kernels B4/B5), and the shadow MLP per pixel.
 """
 
 from __future__ import annotations
@@ -24,24 +27,35 @@ import torch
 
 from gomavatar_tpu_torch.models import modules as M
 from gomavatar_tpu_torch.ops.frame_render import NCMAX, render_frame_sorted
+from gomavatar_tpu_torch.ops.fused_render import frame_union_bins
 from gomavatar_tpu_torch.ops.geometry import frame_geometry
 from gomavatar_tpu_torch.ops.mesh_ops import (
+    MeshTopology,
+    gather_rows,
     replicate_face_attribute,
     subdivide_mesh,
-    vertex_face_incidence,
+    vertex_normals_from_tri,
 )
+from gomavatar_tpu_torch.ops.mesh_raster import np_log_blur, rasterize_mesh
 from gomavatar_tpu_torch.ops.skeleton import apply_lbs, get_global_RTs
-from gomavatar_tpu_torch.ops.splat.binning import CHUNK, bin_sorted
+from gomavatar_tpu_torch.ops.splat.binning import CHUNK, bin_sorted, compact_tiles
+from gomavatar_tpu_torch.ops.splat.render import render_gaussians
+from gomavatar_tpu_torch.ops.steiner import face_covariances_tri
 from gomavatar_tpu_torch.ops.transforms import mm, so3_exp
 
 
 class GoMStatics(NamedTuple):
-    """Per-phase tensors the eval forward reads."""
+    """Per-phase non-learnable tensors."""
 
     faces: torch.Tensor  # (F, 3) int64
     vf_incidence: torch.Tensor  # (N, maxdeg) int64 incident faces per vertex
     vf_valid: torch.Tensor  # (N, maxdeg) f32 mask
     lbs_weights: torch.Tensor  # (N, J) f32 (fixed path; ignored when refining)
+    edges: torch.Tensor  # (E, 2) int64 unique undirected edges
+    nc_quads: torch.Tensor  # (Q, 4) int64 normal-consistency quads
+    face_connectivity: torch.Tensor  # (Q, 2) int64 faces sharing an edge
+    vertex_degree: torch.Tensor  # (N,) f32
+    target_edge_length: torch.Tensor  # (E,) f32 canonical edge lengths
 
 
 # The default tile budgets (16 per primitive, entry buffer factor 4) were
@@ -64,20 +78,27 @@ def tile_budget_factor(num_faces: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class GoMConfig:
-    """Static scalars of the eval forward."""
+    """Static scalars of the model."""
 
     img_size: tuple[int, int]
     num_vertices: int
     num_faces: int
     sigma: float = 0.001
     radius_scale: float = 1.0
+    deform_so3: bool = True
+    deform_scale: bool = True
     lbs_refine: bool = False
     use_smplx: bool = False
     # module configs as hashable tuples of items (None = module disabled)
     pose_refinement: tuple | None = None
     non_rigid: tuple | None = None
     shadow: tuple | None = None
+    normal_renderer_sigma: float = 1e-5
+    # 'auto': the train splat blend goes by device (kernels B2/B3 on CUDA,
+    # their plain version on the CPU); 'reference': the brute-force oracle
+    splat_impl: str = "auto"
     max_tiles_per_gaussian: int = 16
+    max_tiles_per_face: int = 8
     # the sorted binning keeps N * buffer_factor + min(T, A) * CHUNK entries
     buffer_factor: int = 4
     # static cap on non-empty tiles (a 512^2 body view covers ~200 of 1024;
@@ -86,6 +107,11 @@ class GoMConfig:
     # two-band binning: every face gets binning_band0 tile slots, faces
     # covering more share an overflow band; None = single band
     binning_band0: int | None = 4
+    # the same for the train path's union binning (from_model_cfg sets 4*bf)
+    binning_band0_train: int | None = None
+    # cap on the non-empty tiles the train kernels sweep (None = every tile);
+    # tiles beyond it render empty and count as dropped in the telemetry
+    train_active_tile_cap: int | None = None
 
     @staticmethod
     def from_model_cfg(model_cfg: dict, num_vertices: int, num_faces: int) -> "GoMConfig":
@@ -102,13 +128,18 @@ class GoMConfig:
             num_faces=num_faces,
             sigma=float(cg["sigma"]),
             radius_scale=float(cg["radius_scale"]),
+            deform_so3=bool(cg["deform_so3"]),
+            deform_scale=bool(cg["deform_scale"]),
             lbs_refine=bool(model_cfg["lbs_weights"]["refine"]),
             use_smplx=bool(model_cfg.get("use_smplx", False)),
             pose_refinement=tup(model_cfg.get("pose_refinement")),
             non_rigid=tup(model_cfg.get("non_rigid")),
             shadow=tup(model_cfg.get("shadow_module")),
+            normal_renderer_sigma=float(model_cfg.get("normal_renderer", {}).get("sigma", 1e-5)),
             max_tiles_per_gaussian=max(_MTG_FLOOR, 16 * bf),
+            max_tiles_per_face=8 * bf,
             buffer_factor=4 * bf,
+            binning_band0_train=4 * bf,
             binning_band0=4 * bf,
         )
 
@@ -119,13 +150,23 @@ class GoMConfig:
         return {k: (list(v) if isinstance(v, tuple) else v) for k, v in t}
 
 
-def _build_statics(faces: np.ndarray, num_vertices: int, lbs_weights: np.ndarray, device) -> GoMStatics:
-    inc, valid = vertex_face_incidence(faces, num_vertices)
+def _build_statics(faces: np.ndarray, vertices: np.ndarray, lbs_weights: np.ndarray, device) -> GoMStatics:
+    topo = MeshTopology.build(faces, len(vertices))
+    tel = np.linalg.norm(vertices[topo.edges[:, 0]] - vertices[topo.edges[:, 1]], axis=-1).astype(np.float32)
+
+    def dev(a, dtype=None):
+        return torch.as_tensor(np.asarray(a, dtype), device=device)
+
     return GoMStatics(
-        faces=torch.as_tensor(np.asarray(faces, np.int64), device=device),
-        vf_incidence=torch.as_tensor(inc, device=device),
-        vf_valid=torch.as_tensor(valid, device=device),
-        lbs_weights=torch.as_tensor(np.asarray(lbs_weights, np.float32), device=device),
+        faces=dev(faces, np.int64),
+        vf_incidence=dev(topo.vf_incidence, np.int64),
+        vf_valid=dev(topo.vf_valid, np.float32),
+        lbs_weights=dev(lbs_weights, np.float32),
+        edges=dev(topo.edges, np.int64),
+        nc_quads=dev(topo.nc_quads, np.int64),
+        face_connectivity=dev(topo.face_connectivity, np.int64),
+        vertex_degree=dev(topo.vertex_degree, np.float32),
+        target_edge_length=dev(tel),
     )
 
 
@@ -145,7 +186,7 @@ def init_gom(
     N, F = len(vertices), len(faces)
 
     gom_cfg = GoMConfig.from_model_cfg(model_cfg, N, F)
-    statics = _build_statics(faces, N, lbs_w, device)
+    statics = _build_statics(faces, vertices, lbs_w, device)
     params: dict[str, Any] = {
         "vertices": torch.as_tensor(vertices, device=device),
         "so3": torch.zeros((F, 3), dtype=torch.float32, device=device),
@@ -259,7 +300,11 @@ def posed_vertices(
     """Observation-space vertices (N, 3): pose refinement, non-rigid
     offsets, FK + LBS and the optional global transform, each gated by its
     kick-in iteration."""
-    i_iter = torch.as_tensor(i_iter, dtype=torch.float32, device=dst_Rs.device)
+    if isinstance(i_iter, torch.Tensor):
+        i_iter = i_iter.to(dtype=torch.float32, device=dst_Rs.device)
+    else:
+        # filled on the device: a host-to-device copy would wait for the stream
+        i_iter = torch.full((), float(i_iter), dtype=torch.float32, device=dst_Rs.device)
 
     if cfg.pose_refinement is not None:
         pr_cfg = cfg.module_cfg("pose_refinement")
@@ -287,6 +332,90 @@ def posed_vertices(
     return verts_obs
 
 
+def train_geometry(params: dict, statics: GoMStatics, cfg: GoMConfig, verts_obs: torch.Tensor,
+                   K: torch.Tensor, E: torch.Tensor) -> dict:
+    """The per-frame inputs of the train renderers: the gathered triangles,
+    Steiner covariances, centroids, colors, camera-space vertex normals, and
+    the shared union binning (integers only, built without autograd)."""
+    faces = statics.faces
+    tri = gather_rows(verts_obs, faces)  # (F, 3, 3): one gather for every consumer
+    cov = face_covariances_tri(tri, params["so3"], params["scale"], cfg.sigma)
+    centroids = tri.mean(dim=1)
+    normals = vertex_normals_from_tri(tri, statics.vf_incidence, statics.vf_valid)
+    W, H = cfg.img_size
+    # the soft silhouette's blur radius in pixels (NDC spans 2 over the
+    # short side), plus one pixel
+    blur_margin_px = (np_log_blur(cfg.normal_renderer_sigma) ** 0.5) / (2.0 / min(W, H)) + 1.0
+    with torch.no_grad():
+        bins = frame_union_bins(
+            centroids, cov, verts_obs, faces, K, E, cfg.img_size,
+            blur_margin_px=blur_margin_px,
+            max_tiles_per_primitive=cfg.max_tiles_per_gaussian,
+            buffer_factor=cfg.buffer_factor,
+            band0=cfg.binning_band0_train,
+            overflow_cap=max(faces.shape[0] // 8, 2048),
+        )[4]
+    return {
+        "cov": cov,
+        "centroids": centroids,
+        "colors": M.appearance_apply(params["appearance"]),
+        "opacity": torch.ones((cfg.num_faces,), dtype=torch.float32, device=verts_obs.device),
+        "normals_cam": mm(normals, E[:3, :3].T),
+        "bins": bins,
+    }
+
+
+def render_frame_train(params: dict, statics: GoMStatics, cfg: GoMConfig, verts_obs: torch.Tensor,
+                       K: torch.Tensor, E: torch.Tensor):
+    """The differentiable train frame: splat blend (kernels B2/B3) and mesh
+    raster with the soft silhouette (kernels B4/B5) over one shared binning,
+    then the shadow MLP per pixel.  Returns (rgb, mask, aux)."""
+    g = train_geometry(params, statics, cfg, verts_obs, K, E)
+    bins = g["bins"]
+    albedo, mask = render_gaussians(
+        g["centroids"], g["cov"], g["colors"], g["opacity"], K, E, cfg.img_size,
+        implementation=cfg.splat_impl,
+        max_tiles_per_gaussian=cfg.max_tiles_per_gaussian,
+        bins=bins,
+        active_cap=cfg.train_active_tile_cap,
+    )
+    mesh_out = rasterize_mesh(
+        verts_obs, g["normals_cam"], statics.faces, K, E, cfg.img_size,
+        soft_mask=True,
+        blur_sigma=cfg.normal_renderer_sigma,
+        max_tiles_per_face=cfg.max_tiles_per_face,
+        bins=bins,
+        active_cap=cfg.train_active_tile_cap,
+    )
+    if cfg.shadow is not None:
+        # the shadow MLP on the normal map, x2 for identity at init
+        W, H = cfg.img_size
+        shading = M.shadow_apply(params["shadow"], cfg.module_cfg("shadow"), mesh_out.normal.reshape(-1, 3))
+        shading = shading.reshape(H, W, 1) * 2.0
+        rgb = albedo * shading
+    else:
+        shading = None
+        rgb = albedo
+
+    tel = bins.telemetry
+    if cfg.train_active_tile_cap is not None:
+        # entries of the non-empty tiles beyond the cap are never swept
+        dropped_active = compact_tiles(bins.tile_start, bins.tile_count, cfg.train_active_tile_cap)[5]
+        tel = tel._replace(dropped_buffer=tel.dropped_buffer + dropped_active)
+    aux = {
+        "colors": g["colors"],
+        "verts_obs": verts_obs,
+        "verts_cnl": params["vertices"],
+        "albedo": albedo,
+        "normal": mesh_out.normal,
+        "normal_mask": mesh_out.soft_mask,
+        "shadow": shading,
+        # all zero means no binning budget dropped an entry
+        "binning": tel,
+    }
+    return rgb, mask, aux
+
+
 def gom_forward(
     params: dict,
     statics: GoMStatics,
@@ -303,12 +432,12 @@ def gom_forward(
     train: bool = False,
     device="cuda",
 ):
-    """Single-frame eval forward on ``device``, where params and statics
-    must already live; the per-frame inputs (tensors or arrays) are moved
-    there.  Returns (rgb (H, W, 3), mask (H, W), aux) with the binning
-    telemetry and ``tile_overflow`` in aux."""
-    if train:
-        raise NotImplementedError("the train path of gom_forward is not ported yet")
+    """Single-frame forward on ``device``, where params and statics must
+    already live; the per-frame inputs (tensors or arrays) are moved there.
+    Returns (rgb (H, W, 3), mask (H, W), aux).  Eval (``train=False``): aux
+    holds the binning telemetry and ``tile_overflow``.  Train: differentiable
+    in ``params``; aux holds colors, verts_obs, verts_cnl, albedo, normal,
+    normal_mask (the soft silhouette), shadow and the telemetry."""
     device = torch.device(device)
     if params["vertices"].device.type != device.type or statics.faces.device.type != device.type:
         raise ValueError(f"params and statics must live on {device} (see init_gom / load_trained)")
@@ -322,6 +451,8 @@ def gom_forward(
     verts_obs = posed_vertices(
         params, statics, cfg, cnl_gtfms, dst_Rs, dst_Ts, dst_posevec, i_iter, global_R, global_T
     )
+    if train:
+        return render_frame_train(params, statics, cfg, verts_obs, K, E)
     colors = M.appearance_apply(params["appearance"])
     return render_frame_eval(params, statics, cfg, verts_obs, colors, K, E)
 
@@ -353,7 +484,7 @@ def subdivide_gom(params: dict, statics: GoMStatics, cfg: GoMConfig):
     if cfg.lbs_refine:
         new_params["lbs_logits"] = torch.log(torch.as_tensor(new_lbs, device=device) + 1e-9)
 
-    new_statics = _build_statics(new_faces, N2, new_lbs, device)
+    new_statics = _build_statics(new_faces, new_verts, new_lbs, device)
     # Rescale the tile budgets by the ratio of budget factors; the per-
     # gaussian budget keeps its floor, which wins over any custom value below
     # it (sub-floor budgets drop trained splat coverage at every phase).
@@ -364,9 +495,13 @@ def subdivide_gom(params: dict, statics: GoMStatics, cfg: GoMConfig):
         num_vertices=N2,
         num_faces=F2,
         max_tiles_per_gaussian=max(_MTG_FLOOR, cfg.max_tiles_per_gaussian * bf_new // bf_old),
+        max_tiles_per_face=max(1, cfg.max_tiles_per_face * bf_new // bf_old),
         buffer_factor=max(1, cfg.buffer_factor * bf_new // bf_old),
         binning_band0=(
             None if cfg.binning_band0 is None else max(1, cfg.binning_band0 * bf_new // bf_old)
+        ),
+        binning_band0_train=(
+            None if cfg.binning_band0_train is None else max(1, cfg.binning_band0_train * bf_new // bf_old)
         ),
     )
     return new_params, new_statics, new_cfg

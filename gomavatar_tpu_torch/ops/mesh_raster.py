@@ -1,0 +1,242 @@
+"""Differentiable mesh rasterization: the hard normal pass and the soft
+silhouette (port of gomavatar_tpu/ops/mesh_raster.py).
+
+Semantics, as in the reference:
+  * the pixel normal is the SUM of the winning face's three vertex normals
+    (flat per face, no barycentric gradient);
+  * the z-buffer uses 2D (not perspective-corrected) barycentric depth, and
+    the first entry in depth-sorted order at the minimum depth wins;
+  * the soft silhouette is 1 - prod(1 - sigmoid(-signed d^2 / sigma)) over
+    every face binned to the pixel's tile, with d the distance to the
+    triangle's boundary in pixels and the sign negative inside;
+  * pixel centres sit at integer coordinates of ``fx X/Z + cx - 0.5``, as
+    in the splat renderer.
+
+``rasterize_mesh`` gathers the per-entry channels and hands them to
+``mesh_raster_pallas.mesh_composite``: CUDA tensors go through kernels B4
+(forward) and B5 (backward), CPU tensors through
+:func:`mesh_composite_plain`, the plain PyTorch version differentiated by
+autograd.  Normals get gradients from the hard pass, vertex positions from
+the soft pass.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from gomavatar_tpu_torch.ops.mesh_ops import gather_rows
+from gomavatar_tpu_torch.ops.splat.binning import CHUNK, bin_bboxes
+from gomavatar_tpu_torch.ops.splat.tiled_jnp import NCMAX, P, tile_pixels
+from gomavatar_tpu_torch.ops.transforms import mm
+
+_Z_NEAR = 1e-5
+_BIG = 1e10
+NCH = 16  # entry rows: x0 y0 x1 y1 x2 y2 | z0 z1 z2 | nsum xyz | valid | pad
+_ONE_MINUS = 1.0 - 1e-7
+
+
+class MeshRasterOut(NamedTuple):
+    normal: torch.Tensor  # (H, W, 3) summed-vertex-normal map (0 where no hit)
+    mask: torch.Tensor  # (H, W) hard coverage in {0, 1}
+    soft_mask: torch.Tensor | None  # (H, W) sigmoid-blended silhouette
+
+
+def project_mesh(verts: torch.Tensor, K: torch.Tensor, E: torch.Tensor):
+    """World vertices -> (pixel xy (N, 2), camera z (N,))."""
+    cam = mm(verts, E[:3, :3].T) + E[:3, 3]
+    z = cam[..., 2]
+    z_safe = torch.where(z > _Z_NEAR, z, torch.ones_like(z))
+    x = K[0, 0] * cam[..., 0] / z_safe + K[0, 2] - 0.5
+    y = K[1, 1] * cam[..., 1] / z_safe + K[1, 2] - 0.5
+    return torch.stack([x, y], dim=-1), z
+
+
+def project_faces(verts: torch.Tensor, faces: torch.Tensor, K: torch.Tensor, E: torch.Tensor):
+    """(pixel xy (F, 3, 2), camera z (F, 3), in front (F,) bool) of each
+    face's vertices; a face is in front when all three lie past the near
+    plane."""
+    xy, z = project_mesh(verts, K, E)
+    tris_z = gather_rows(z, faces)
+    return gather_rows(xy, faces), tris_z, torch.all(tris_z > _Z_NEAR, dim=-1)
+
+
+def np_log_blur(blur_sigma: float) -> float:
+    """blur_radius = log(1/1e-4 - 1) * sigma (in NDC^2)."""
+    return math.log(1.0 / 1e-4 - 1.0) * blur_sigma
+
+
+def _point_tri_sq_dist(px, py, x0, y0, x1, y1, x2, y2):
+    """Unsigned squared distance from pixels to the triangle boundary (the
+    minimum over its three edge segments); operands broadcast together."""
+
+    def seg(ax, ay, bx, by):
+        abx = bx - ax
+        aby = by - ay
+        denom = abx * abx + aby * aby
+        t = ((px - ax) * abx + (py - ay) * aby) / torch.clamp_min(denom, 1e-12)
+        # minimum/maximum split the gradient at ties, as the reference's clip does
+        t = torch.minimum(torch.maximum(t, torch.zeros_like(t)), torch.ones_like(t))
+        dx = px - (ax + t * abx)
+        dy = py - (ay + t * aby)
+        return dx * dx + dy * dy
+
+    d01 = seg(x0, y0, x1, y1)
+    d12 = seg(x1, y1, x2, y2)
+    d20 = seg(x2, y2, x0, y0)
+    return torch.minimum(d01, torch.minimum(d12, d20))
+
+
+def mesh_composite_plain(
+    entries: torch.Tensor,  # (NCH, Dp)
+    tile_start: torch.Tensor,  # (T,)
+    tile_count: torch.Tensor,  # (T,)
+    num_tiles_x: int,
+    num_tiles_y: int,
+    soft: bool,
+    sigma_px2: float,
+    max_chunks: int = NCMAX,
+):
+    """Plain PyTorch B4: (hard (T, 4, P) = [normal xyz, hit], soft (T, 1, P)),
+    differentiable by autograd.  The loop runs over the non-empty tiles
+    together, chunk by chunk, up to the longest segment (at most
+    ``max_chunks``); it has no saturation skip."""
+    T = num_tiles_x * num_tiles_y
+    Dp = entries.shape[1]
+    dev = entries.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    hard_t = torch.zeros((T, 4, P), **f32)
+    soft_t = torch.zeros((T, 1, P), **f32)
+    tiles = torch.nonzero(tile_count > 0).flatten()
+    if tiles.numel() == 0:
+        return hard_t, soft_t
+    start = tile_start[tiles].long()
+    count = tile_count[tiles].long()
+    kmax = int(torch.clamp_max(torch.div(count + CHUNK - 1, CHUNK, rounding_mode="floor"), max_chunks).max())
+    px, py = tile_pixels(tiles, num_tiles_x)
+    px, py = px[:, :, None], py[:, :, None]  # (n, P, 1)
+    lane = torch.arange(CHUNK, device=dev)
+
+    n = tiles.shape[0]
+    zero = torch.zeros((), **f32)
+    best_z = torch.full((n, P), _BIG, **f32)
+    best_n = torch.zeros((n, 3, P), **f32)
+    log_om = torch.zeros((n, P), **f32)
+    for k in range(kmax):
+        offs = torch.clamp_max(start + k * CHUNK, Dp - CHUNK)
+        in_range = (k * CHUNK < count).to(torch.float32)[:, None, None]
+        e = entries[:, offs[:, None] + lane][:, :, None, :]  # (NCH, n, 1, CHUNK)
+        x0, y0, x1, y1, x2, y2 = e[0], e[1], e[2], e[3], e[4], e[5]
+        ev = e[12] * in_range
+        # edge functions -> barycentrics
+        denom = (y1 - y2) * (x0 - x2) + (x2 - x1) * (y0 - y2)
+        denom_bad = torch.abs(denom) < 1e-12
+        denom_safe = torch.where(denom_bad, torch.ones_like(denom), denom)
+        w0 = ((y1 - y2) * (px - x2) + (x2 - x1) * (py - y2)) / denom_safe
+        w1 = ((y2 - y0) * (px - x2) + (x0 - x2) * (py - y2)) / denom_safe
+        w2 = 1.0 - w0 - w1  # (n, P, CHUNK)
+        inside = (w0 >= 0) & (w1 >= 0) & (w2 >= 0)
+        ok = inside & (ev > 0) & ~denom_bad
+        z_px = w0 * e[6] + w1 * e[7] + w2 * e[8]
+        z_cand = torch.where(ok, z_px, torch.full_like(z_px, _BIG))
+
+        # hard pass: the first lane at the chunk minimum, kept on a strict <
+        z_chunk = torch.amin(z_cand, dim=-1)  # (n, P)
+        first = torch.amin(torch.where(z_cand <= z_chunk[..., None], lane, 2 * CHUNK), dim=-1)
+        nsum = e[9:12, :, 0, :].permute(1, 0, 2)  # (n, 3, CHUNK)
+        n_chunk = torch.gather(nsum, 2, first[:, None, :].expand(n, 3, P))
+        better = z_chunk < best_z
+        best_n = torch.where(better[:, None, :], n_chunk, best_n)
+        best_z = torch.where(better, z_chunk, best_z)
+
+        if soft:
+            d2 = _point_tri_sq_dist(px, py, x0, y0, x1, y1, x2, y2)
+            signed = torch.where(inside, -d2, d2)
+            prob = torch.sigmoid(-signed / sigma_px2)
+            prob = torch.where(ev > 0, prob, zero)
+            log_om = log_om + torch.sum(torch.log1p(-torch.minimum(prob, torch.full_like(prob, _ONE_MINUS))), dim=-1)
+
+    hit = (best_z < _BIG).to(torch.float32)
+    hard = torch.cat([best_n * hit[:, None, :], hit[:, None, :]], dim=1)
+    hard_t = hard_t.index_copy(0, tiles, hard)
+    if soft:
+        soft_t = soft_t.index_copy(0, tiles, (1.0 - torch.exp(log_om))[:, None, :])
+    return hard_t, soft_t
+
+
+def rasterize_mesh(
+    verts: torch.Tensor,
+    vertex_normals: torch.Tensor,
+    faces: torch.Tensor,
+    K: torch.Tensor,
+    E: torch.Tensor,
+    img_size: tuple[int, int],
+    soft_mask: bool = True,
+    sigma: float = 1e-4,
+    blur_sigma: float = 1e-5,
+    max_tiles_per_face: int = 16,
+    buffer_factor: int = 8,
+    bins=None,
+    active_cap: int | None = None,
+) -> MeshRasterOut:
+    """Rasterize the mesh: verts (N, 3) in world space, vertex_normals (N, 3)
+    already rotated into camera space, faces (F, 3), img_size (W, H) in
+    multiples of 16.  ``soft_mask`` adds the sigmoid silhouette (training
+    only); ``sigma`` is its temperature in NDC^2 and ``blur_sigma`` sets the
+    blur radius, log(1/1e-4 - 1) * blur_sigma in NDC^2.  ``bins`` (a
+    TileBinning) replaces the binning of the triangle boxes."""
+    from gomavatar_tpu_torch.ops.mesh_raster_pallas import mesh_composite
+    from gomavatar_tpu_torch.ops.splat.render import cap_active_tiles
+
+    W, H = img_size
+    tris_xy, tris_z, in_front = project_faces(verts, faces, K, E)
+
+    if bins is None:
+        # NDC spans 2 over the short side
+        ndc_per_px = 2.0 / min(W, H)
+        margin = (np_log_blur(blur_sigma) ** 0.5) / ndc_per_px + 1.0 if soft_mask else 1.0
+        with torch.no_grad():
+            bins = bin_bboxes(
+                torch.amin(tris_xy[..., 0], dim=1) - margin,
+                torch.amax(tris_xy[..., 0], dim=1) + margin,
+                torch.amin(tris_xy[..., 1], dim=1) - margin,
+                torch.amax(tris_xy[..., 1], dim=1) + margin,
+                torch.amin(tris_z, dim=-1), in_front, img_size,
+                max_tiles_per_primitive=max_tiles_per_face,
+                buffer_factor=buffer_factor,
+            )
+
+    entries, ent_valid = mesh_entries(tris_xy, tris_z, in_front, vertex_normals, faces, bins)
+    normal, mask, soft = mesh_composite(
+        entries, ent_valid, bins.tile_start, cap_active_tiles(bins.tile_count, active_cap),
+        bins.num_tiles_x, bins.num_tiles_y, soft_mask, soft_sigma_px2(sigma, img_size),
+    )
+    return MeshRasterOut(normal=normal, mask=mask, soft_mask=soft if soft_mask else None)
+
+
+def soft_sigma_px2(sigma: float, img_size: tuple[int, int]) -> float:
+    """The soft silhouette's sigmoid temperature in px^2 (``sigma`` is in
+    NDC^2, and NDC spans 2 over the short side)."""
+    ndc_per_px = 2.0 / min(img_size)
+    return float(sigma) / (ndc_per_px * ndc_per_px)
+
+
+def mesh_entries(tris_xy, tris_z, in_front, vertex_normals, faces, bins):
+    """(entries (16, Dp), entry validity (Dp,)) of kernels B4/B5: per entry
+    the face's three pixel-space vertices, their depths, the summed vertex
+    normal and the validity row, which holds the entry's mesh flag (keeping
+    the mesh pass inside its own boxes under a union binning) times the
+    face's in-front flag."""
+    nsum = gather_rows(vertex_normals, faces).sum(dim=1)
+    F = faces.shape[0]
+    per_face = torch.cat(
+        [tris_xy.reshape(-1, 6), tris_z, nsum,
+         torch.ones((F, 1), dtype=tris_xy.dtype, device=tris_xy.device),  # row 12: validity
+         torch.zeros((F, NCH - 13), dtype=tris_xy.dtype, device=tris_xy.device)],
+        dim=-1,
+    )
+    ent_valid = bins.entry_mesh * in_front[bins.entry_gauss].to(torch.float32)
+    entries = gather_rows(per_face, bins.entry_gauss).T
+    return torch.cat([entries[:12], entries[12:13] * ent_valid, entries[13:]]), ent_valid

@@ -1,12 +1,18 @@
-"""Sorted-segment tile binning for the fused eval renderer (port of the
-``bin_sorted`` path of gomavatar_tpu/ops/splat/binning.py).
+"""Tile binning (port of gomavatar_tpu/ops/splat/binning.py).
 
 Each primitive emits up to ``max_tiles_per_primitive`` (tile, depth) entries
 covering its bounding box; entries are sorted by tile, then by the 21-bit
-depth key, then by (primitive id << 2 | pass flags), and every non-empty
-tile becomes a (start, count) segment of that order.  Non-empty tiles are
-compacted into ``active_cap`` static slots.  Shapes depend only on the
-inputs' shapes, so nothing here waits for the device.
+depth key, then by (primitive id << 2 | pass flags).  Two layouts follow:
+
+* ``bin_sorted`` (the eval renderer, kernel B1): every non-empty tile is a
+  (start, count) segment of the sorted order, and non-empty tiles are
+  compacted into ``active_cap`` static slots;
+* ``bin_bboxes`` (the train kernels B2-B5): the sorted entries are repacked
+  so that every tile's segment starts at a 128-aligned offset of a flat
+  buffer and is zero-padded to a multiple of 128.
+
+Shapes depend only on the inputs' shapes, so nothing here waits for the
+device.
 
 The sort: the reference sorts the u32 key ``tile << 21 | depth21`` and then
 the payload (``lax.sort(num_keys=2)``).  The port packs both into one int64,
@@ -26,6 +32,33 @@ TILE = 16  # pixels per tile side
 CHUNK = 128  # entries per sweep step of kernel B1; also the alignment unit
 
 _PAYLOAD_BITS = 31
+
+
+def written_slot_mask(
+    tile_start: torch.Tensor, tile_count: torch.Tensor, num_entries: int, ncmax: int
+) -> torch.Tensor:
+    """(num_entries,) f32 mask: 1 where a train kernel's tile WRITES its
+    ``d_entries`` slot, i.e. the first ``min(tile_count, ncmax * CHUNK)``
+    entries of each tile's segment.  Gradients of other slots must be
+    *selected* out with ``torch.where``: multiplying by 0 keeps a NaN.
+
+    Computed as interval coverage (+1/-1 at the segments' chunk bounds, then
+    a cumsum), which stays exact where buffer clamping makes several tiles
+    share a ``tile_start``."""
+    n_slots = num_entries // CHUNK
+    dev = tile_start.device
+    nonempty = tile_count > 0
+    s = torch.where(nonempty, tile_start.long() // CHUNK, torch.full_like(tile_start, n_slots, dtype=torch.int64))
+    e = s + torch.where(
+        nonempty, torch.clamp_max(tile_count.long(), ncmax * CHUNK) // CHUNK, torch.zeros_like(s)
+    )
+    # one spare bin past the end takes what the reference drops
+    delta = torch.zeros((n_slots + 2,), dtype=torch.int32, device=dev)
+    ones = torch.ones_like(s, dtype=torch.int32)
+    delta.index_add_(0, torch.clamp_max(s, n_slots + 1), ones)
+    delta.index_add_(0, torch.clamp_max(e, n_slots + 1), -ones)
+    covered = torch.cumsum(delta[:n_slots], 0) > 0
+    return torch.repeat_interleave(covered.to(torch.float32), CHUNK)
 
 
 def compact_tiles(tile_start: torch.Tensor, tile_count: torch.Tensor, active_cap: int):
@@ -78,6 +111,23 @@ class BinningTelemetry(NamedTuple):
 
     def total_dropped(self) -> torch.Tensor:
         return self.dropped_budget + self.dropped_buffer
+
+
+class TileBinning(NamedTuple):
+    """128-aligned per-tile segments of a flat entry buffer (the train
+    kernels' layout).  ``entry_splat``/``entry_mesh`` are 1 iff the entry's
+    tile lies in the primitive's own splat/mesh box: a union binning serves
+    both passes, and each pass gates its entries with its flag."""
+
+    entry_gauss: torch.Tensor  # (Dp,) int64 primitive index per entry (0 for pad)
+    entry_valid: torch.Tensor  # (Dp,) f32 1/0 (0 for pad)
+    entry_splat: torch.Tensor  # (Dp,) f32 1/0
+    entry_mesh: torch.Tensor  # (Dp,) f32 1/0
+    tile_start: torch.Tensor  # (T,) int32, 128-aligned offsets into the entries
+    tile_count: torch.Tensor  # (T,) int32, multiples of CHUNK (padded counts)
+    num_tiles_x: int
+    num_tiles_y: int
+    telemetry: BinningTelemetry
 
 
 class SortedBinning(NamedTuple):
@@ -278,4 +328,123 @@ def bin_sorted(
         num_tiles_x=TX,
         num_tiles_y=TY,
         telemetry=telemetry,
+    )
+
+
+def bin_bboxes(
+    bx0: torch.Tensor,
+    bx1: torch.Tensor,
+    by0: torch.Tensor,
+    by1: torch.Tensor,
+    depth: torch.Tensor,
+    valid: torch.Tensor,
+    img_size: tuple[int, int],
+    max_tiles_per_primitive: int = 32,
+    buffer_factor: int = 8,
+    flag_boxes=None,
+    band0: int | None = None,
+    overflow_cap: int | None = None,
+) -> TileBinning:
+    """Bin primitives given pixel bounding boxes into 128-aligned per-tile
+    segments of a flat buffer of ``(N * buffer_factor + T * CHUNK) // CHUNK``
+    chunks (see TileBinning).  Segments that would overflow the buffer are
+    clamped, and the telemetry counts what was dropped.  ``flag_boxes`` =
+    (splat_box, mesh_box) records per-entry pass membership, as in
+    :func:`bin_sorted`."""
+    W, H = img_size
+    if W % TILE or H % TILE:
+        raise ValueError(f"image size {img_size} must be a multiple of {TILE}")
+    TX, TY = W // TILE, H // TILE
+    T = TX * TY
+    # the sort key holds tile_id (sentinel = T) in 11 bits above the depth
+    if T >= 2048:
+        raise ValueError(f"{TX}x{TY}={T} tiles overflows the 11-bit sort key")
+    N = bx0.shape[0]
+    M = max_tiles_per_primitive
+    dev = bx0.device
+
+    x0, x1, y0, y1 = _tile_ranges(bx0, bx1, by0, by1, TX, TY)
+    bw = x1 - x0 + 1
+    n_cover = bw * (y1 - y0 + 1)
+
+    s_key, s_payload, _, lost_cap, trimmed_prims = _sorted_entry_keys(
+        x0, y0, bw, n_cover, valid, depth, flag_boxes,
+        TX, TY, T, M, band0, overflow_cap,
+    )
+
+    bounds = torch.arange(T + 1, dtype=torch.int64, device=dev) << 21
+    start = torch.searchsorted(s_key, bounds)
+    counts = start[1:] - start[:-1]  # (T,) real entries per tile
+    start = start[:-1]
+
+    # 128-aligned repack as a gather: segments are laid out in tile order,
+    # so the tile owning an output chunk is found by one search per chunk
+    padded_counts = ((counts + CHUNK - 1) // CHUNK) * CHUNK
+    aligned_start = torch.cat(
+        [torch.zeros((1,), dtype=torch.int64, device=dev), torch.cumsum(padded_counts, 0)[:-1]]
+    )
+    Dp = N * buffer_factor + T * CHUNK
+    n_slots = Dp // CHUNK
+    slot_d = torch.arange(n_slots, dtype=torch.int64, device=dev) * CHUNK
+    t_of_slot = torch.searchsorted(aligned_start, slot_d, right=True) - 1
+    slot_r0 = slot_d - aligned_start[t_of_slot]
+    slot_src0 = start[t_of_slot] + slot_r0
+    slot_count = counts[t_of_slot]
+    lane = torch.arange(CHUNK, dtype=torch.int64, device=dev)[None, :]
+    real = ((slot_r0[:, None] + lane) < slot_count[:, None]).reshape(-1)
+    # each output chunk is a contiguous 128-run of the sorted payload; the
+    # zero tail keeps every run in bounds (a run may start at the end)
+    payload_pad = torch.cat([s_payload, torch.zeros((CHUNK,), dtype=s_payload.dtype, device=dev)])
+    src = torch.clamp(slot_src0, 0, payload_pad.shape[0] - CHUNK)
+    packed = payload_pad[src[:, None] + lane].reshape(-1)
+    packed = torch.where(real, packed, torch.zeros_like(packed))
+
+    # clamp the counts of tiles whose aligned segment would overflow the buffer
+    seg_end = torch.clamp_max(aligned_start + padded_counts, Dp)
+    tile_count = torch.clamp_min(seg_end - torch.clamp_max(aligned_start, Dp), 0)
+    tile_count = (tile_count // CHUNK) * CHUNK
+    tile_start = torch.clamp_max(aligned_start, Dp - CHUNK)
+
+    over = torch.clamp_min(n_cover - M, 0) * valid.to(torch.int64)
+    kept = torch.minimum(counts, tile_count)
+    telemetry = BinningTelemetry(
+        truncated_prims=(torch.sum((over > 0).to(torch.int64)) + trimmed_prims).to(torch.int32),
+        dropped_budget=(torch.sum(over) + lost_cap).to(torch.int32),
+        dropped_buffer=torch.sum(counts - kept).to(torch.int32),
+        max_tile_entries=torch.max(counts).to(torch.int32),
+    )
+    return TileBinning(
+        entry_gauss=packed >> 2,
+        entry_valid=real.to(torch.float32),
+        entry_splat=(packed & 1).to(torch.float32),
+        entry_mesh=((packed >> 1) & 1).to(torch.float32),
+        tile_start=tile_start.to(torch.int32),
+        tile_count=tile_count.to(torch.int32),
+        num_tiles_x=TX,
+        num_tiles_y=TY,
+        telemetry=telemetry,
+    )
+
+
+def bin_gaussians(
+    mean2d: torch.Tensor,
+    radius: torch.Tensor,
+    depth: torch.Tensor,
+    valid: torch.Tensor,
+    img_size: tuple[int, int],
+    max_tiles_per_gaussian: int = 32,
+    buffer_factor: int = 8,
+    band0: int | None = None,
+    overflow_cap: int | None = None,
+) -> TileBinning:
+    """:func:`bin_bboxes` of the gaussians' square radius boxes: mean2d
+    (N, 2) pixel centres, radius (N,) pixel radii (0 = culled)."""
+    r = torch.where(valid, radius, torch.zeros_like(radius))
+    return bin_bboxes(
+        mean2d[:, 0] - r, mean2d[:, 0] + r, mean2d[:, 1] - r, mean2d[:, 1] + r,
+        depth, valid, img_size,
+        max_tiles_per_primitive=max_tiles_per_gaussian,
+        buffer_factor=buffer_factor,
+        band0=band0,
+        overflow_cap=overflow_cap,
     )

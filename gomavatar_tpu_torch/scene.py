@@ -9,13 +9,49 @@ of the eval forward is on and no config module is needed.
 
 from __future__ import annotations
 
+import copy
+
 import numpy as np
 import torch
 
+from gomavatar_tpu_torch.config import default_cfg
 from gomavatar_tpu_torch.convert import TRAINED, trained_meta
 from gomavatar_tpu_torch.models.gom import init_gom
 from gomavatar_tpu_torch.models.smpl import synthetic_body, synthetic_camera
 from gomavatar_tpu_torch.ops.skeleton import body_pose_to_body_RTs, get_canonical_global_tfms
+
+
+# The train section of configs/exps/e2e_synthetic.yaml (the trained
+# avatar's experiment), written out so that no yaml reader is needed, and
+# merged over the defaults as make_cfg merges the file.
+E2E_TRAIN = default_cfg()["train"].merge({
+    "losses": {
+        "laplacian": {"coeff_observation": 10.0},
+        "normal": {"mask_dilate": True, "kernel_size": 7, "coeff_mask": 1.0, "coeff_consist": 0.1},
+        "color_consist": {"coeff": 0.05},
+    },
+    "lr": {
+        "appearance": 0.0005,
+        "canonical_geometry": 0.0005,
+        "canonical_geometry_xyz": 0.0005,
+        "non_rigid": 0.0005,
+        "pose_refinement": 5.0e-05,
+        "shadow": 0.0005,
+    },
+    "lr_update_exp": True,
+    "lr_decay_steps": 2000,
+    "log_freq": 50,
+    "tb_freq": 1000,
+    "eval_freq": 1000,
+    "save_freq": 1000,
+    "total_iters": 6000,
+})
+
+
+def trained_train_cfg(path=TRAINED) -> dict:
+    """The config a Trainer of the trained avatar runs: its model config
+    (with subdivide_iters) and :data:`E2E_TRAIN`."""
+    return {"model": trained_meta(path)["model_cfg"], "train": copy.deepcopy(E2E_TRAIN)}
 
 
 def gate_model_cfg(img_size=(64, 64), path=TRAINED) -> dict:

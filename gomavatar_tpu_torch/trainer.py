@@ -1,0 +1,143 @@
+"""The train step and the phase-managing trainer (port of the train-step half
+of gomavatar_tpu/trainer.py).
+
+One step is ``gom_forward(train=True)`` -> ``unpack`` -> ``compute_loss`` ->
+the backward (kernels B3 and B5 on the card) -> one Adam update.  A
+subdivision milestone (``cfg["model"]["subdivide_iters"]``) changes the
+phase: the state is subdivided and the optimizer rebuilt, with its decay
+schedule fast-forwarded to the global iteration.  No step waits for the
+device: the losses and the binning telemetry come back as device tensors.
+"""
+
+from __future__ import annotations
+
+import logging
+
+import torch
+
+from gomavatar_tpu_torch.losses import compute_loss, unpack
+from gomavatar_tpu_torch.models.gom import GoMConfig, GoMStatics, gom_forward, init_gom, subdivide_gom
+from gomavatar_tpu_torch.optim import (
+    apply_updates,
+    fast_forward_schedule,
+    make_optimizer,
+    tree_leaves,
+    tree_unflatten,
+)
+from gomavatar_tpu_torch.ops.splat.binning import CHUNK
+from gomavatar_tpu_torch.ops.splat.tiled_jnp import NCMAX
+
+log = logging.getLogger(__name__)
+
+
+def train_loss(params: dict, statics: GoMStatics, gom_cfg: GoMConfig, loss_cfg: dict, lpips_params,
+               batch: dict, i_iter):
+    """(total loss, per-term losses with the binning telemetry) of one frame;
+    differentiable in ``params``."""
+    device = params["vertices"].device
+    rgb, mask, aux = gom_forward(
+        params, statics, gom_cfg, batch["K"], batch["E"], batch["cnl_gtfms"], batch["dst_Rs"], batch["dst_Ts"],
+        dst_posevec=batch["dst_posevec"], i_iter=i_iter, train=True, device=device,
+    )
+
+    def dev(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+    rgb_u = unpack(rgb, mask, dev(batch["bgcolor"]))
+    total, losses = compute_loss(
+        rgb_u, mask, aux, dev(batch["target_rgbs"]), dev(batch["target_masks"]), statics, loss_cfg,
+        lpips_params=lpips_params,
+    )
+    tel = aux["binning"]
+    losses["bin_drop_budget"] = tel.dropped_budget
+    losses["bin_drop_buffer"] = tel.dropped_buffer
+    # entries beyond the train kernels' per-tile chunk cap: the forward
+    # truncates them
+    losses["bin_drop_ncmax"] = torch.clamp_min(tel.max_tile_entries - NCMAX * CHUNK, 0)
+    return total, losses
+
+
+def make_train_step(gom_cfg: GoMConfig, loss_cfg: dict, tx):
+    """The train step of one phase: (params, opt_state, statics, lpips_params,
+    batch, i_iter) -> (params, opt_state, total, losses)."""
+
+    def step(params, opt_state, statics, lpips_params, batch, i_iter):
+        leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+        total, losses = train_loss(
+            tree_unflatten(params, leaves), statics, gom_cfg, loss_cfg, lpips_params, batch, i_iter
+        )
+        grads = torch.autograd.grad(total, leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+        updates, opt_state = tx.update(grads, opt_state)
+        with torch.no_grad():
+            params = apply_updates(tree_unflatten(params, [p.detach() for p in leaves]), updates)
+        return params, opt_state, total.detach(), {k: v.detach() for k, v in losses.items()}
+
+    return step
+
+
+class Trainer:
+    """Owns params, statics and the optimizer across subdivision phases.
+
+    ``state`` = (params, statics, gom_cfg, i_iter, phase) starts from a loaded
+    model (e.g. ``convert.load_trained``) instead of ``init_gom``; the
+    optimizer is then new, with its schedule fast-forwarded to ``i_iter``."""
+
+    def __init__(self, cfg, canonical_info: dict | None = None, lpips_params=None, seed: int = 0,
+                 device="cuda", state=None):
+        self.cfg = cfg
+        self.loss_cfg = cfg["train"]["losses"]
+        self.lpips_params = lpips_params
+        self.subdivide_iters = sorted(cfg["model"].get("subdivide_iters", []))
+        self.device = torch.device(device)
+        if state is None:
+            gen = torch.Generator().manual_seed(seed)
+            self.params, self.statics, self.gom_cfg = init_gom(cfg["model"], canonical_info, self.device, gen)
+            self.i_iter, self.phase = 0, 0
+        else:
+            self.params, self.statics, self.gom_cfg, self.i_iter, self.phase = state
+        self._rebuild_optimizer()
+
+    # -- phase management ----------------------------------------------------
+
+    def _rebuild_optimizer(self):
+        self.tx = make_optimizer(self.cfg["train"], self.params)
+        self.opt_state = self.tx.init(self.params)
+        if self.i_iter:
+            # keep the lr decay continuous across the phase change
+            self.opt_state = fast_forward_schedule(self.opt_state, self.i_iter)
+        self._step_fn = make_train_step(self.gom_cfg, self.loss_cfg, self.tx)
+
+    def _subdivide(self):
+        log.info("subdividing at iter %d: %d -> %d faces", self.i_iter, self.gom_cfg.num_faces,
+                 self.gom_cfg.num_faces * 4)
+        self.params, self.statics, self.gom_cfg = subdivide_gom(self.params, self.statics, self.gom_cfg)
+        self.phase += 1
+        self._rebuild_optimizer()
+
+    def maybe_subdivide(self) -> bool:
+        """Subdivide on reaching the next milestone."""
+        if self.phase < len(self.subdivide_iters) and self.i_iter >= self.subdivide_iters[self.phase]:
+            self._subdivide()
+            return True
+        return False
+
+    # -- stepping ------------------------------------------------------------
+
+    def step(self, batch: dict):
+        """One optimizer step on one frame; returns (total, losses) as device
+        tensors."""
+        self.maybe_subdivide()
+        self.params, self.opt_state, total, losses = self._step_fn(
+            self.params, self.opt_state, self.statics, self.lpips_params, batch, float(self.i_iter)
+        )
+        self.i_iter += 1
+        return total, losses
+
+    def forward(self, batch: dict, train: bool = False):
+        with torch.set_grad_enabled(train):
+            return gom_forward(
+                self.params, self.statics, self.gom_cfg, batch["K"], batch["E"], batch["cnl_gtfms"],
+                batch["dst_Rs"], batch["dst_Ts"], dst_posevec=batch.get("dst_posevec"), i_iter=float(self.i_iter),
+                global_R=batch.get("global_R"), global_T=batch.get("global_T"), train=train, device=self.device,
+            )

@@ -147,5 +147,21 @@ def test_gate_scene_is_seeded_and_renders():
 
 
 def test_train_path_is_not_ported(scenes):
-    with pytest.raises(NotImplementedError):
-        _forward(scenes[1], train=True)
+    """gom_forward(train=True) of the port against the JAX package's on the
+    CPU (its jnp splat and mesh paths): the image, the mask, the albedo, the
+    soft silhouette, the normal map and the binning telemetry."""
+    from gomavatar_tpu.models.gom import gom_forward as jax_gom_forward
+
+    jp, jst, jcfg, frame_np, _ = scenes[0]
+    f = {k: jnp.asarray(v) for k, v in frame_np.items()}
+    j_rgb, j_mask, j_aux = jax_gom_forward(jp, jst, jcfg, f["K"], f["E"], f["cnl_gtfms"], f["dst_Rs"], f["dst_Ts"],
+                                           dst_posevec=f["dst_posevec"], train=True)
+    rgb, mask, aux = _forward(scenes[1], train=True)
+    assert float(mask.mean()) > 0.05
+    for name, a, b in (("rgb", rgb, j_rgb), ("mask", mask, j_mask), ("albedo", aux["albedo"], j_aux["albedo"]),
+                       ("normal_mask", aux["normal_mask"], j_aux["normal_mask"]),
+                       ("normal", aux["normal"], j_aux["normal"])):
+        assert_close_frac(a.detach().numpy(), np.asarray(b), name)
+    for field in j_aux["binning"]._fields:
+        assert int(getattr(aux["binning"], field)) == int(getattr(j_aux["binning"], field)), field
+    assert int(aux["binning"].total_dropped()) == 0

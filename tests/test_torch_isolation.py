@@ -14,6 +14,8 @@ import pytest
 import torch
 
 from gomavatar_tpu_torch.ops import frame_render as TF
+from gomavatar_tpu_torch.ops import mesh_raster_pallas as MK
+from gomavatar_tpu_torch.ops.splat import pallas_kernel as SK
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "gomavatar_tpu_torch"
@@ -88,6 +90,57 @@ def test_other_devices_raise():
     with pytest.raises(ValueError):
         TF.frame_sweep(*_tiny_b1_inputs("meta"), num_tiles_x=4)
     assert TF.frame_sweep.launches == 0
+
+
+def _train_launches():
+    return (SK.splat_fwd.launches, SK.splat_bwd.launches, MK.mesh_fwd.launches, MK.mesh_bwd.launches)
+
+
+def _tiny_train_inputs(device):
+    """One tile (of 4) holding one entry: a splat centred on pixel
+    (7.5, 7.5) in the splat rows, a triangle over the tile's top-left
+    corner in the mesh rows."""
+    splat = torch.zeros((16, 128))
+    splat[0:2, 0] = 7.5
+    splat[2, 0] = splat[4, 0] = 0.1
+    splat[5, 0] = 1.0
+    splat[6:9, 0] = torch.tensor([0.2, 0.4, 0.6])
+    mesh = torch.zeros((16, 128))
+    mesh[0:6, 0] = torch.tensor([0.0, 0.0, 12.0, 0.0, 0.0, 12.0])
+    mesh[6:9, 0] = 2.0
+    mesh[9:12, 0] = torch.tensor([0.0, 0.0, 3.0])
+    mesh[12, 0] = 1.0
+    valid = torch.zeros((128,))
+    valid[0] = 1.0
+    start = torch.zeros((4,), dtype=torch.int32)
+    count = torch.tensor([128, 0, 0, 0], dtype=torch.int32)
+    return tuple(a.to(device) for a in (splat, mesh, valid, start, count))
+
+
+def test_cpu_train_kernels_leave_launch_counts_at_zero():
+    splat, mesh, valid, start, count = _tiny_train_inputs("cpu")
+    splat.requires_grad_(True)
+    mesh.requires_grad_(True)
+    img, alpha = SK.composite_tiles(splat, valid, start, count, 3, 2, 2)
+    normal, hit, soft = MK.mesh_composite(mesh, valid, start, count, 2, 2, True, 6.5)
+    (img.sum() + alpha.sum() + normal.sum() + soft.sum()).backward()
+    assert _train_launches() == (0, 0, 0, 0)
+    img, alpha, normal, hit, soft = (t.detach() for t in (img, alpha, normal, hit, soft))
+    expected = math.exp(-0.025)  # pixel (7, 7), as for B1
+    assert float(alpha[7, 7]) == pytest.approx(expected, rel=1e-6)
+    assert float(img[7, 7, 2]) == pytest.approx(0.6 * expected, rel=1e-6)
+    assert float(hit[1, 1]) == 1.0 and float(normal[1, 1, 2]) == 3.0 and float(hit[12, 12]) == 0.0
+    assert float(alpha[16:].abs().sum()) == 0.0 and float(soft[16:].abs().sum()) == 0.0
+    assert float(splat.grad[5, 0]) > 0 and float(mesh.grad[0:6, 0].abs().sum()) > 0
+
+
+def test_other_devices_raise_for_the_train_kernels():
+    splat, mesh, valid, start, count = _tiny_train_inputs("meta")
+    with pytest.raises(ValueError):
+        SK.composite_tiles(splat, valid, start, count, 3, 2, 2)
+    with pytest.raises(ValueError):
+        MK.mesh_composite(mesh, valid, start, count, 2, 2, True, 6.5)
+    assert _train_launches() == (0, 0, 0, 0)
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):
