@@ -19,17 +19,20 @@ Phases, each fatal on failure:
      finiteness are checked; then the forward and kernel B1 are timed.
   4. the train path:
      a. kernels B2/B3 (splat blend) and B4/B5 (mesh raster) against their
-        plain versions on the card, forward outputs and entry gradients for
-        the cotangents of a real loss, on the gate scene and on the trained
-        512^2 frame; each kernel and plain version timed there;
+        plain versions on the card, forward outputs, the residuals B2 and B4
+        save for the backward, and entry gradients for the cotangents of a
+        real loss, on the gate scene and on the trained 512^2 frame; each
+        kernel (B3 as its two launches B3a and B3b) and plain version timed
+        there;
      b. one gate-scene train step on the card against the same step on the
         CPU: loss terms and the step's gradients;
      c. the main path: 5 ``Trainer.step`` calls on the trained avatar at
         512^2 (its train config, the optimizer fast-forwarded to its
         iteration), over the three frames with the port's own eval renders
         as targets, every launch count set to 0 just before and read just
-        after; B2-B5 must launch once per step, nothing may be dropped and
-        every loss, gradient and parameter must be finite;
+        after; B2, B3a, B3b, B4 and B5 must launch once per step, nothing
+        may be dropped and every loss, gradient and parameter must be
+        finite;
      d. the train step timed (median and p90 over 20 steps), with each
         kernel's work and bound.
 Each phase prints its seconds.  The last five lines are the forward timings
@@ -64,6 +67,12 @@ HIT_FRAC, SEL_TOL = 0.999, 1e-4
 # 5e-3; every value finite
 GRAD_FRAC, GRAD_ATOL, GRAD_RTOL = 0.999, 2e-4, 1e-3
 NORMAL_TOL, SOFT_TOL, MESH_GRAD_TOL = 1e-5, 1e-4, 5e-3
+# the residuals the forward kernels save, against their plain versions: B4's
+# winner equal on >= 99.9 % of pixels (as the hit), its S within 1e-4
+# relative on > 99.9 % (1e-7 absolute where S is near 0), its live chunk
+# count equal on every tile; B2's chunk-start transmittance within 1e-4 on
+# > 99.95 % of the values both hold, the spent sentinel equal on >= 99.9 %
+S_RTOL, S_ATOL, STATE_TOL, STATE_FRAC = 1e-4, 1e-7, 1e-4, 0.9995
 
 # Published H100 SXM peaks (H100 SXM data sheet): float32 outside the
 # tensor cores and HBM bandwidth, at the full 700 W power limit.
@@ -85,18 +94,29 @@ PEAK_EXP_PER_S = 16 * 132 * 1.98e9
 # fp32 operations of the train kernels, counted from their sources
 # (csrc/splat_composite.cu, csrc/mesh_raster.cu), and their exp/log on the
 # special-function units.  Per live splat pair (the pixel's transmittance not
-# yet spent): B2 as B1's splat term, 27 and one exp; B3 28 in pass A (the
-# replay and the u w sum) and 72 in pass B (16 for the alpha, 40 for the
-# alpha, conic, mean, opacity and color gradients, 9 to add each pair's
+# yet spent): B2 as B1's splat term, 27 and one exp; B3a 27 (11 for the
+# power polynomial, 4 for the alpha gates, 4 for the transmittance step, 6
+# for u, 2 for the u w sum) and one exp; B3b 72 (16 for the alpha, 40 for
+# the alpha, conic, mean, opacity and color gradients, 9 to add each pair's
 # nine values into its entry's sums, 7 for the transmittance and the
-# suffix), two exps.  Per swept mesh pair, the hard term: 31 in B4 (the
+# suffix) and one exp.  Per swept mesh pair, the hard term: 31 in B4 (the
 # barycentrics from the vertices with two divisions, the depth and the
-# z-test), 64 in B5 (both passes).  Per soft pair (valid entry, tile not yet
-# saturated): 81 in B4 (three edge projections of 24, the sign, sigmoid and
-# log1p), an exp and a log; 329 in B5 (the soft term in both passes and the
-# hand-written chain, 167 with the six coordinate sums), two exps, two logs.
-B2_OPS, B3_OPS, B2_SFU, B3_SFU = 27, 100, 1, 2
-B4_HARD, B4_SOFT, B5_HARD, B5_SOFT, B4_SFU, B5_SFU = 31, 81, 64, 329, 2, 4
+# z-test); 1 in B5 (the winner compare).  Per soft pair (valid entry, tile
+# not yet saturated): 81 in B4 (three edge projections of 24, the sign,
+# sigmoid and log1p), an exp and a log.  B5 sets up each valid entry of a
+# live soft chunk once, outside its pixel loop: 32 (11 for the barycentric
+# set-up, 7 for each edge's); then, per soft pair whose pixel's dL/dS is not
+# 0, 239 in the pixel loop (15 for the inside test: the two barycentrics, w2
+# and three compares; 17 for each edge projection; 6 for the sign and
+# sigmoid; the hand-written chain of 167 with the six coordinate sums) and
+# one exp.
+B2_OPS, B3A_OPS, B3B_OPS, B2_SFU, B3A_SFU, B3B_SFU = 27, 27, 72, 1, 1, 1
+B4_HARD, B4_SOFT, B4_SFU = 31, 81, 2
+B5_HARD, B5_ENTRY, B5_SOFT, B5_SFU = 1, 32, 239, 1
+# the same counts for the earlier kernels, which replayed the forward: B3 100 ops
+# and two exps per live splat pair; B5 64 per swept pair, 329 and two exps
+# and two logs per soft pair
+REPLAY_B3_OPS, REPLAY_B3_SFU, REPLAY_B5_HARD, REPLAY_B5_SOFT, REPLAY_B5_SFU = 100, 2, 64, 329, 4
 
 # 100 timed forwards: the p90 has 10 samples beyond it; 20 timed train
 # steps after 3 warm-up steps
@@ -348,10 +368,12 @@ def splat_work(entries, tile_start, tile_count, C, num_tiles_x, ncmax):
     return chunks, live
 
 
-def mesh_work(entries, tile_start, tile_count, num_tiles_x, sigma_px2, ncmax):
-    """(swept pairs, soft pairs) of one B4 call on this data: every chunk of
-    a segment is swept by the z-buffer; a chunk's soft term runs on its
-    valid entries until every pixel of the tile has sum log(1 - p) < -18."""
+def mesh_work(entries, tile_start, tile_count, num_tiles_x, sigma_px2, ncmax, dl_ds):
+    """(swept pairs, soft pairs, B5's soft pairs) of one B4/B5 call on this
+    data: every chunk of a segment is swept by the z-buffer; a chunk's soft
+    term runs on its valid entries until every pixel of the tile has sum
+    log(1 - p) <= -18; B5 runs the chain on the soft pairs whose pixel has
+    dL/dS (``dl_ds`` (T, P)) not 0."""
     from gomavatar_tpu_torch.ops.mesh_raster import _ONE_MINUS, _point_tri_sq_dist
     from gomavatar_tpu_torch.ops.mesh_raster_pallas import _LOG_SAT
     from gomavatar_tpu_torch.ops.splat.binning import CHUNK
@@ -363,7 +385,8 @@ def mesh_work(entries, tile_start, tile_count, num_tiles_x, sigma_px2, ncmax):
     px, py = px[:, :, None], py[:, :, None]
     lane = torch.arange(CHUNK, device=entries.device)
     log_om = torch.zeros(px.shape[:2], device=entries.device)
-    swept = soft = 0
+    dl_live = (dl_ds[tiles] != 0)[:, :, None]
+    swept = soft = soft_dl = 0
     with torch.no_grad():
         for k in range(min(int(count.max()) // CHUNK, ncmax)):
             in_seg = k * CHUNK < count
@@ -382,7 +405,8 @@ def mesh_work(entries, tile_start, tile_count, num_tiles_x, sigma_px2, ncmax):
             log_om = log_om + torch.where(valid, term, torch.zeros_like(term)).sum(dim=-1)
             swept += int(in_seg.sum()) * CHUNK * P
             soft += int(valid.sum()) * P
-    return swept, soft
+            soft_dl += int((valid & dl_live).sum())
+    return swept, soft, soft_dl
 
 
 def compare_b2b3(label, bins, entries, t_rgb, t_mask, timed: bool):
@@ -395,19 +419,21 @@ def compare_b2b3(label, bins, entries, t_rgb, t_mask, timed: bool):
 
     C, TX, TY = 3, bins.num_tiles_x, bins.num_tiles_y
     start, count = bins.tile_start, bins.tile_count
-    color_k, alpha_k = SK.splat_fwd(entries, start, count, C, TX)
+    color_k, alpha_k, state_k = SK.splat_fwd(entries, start, count, C, TX)
     with torch.no_grad():
         color_p, alpha_p = SK.composite_plain_entries(entries, start, count, C, TX, TY)
+        state_p = SK.splat_chunk_state_plain(entries, start, count, TX)
     img_k, a_k = SK._untile(color_k, alpha_k, TX, TY, C)
     img_p, a_p = SK._untile(color_p, alpha_p, TX, TY, C)
     worst2 = max(check_close(f"{label} B2 color", img_k, img_p), check_close(f"{label} B2 alpha", a_k, a_p))
+    check_chunk_state(label, state_k, state_p, owned_slots(start, count, entries.shape[1]))
 
     img = img_k.detach().requires_grad_(True)
     alpha = a_k.detach().requires_grad_(True)
     loss = (img - t_rgb).abs().sum() + 5.0 * (alpha - t_mask).abs().sum()
     g_img, g_alpha = torch.autograd.grad(loss, (img, alpha))
     g_color_t, g_alpha_t = SK._retile(g_img, g_alpha, TX, TY, C)
-    d_k = SK.select_d_entries(SK.splat_bwd(entries, start, count, g_color_t, g_alpha_t, C, TX),
+    d_k = SK.select_d_entries(SK.splat_bwd(entries, start, count, state_k, g_color_t, g_alpha_t, C, TX),
                               bins.entry_valid, start, count, 6 + C)
 
     def plain_outputs(leaf, counts):
@@ -418,13 +444,41 @@ def compare_b2b3(label, bins, entries, t_rgb, t_mask, timed: bool):
     worst3 = check_grad(f"{label} B3 d_entries", d_k, d_p, keep, GRAD_ATOL, GRAD_RTOL)
     out = {"B2": [worst2], "B3": [worst3]}
     if timed:
+        g = (g_color_t, g_alpha_t)
+        partial = SK.splat_bwd_partials(entries, start, count, state_k, *g, C, TX)
+        b3a = cuda_ms(lambda: SK.splat_bwd_partials(entries, start, count, state_k, *g, C, TX), KERNEL_ITERS)
+        b3b = cuda_ms(lambda: SK.splat_bwd_grads(entries, start, count, state_k, partial, *g, C, TX), KERNEL_ITERS)
         out["B2"] += [cuda_ms(lambda: SK.splat_fwd(entries, start, count, C, TX), KERNEL_ITERS),
                       cuda_ms(lambda: SK.composite_plain_entries(entries, start, count, C, TX, TY), PLAIN_ITERS)]
-        out["B3"] += [cuda_ms(lambda: SK.splat_bwd(entries, start, count, g_color_t, g_alpha_t, C, TX), KERNEL_ITERS),
-                      cuda_ms(lambda: tile_batched_grad(entries, count, plain_outputs, (g_color_t, g_alpha_t), 64), 2)]
+        out["B3"] += [b3a + b3b, cuda_ms(lambda: tile_batched_grad(entries, count, plain_outputs, g, 64), 2),
+                      {"B3a": b3a, "B3b": b3b}]
+        print(f"  {label}: B3a {b3a:.4f} ms + B3b {b3b:.4f} ms")
         for k in ("B2", "B3"):
             print(f"  {label}: {k} kernel {out[k][1]:.4f} ms, plain version {out[k][2]:.3f} ms")
     return out
+
+
+def owned_slots(tile_start, tile_count, num_entries):
+    """(num_entries / CHUNK,) bool: the chunk slots some tile sweeps."""
+    from gomavatar_tpu_torch.ops.splat.binning import CHUNK, written_slot_mask
+    from gomavatar_tpu_torch.ops.splat.tiled_jnp import NCMAX
+
+    return written_slot_mask(tile_start, tile_count, num_entries, NCMAX).reshape(-1, CHUNK)[:, 0] > 0
+
+
+def check_chunk_state(label, state_k, state_p, owned):
+    """B2's saved chunk-start transmittance against its plain version on the
+    owned slots: the spent sentinel equal on >= 99.9 % of the values, the
+    transmittance within 1e-4 on > 99.95 % of those both hold."""
+    k, p = state_k[owned], state_p[owned]
+    require(bool(torch.isfinite(k).all()), f"{label} B2 chunk state: non-finite values")
+    spent_k, spent_p = k < 0, p < 0
+    same = float((spent_k == spent_p).float().mean())
+    both = ~spent_k & ~spent_p
+    frac = float(((k - p).abs() <= STATE_TOL)[both].float().mean()) if bool(both.any()) else 1.0
+    print(f"  {label} B2 chunk state: {k.numel()} values on {int(owned.sum())} slots, sentinel equal on "
+          f"{same * 100:.4f} %, {frac * 100:.4f} % of {int(both.sum())} within {STATE_TOL:g}")
+    require(same >= HIT_FRAC and frac > STATE_FRAC, f"{label} B2 chunk state: outside the criteria")
 
 
 def compare_b4b5(label, bins, entries, valid, sigma_px2, shadow, t_rgb, t_mask, albedo, timed: bool):
@@ -435,13 +489,14 @@ def compare_b4b5(label, bins, entries, valid, sigma_px2, shadow, t_rgb, t_mask, 
     over pixels as in :func:`compare_b2b3`."""
     from gomavatar_tpu_torch.losses import dilate_mask
     from gomavatar_tpu_torch.ops import mesh_raster_pallas as MK
-    from gomavatar_tpu_torch.ops.mesh_raster import mesh_composite_plain
+    from gomavatar_tpu_torch.ops.mesh_raster import mesh_composite_plain, mesh_residuals_plain
 
     TX, TY = bins.num_tiles_x, bins.num_tiles_y
     start, count = bins.tile_start, bins.tile_count
-    hard_k, soft_k = MK.mesh_fwd(entries, start, count, TX, True, sigma_px2)
+    hard_k, soft_k, win_k, S_k, live_k = MK.mesh_fwd(entries, start, count, TX, True, sigma_px2)
     with torch.no_grad():
         hard_p, soft_p = mesh_composite_plain(entries, start, count, TX, TY, True, sigma_px2)
+    check_mesh_residuals(label, (win_k, S_k, live_k), mesh_residuals_plain(entries, start, count, TX, True, sigma_px2))
     n_k, hit_k, s_k = MK._untile_outputs(hard_k, soft_k, TX, TY)
     n_p, hit_p, s_p = MK._untile_outputs(hard_p, soft_p, TX, TY)
     same = hit_k == hit_p
@@ -464,7 +519,8 @@ def compare_b4b5(label, bins, entries, valid, sigma_px2, shadow, t_rgb, t_mask, 
     loss = (albedo * shading - t_rgb).abs().sum() + (soft - dilate_mask(t_mask, 7)).abs().sum()
     g_normal, g_soft = torch.autograd.grad(loss, (normal, soft))
     g_hard_t, g_soft_t = MK._retile_cotangents(g_normal, g_soft, TX, TY)
-    d_k = MK.select_d_entries(MK.mesh_bwd(entries, start, count, g_hard_t, g_soft_t, TX, True, sigma_px2),
+    res = (win_k, S_k, live_k)
+    d_k = MK.select_d_entries(MK.mesh_bwd(entries, start, count, g_hard_t, g_soft_t, *res, TX, True, sigma_px2),
                               valid, start, count, MK.NCH)
 
     def plain_outputs(leaf, counts):
@@ -480,12 +536,29 @@ def compare_b4b5(label, bins, entries, valid, sigma_px2, shadow, t_rgb, t_mask, 
         out["B4"] += [cuda_ms(lambda: MK.mesh_fwd(entries, start, count, TX, True, sigma_px2), KERNEL_ITERS),
                       cuda_ms(lambda: mesh_composite_plain(entries, start, count, TX, TY, True, sigma_px2),
                               PLAIN_ITERS)]
-        out["B5"] += [cuda_ms(lambda: MK.mesh_bwd(entries, start, count, g_hard_t, g_soft_t, TX, True, sigma_px2),
-                              KERNEL_ITERS),
+        out["B5"] += [cuda_ms(lambda: MK.mesh_bwd(entries, start, count, g_hard_t, g_soft_t, *res, TX, True,
+                                                  sigma_px2), KERNEL_ITERS),
                       cuda_ms(lambda: tile_batched_grad(entries, count, plain_outputs, (g_hard_t, g_soft_t), 32), 2)]
         for k in ("B4", "B5"):
             print(f"  {label}: {k} kernel {out[k][1]:.4f} ms, plain version {out[k][2]:.3f} ms")
+        out["dl_ds"] = -g_soft_t[:, 0] * torch.exp(S_k)  # B5's dL/dS, for its work count
     return out
+
+
+def check_mesh_residuals(label, kernel, plain):
+    """B4's residuals against their plain version: the winner equal on
+    >= 99.9 % of pixels, S within 1e-4 relative on > 99.9 %, the live chunk
+    count equal on every tile."""
+    (win_k, S_k, live_k), (win_p, S_p, live_p) = kernel, plain
+    win_frac = float((win_k == win_p).float().mean())
+    d = (S_k - S_p).abs()
+    s_frac = float((d <= S_RTOL * S_p.abs() + S_ATOL).float().mean())
+    live_same = bool(torch.equal(live_k, live_p))
+    print(f"  {label} B4 residuals: win equal on {win_frac * 100:.4f} %, S {s_frac * 100:.4f} % within "
+          f"{S_RTOL:g} relative (worst {float(d.max()):.3g}), live chunks equal on every tile: {live_same} "
+          f"({int(live_k.sum())} live soft chunks)")
+    require(bool(torch.isfinite(S_k).all()), f"{label} B4 residuals: non-finite S")
+    require(win_frac >= HIT_FRAC and s_frac > GRAD_FRAC and live_same, f"{label} B4 residuals: outside the criteria")
 
 
 def bound(ops: float, sfu: float, nbytes: float):
@@ -498,29 +571,39 @@ def bound(ops: float, sfu: float, nbytes: float):
     return max(t_ops, t_sfu, t_bytes), by, t_ops, t_sfu, t_bytes
 
 
-def train_kernel_bounds(bins, s_entries, m_entries, sigma_px2, C=3):
+def train_kernel_bounds(bins, s_entries, m_entries, sigma_px2, dl_ds, C=3):
     """The least time of B2-B5 on this frame's data, each the larger of its
     fp32 and special-function operations at peak and the bytes it must move
-    (each input read once, each output written once) at the memory rate.
-    Returns {kernel: (bound_ms, bound_by, description)}."""
+    (each input read once, each output written once) at the memory rate;
+    B3 as one function and as its launches B3a and B3b; B3 and B5 also by
+    the count of the earlier kernels that replayed the forward.  Returns
+    {kernel: (bound_ms, bound_by, description)}."""
     from gomavatar_tpu_torch.ops.splat.binning import CHUNK
     from gomavatar_tpu_torch.ops.splat.tiled_jnp import NCMAX, P
 
     start, count, TX = bins.tile_start, bins.tile_count, bins.num_tiles_x
     T = count.shape[0]
     s_chunks, live = splat_work(s_entries, start, count, C, TX, NCMAX)
-    swept, soft = mesh_work(m_entries, start, count, TX, sigma_px2, NCMAX)
+    swept, soft, soft_dl = mesh_work(m_entries, start, count, TX, sigma_px2, NCMAX, dl_ds)
     m_chunks = swept // (CHUNK * P)
     owned = int(torch.clamp_max(torch.div(count, CHUNK, rounding_mode="floor"), NCMAX).sum())
     row = CHUNK * 4  # bytes of one row of a chunk
     ints = 8 * T  # tile_start, tile_count
+    s_in = s_chunks * (6 + C) * row + T * (C + 1) * P * 4 + ints  # entries read, cotangents or outputs
+    state = owned * P * 4  # B2's chunk-start state, or B3a's partials
+    m_in = m_chunks * 13 * row + T * 5 * P * 4 + ints
+    residuals = T * P * 8 + T * 4  # B4's win, S, live
     work = {
-        "B2": (B2_OPS * live, B2_SFU * live, s_chunks * (6 + C) * row + T * (C + 1) * P * 4 + ints),
-        "B3": (B3_OPS * live, B3_SFU * live,
-               s_chunks * (6 + C) * row + T * (C + 1) * P * 4 + owned * s_entries.shape[0] * row + ints),
-        "B4": (B4_HARD * swept + B4_SOFT * soft, B4_SFU * soft, m_chunks * 13 * row + T * 5 * P * 4 + ints),
-        "B5": (B5_HARD * swept + B5_SOFT * soft, B5_SFU * soft,
-               m_chunks * 13 * row + T * 5 * P * 4 + owned * m_entries.shape[0] * row + ints),
+        "B2": (B2_OPS * live, B2_SFU * live, s_in + state),
+        "B3": ((B3A_OPS + B3B_OPS) * live, (B3A_SFU + B3B_SFU) * live, s_in + state + owned * s_entries.shape[0] * row),
+        "B3a": (B3A_OPS * live, B3A_SFU * live, s_in + 2 * state),
+        "B3b": (B3B_OPS * live, B3B_SFU * live, s_in + 2 * state + owned * s_entries.shape[0] * row),
+        "B4": (B4_HARD * swept + B4_SOFT * soft, B4_SFU * soft, m_in + residuals),
+        "B5": (B5_HARD * swept + B5_ENTRY * (soft // P) + B5_SOFT * soft_dl, B5_SFU * soft_dl,
+               m_in + residuals + owned * m_entries.shape[0] * row),
+        "B3 replayed": (REPLAY_B3_OPS * live, REPLAY_B3_SFU * live, s_in + owned * s_entries.shape[0] * row),
+        "B5 replayed": (REPLAY_B5_HARD * swept + REPLAY_B5_SOFT * soft, REPLAY_B5_SFU * soft,
+                               m_in + owned * m_entries.shape[0] * row),
     }
     out = {}
     for name, (ops, sfu, nbytes) in work.items():
@@ -528,7 +611,7 @@ def train_kernel_bounds(bins, s_entries, m_entries, sigma_px2, C=3):
         out[name] = (b, by, f"{ops:.4g} fp32 ops ({t_ops:.4f} ms), {sfu:.4g} exp/log ({t_sfu:.4f} ms), "
                             f"{nbytes} bytes ({t_bytes:.4f} ms)")
     print(f"  train kernel work: {s_chunks} splat chunks read, {live} live splat pairs; {m_chunks} mesh chunks "
-          f"swept ({swept} pairs), {soft} soft pairs")
+          f"swept ({swept} pairs), {soft} soft pairs, {soft_dl} of them with dL/dS != 0")
     return out
 
 
@@ -706,21 +789,33 @@ def phase_train_kernels(trained):
         with torch.no_grad():
             t_rgb, t_mask, _ = forward(params, statics, cfg, perturbed_frames(frame)[1])
         out = compare_b2b3(label, bins, s_e, t_rgb, t_mask, timed)
-        color_k, alpha_k = SK.splat_fwd(s_e, bins.tile_start, bins.tile_count, 3, bins.num_tiles_x)
+        color_k, alpha_k, _ = SK.splat_fwd(s_e, bins.tile_start, bins.tile_count, 3, bins.num_tiles_x)
         albedo = SK._untile(color_k, alpha_k, bins.num_tiles_x, bins.num_tiles_y, 3)[0]
         sh = cfg.module_cfg("shadow")
         out.update(compare_b4b5(label, bins, m_e, m_v, s2, lambda n: M.shadow_apply(params["shadow"], sh, n),
                                 t_rgb, t_mask, albedo, timed))
+        dl_ds = out.pop("dl_ds", None)
         for k, v in out.items():
             r = results.setdefault(k, {"max_abs_err": 0.0})
             r["max_abs_err"] = max(r["max_abs_err"], v[0])
             if timed:
                 r["ms"], r["plain_ms"] = v[1], v[2]
+                if len(v) > 3:
+                    r["parts"] = {name: {"ms": ms} for name, ms in v[3].items()}
         if timed:
-            for k, (b, by, desc) in train_kernel_bounds(bins, s_e, m_e, s2).items():
+            bounds = train_kernel_bounds(bins, s_e, m_e, s2, dl_ds)
+            for k in ("B2", "B3", "B4", "B5"):
+                b, by, desc = bounds[k]
                 results[k].update(bound_ms=b, bound_by=by)
                 print(f"  {k}: {results[k]['ms']:.4f} ms, plain version {results[k]['plain_ms']:.3f} ms, "
                       f"bound {b:.4f} ms by {by}: {desc}")
+            for k in ("B3a", "B3b"):
+                b, by, desc = bounds[k]
+                results["B3"]["parts"][k].update(bound_ms=b, bound_by=by)
+                print(f"  {k}: {results['B3']['parts'][k]['ms']:.4f} ms, bound {b:.4f} ms by {by}: {desc}")
+            for k in ("B3", "B5"):
+                b, by, desc = bounds[f"{k} replayed"]
+                print(f"  {k}: bound {bounds[k][0]:.4f} ms by the current count, {b:.4f} ms by the replaying kernels' ({by}: {desc})")
     return results
 
 
@@ -743,7 +838,8 @@ def phase_train_path(trained, card):
     batches = [train_batch(params, statics, cfg, f, f) for f in frames]
     trainer = make_trainer(params, statics, cfg, i_iter, "cuda")
     before = [p.clone() for p in tree_leaves(trainer.params)]
-    wrappers = {"B1": FR.frame_sweep, "B2": SK.splat_fwd, "B3": SK.splat_bwd, "B4": MK.mesh_fwd, "B5": MK.mesh_bwd}
+    wrappers = {"B1": FR.frame_sweep, "B2": SK.splat_fwd, "B3": SK.splat_bwd, "B3a": SK.splat_bwd_partials,
+                "B3b": SK.splat_bwd_grads, "B4": MK.mesh_fwd, "B5": MK.mesh_bwd}
     torch.cuda.synchronize()
     for w in wrappers.values():
         w.launches = 0
@@ -757,7 +853,7 @@ def phase_train_path(trained, card):
         dropped = terms["bin_drop_budget"] + terms["bin_drop_buffer"] + terms["bin_drop_ncmax"]
         require(dropped == 0, f"step {i}: the binning dropped entries")
     print(f"  launches over {TRAIN_STEPS} steps: {launches}")
-    for k in ("B2", "B3", "B4", "B5"):
+    for k in ("B2", "B3", "B3a", "B3b", "B4", "B5"):
         require(launches[k] == TRAIN_STEPS, f"the train path did not launch {k} once per step")
     after = tree_leaves(trainer.params)
     moments = list(trainer.opt_state.mu) + list(trainer.opt_state.nu)
@@ -786,7 +882,7 @@ KERNELS = {
     "B1": ("B1 frame_render", "gomavatar_tpu_torch/csrc/frame_render.cu", "gomavatar_tpu/ops/frame_render.py:74"),
     "B2": ("B2 splat_fwd", "gomavatar_tpu_torch/csrc/splat_composite.cu",
            "gomavatar_tpu/ops/splat/pallas_kernel.py:164"),
-    "B3": ("B3 splat_bwd", "gomavatar_tpu_torch/csrc/splat_composite.cu",
+    "B3": ("B3 splat_bwd (B3a partials + B3b gradients)", "gomavatar_tpu_torch/csrc/splat_composite.cu",
            "gomavatar_tpu/ops/splat/pallas_kernel.py:241"),
     "B4": ("B4 mesh_fwd", "gomavatar_tpu_torch/csrc/mesh_raster.cu",
            "gomavatar_tpu/ops/mesh_raster_pallas.py:126"),
@@ -815,9 +911,12 @@ def main() -> int:
     logs = cuda_build.build_all()
     print(f"[1] built {sorted(logs) or 'nothing (cached)'} in {time.perf_counter() - t0:.1f} s")
     for name, log in logs.items():
+        entry = "?"
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "error" in line.lower():
-                print(f"  {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1]  # the mangled kernel name
+            elif "registers" in line or ("spill" in line and " 0 bytes spill stores" not in line) or "error" in line.lower():
+                print(f"  {name}: {entry}: {line.strip()}")
     done(1, t0)
 
     t0 = time.perf_counter()
@@ -836,14 +935,21 @@ def main() -> int:
     measured = {"B1": dict(b1, launches=b1_launches)}
     for k in ("B2", "B3", "B4", "B5"):
         measured[k] = dict(train_kernels[k], launches=train_launches[k])
+    # B3 is two kernels: its launches are theirs, its time their sum
+    measured["B3"]["launches"] = train_launches["B3a"] + train_launches["B3b"]
+    for part, m in measured["B3"]["parts"].items():
+        m["launches"] = train_launches[part]
     result = {"kernels": []}
     for k, (name, source, replaces) in KERNELS.items():
         m = measured[k]
-        result["kernels"].append({
+        entry = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": m["launches"],
             "max_abs_err": m["max_abs_err"], "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": None,
-        })
+        }
+        if "parts" in m:
+            entry["parts"] = m["parts"]
+        result["kernels"].append(entry)
     print(json.dumps({"forward": fwd}))
     print(json.dumps({"train_step": train, "seconds": time.perf_counter() - t_start}))
     print(json.dumps(result))

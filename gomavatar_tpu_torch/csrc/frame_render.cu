@@ -47,14 +47,10 @@
 // round exactly as the plain version's separate multiplies and adds do and
 // the z-buffer picks the same face on the same inputs.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
-constexpr int TILE = 16;
-constexpr int P = TILE * TILE;
-constexpr int CHUNK = 128;
 constexpr float ALPHA_MAX = 0.99f;
 constexpr float ALPHA_MIN = 1.0f / 255.0f;
 constexpr float T_EPS = 1e-4f;
@@ -69,10 +65,6 @@ enum { E_MX = 0, E_MY, E_CA, E_CB, E_CC, E_OP, E_R, E_G, E_B,
 enum { S_QC = 0, S_QX, S_QY, S_CA, S_CB, S_CC, S_OP, S_R, S_G, S_B, NSPLAT };
 enum { M_W0C = 0, M_W0X, M_W0Y, M_W1C, M_W1X, M_W1Y, M_ZC, M_ZX, M_ZY,
        M_MV, M_NX, M_NY, M_NZ, M_SH, NMESH };
-
-__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
 
 template <bool WITH_MESH>
 __global__ void __launch_bounds__(P) frame_kernel(

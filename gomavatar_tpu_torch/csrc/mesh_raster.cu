@@ -6,8 +6,8 @@
 // (pixel coordinates of the three vertices) | z0 z1 z2 | summed vertex
 // normal xyz | valid (the entry's mesh flag times the face's in-front flag)
 // | zero rows.  Tile t owns the 128-aligned segment
-// [tile_start[t], tile_start[t] + tile_count[t]) and sweeps at most ncmax
-// chunks of it in depth order.
+// [tile_start[t], tile_start[t] + tile_count[t]) and sweeps its first
+// min(tile_count[t] / 128, ncmax) chunks in depth order.
 //
 // Hard pass, per pixel: 2D barycentrics w0, w1 by the edge functions over
 // the signed area (IEEE division), w2 = 1 - w0 - w1, z = w0 z0 + w1 z1 +
@@ -21,14 +21,20 @@
 // 1 - 1e-7)) over valid entries, signed = -d2 inside the triangle and +d2
 // outside, d2 the squared distance to the nearest edge segment, s2 the
 // temperature in px^2; soft = 1 - e^S.  Once every pixel of the tile has
-// S < log_sat (-18) at a chunk's start, that chunk's soft term is skipped:
-// it would change the silhouette by < e^-18 per face.
+// S <= log_sat (-18) at a chunk's start, that chunk's soft term is skipped:
+// it would change the silhouette by < e^-18 per face.  S never rises, so
+// the live chunks are a prefix of the segment.
 //
-// Backward.  Pass A replays best_z and S (with the same skips).  Pass B:
-// the normal cotangent goes to the one winning entry of each pixel, the
-// first with z <= best_z (the `claimed` flag); the soft cotangent dL/dS =
-// -g_soft e^S flows through the chain written out by hand (the reference
-// takes jax.vjp of the same function inside its kernel):
+// B4 also saves what the backward needs, three values it holds at its end:
+//   win  (T, 256) i32: the entry index (offset into dp) of each pixel's
+//        winner, -1 where nothing hit;
+//   S    (T, 256) f32: the final sum above (0 with the soft pass off);
+//   live (T,) i32: the number of chunks whose soft term ran.
+//
+// Backward (B5), from those residuals alone: the normal cotangent of pixel
+// p goes to entry win[p]; the soft cotangent dL/dS = -g_soft e^S flows, in
+// the live chunks only, through the chain written out by hand (the
+// reference takes jax.vjp of the same function inside its kernel):
 //   d/dq log1p(-q) = -1/(1 - q), zero where the clamp q = 1 - 1e-7 holds;
 //   sigmoid' = p (1 - p); d signed/d d2 = -1 inside, +1 outside;
 //   the minimum over three edges -> its argmin edge, ties split evenly
@@ -37,115 +43,121 @@
 //   its gradient passed strictly inside (0, 1) and halved at a bound.
 // A skipped chunk gets zero soft gradient: the exact gradient of the
 // truncated sum the forward computed.  Nothing flows through the hard mask
-// or through z.  `ops/mesh_raster_pallas.py:soft_log1m_grad` is the same
-// chain in plain PyTorch, held to the reference's autodiff by the tests.
+// or through z.  `inside` keeps the hard pass's FMA-free arithmetic, so the
+// sign of each term is the forward's.  `ops/mesh_raster_pallas.py:
+// soft_log1m_grad` is the same chain in plain PyTorch, held to the
+// reference's autodiff by the tests.
 //
-// What bounds them on the card: arithmetic.  The soft term costs ~60 fp32
-// operations, an exp and a log per (pixel, entry) pair in B4 and ~150 with
-// the chain in B5; entries are ~16 B x 16 rows each.  Design: one block per
-// tile, 256 threads (one per pixel), every per-pixel carry in registers,
-// each chunk staged once in shared memory; B5's per-entry gradients are
-// block reductions (warp shuffles, one partial per warp in shared memory,
-// one plain store per (row, entry)), with no atomics since every entry
-// belongs to one tile; B5 writes all 16 rows of every slot its tile owns.
+// What bounds them on the card: arithmetic.  The soft term costs ~80 fp32
+// operations, an exp and a log per (pixel, entry) pair in B4, its chain
+// ~250 in B5; the entries are 64 B each.  Design:
+//   * B4: one block per tile, 256 threads (one per pixel), every per-pixel
+//     carry in registers, each chunk staged once in shared memory; the
+//     three residuals are one or two stores per pixel and one per tile.
+//   * B5 replays nothing: with win and S saved, the z-buffer and the soft
+//     sum need no pass of their own.  Its grid runs over chunks, not tiles:
+//     one block per 128-entry slot of the entry buffer (sized from dp on
+//     the host); the block finds the tile that owns its slot on the device
+//     (common.cuh: owner_of, a scan of tile_start / tile_count, which also
+//     states what happens where buffer clamping makes tiles share a
+//     tile_start) and returns at once if none does.
+//   * B5 gives each entry its own threads.  The block stages the tile's
+//     per-pixel dL/dS, win and normal cotangent in shared memory (5 KB);
+//     each thread keeps its entry's vertices, edge constants and nine
+//     gradient sums in registers and loops over its pixels (a warp reads
+//     one pixel at a time, as a broadcast).  No shuffles, no cross-warp
+//     reductions, no atomics: every entry belongs to one tile, so its two
+//     threads own all of its gradient, add their halves once at the end
+//     and store its 16 rows once, zeros included.  Two threads per entry,
+//     each over half the pixels, ran faster than one or four on the
+//     trained 512^2 frame (one holds the same 24 warps per SM, with twice
+//     the loop per block; four fit only 16; PERF.md).
+//   * Slots no tile owns are left unwritten; the wrapper selects them out.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
-constexpr int TILE = 16;
-constexpr int P = TILE * TILE;
-constexpr int CHUNK = 128;
-constexpr int NWARP = P / 32;
 constexpr int NCH = 16;
 constexpr int NSTAGE = 13;  // rows read by the kernels: coords, z, normal, valid
-constexpr unsigned FULL = 0xffffffffu;
 constexpr float BIG = 1e10f;
 constexpr float ONE_MINUS = 1.0f - 1e-7f;
 
 enum { E_X0 = 0, E_Y0, E_X1, E_Y1, E_X2, E_Y2, E_Z0, E_Z1, E_Z2, E_NX, E_NY, E_NZ, E_VALID };
 
-__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
-
-struct Hard {
-  bool inside;  // barycentric coverage (used by the soft sign too)
-  bool ok;      // covered, valid, non-degenerate
-  float z;
+// The barycentric set-up of one triangle, in the plain version's arithmetic.
+struct Bary {
+  float a12, b21, a20, b02;  // y1 - y2, x2 - x1, y2 - y0, x0 - x2
+  float ds;                  // the signed area, 1 where degenerate
+  bool degenerate;
 };
 
-// The plain version's arithmetic, operation for operation.
-__device__ __forceinline__ Hard hard_at(const float (*sh)[CHUNK], int j, float px, float py) {
-  const float x0 = sh[E_X0][j], y0 = sh[E_Y0][j], x1 = sh[E_X1][j], y1 = sh[E_Y1][j];
-  const float x2 = sh[E_X2][j], y2 = sh[E_Y2][j];
-  const float denom = add(mul(sub(y1, y2), sub(x0, x2)), mul(sub(x2, x1), sub(y0, y2)));
-  const bool degenerate = fabsf(denom) < 1e-12f;
-  const float ds = degenerate ? 1.0f : denom;
-  const float w0 = __fdiv_rn(add(mul(sub(y1, y2), sub(px, x2)), mul(sub(x2, x1), sub(py, y2))), ds);
-  const float w1 = __fdiv_rn(add(mul(sub(y2, y0), sub(px, x2)), mul(sub(x0, x2), sub(py, y2))), ds);
-  const float w2 = sub(sub(1.0f, w0), w1);
-  Hard h;
-  h.inside = w0 >= 0.0f && w1 >= 0.0f && w2 >= 0.0f;
-  h.ok = h.inside && sh[E_VALID][j] > 0.0f && !degenerate;
-  h.z = add(add(mul(w0, sh[E_Z0][j]), mul(w1, sh[E_Z1][j])), mul(w2, sh[E_Z2][j]));
-  return h;
+__device__ __forceinline__ Bary bary_setup(float x0, float y0, float x1, float y1, float x2, float y2) {
+  Bary b;
+  b.a12 = sub(y1, y2);
+  b.b21 = sub(x2, x1);
+  b.a20 = sub(y2, y0);
+  b.b02 = sub(x0, x2);
+  const float denom = add(mul(b.a12, b.b02), mul(b.b21, sub(y0, y2)));
+  b.degenerate = fabsf(denom) < 1e-12f;
+  b.ds = b.degenerate ? 1.0f : denom;
+  return b;
+}
+
+// w0 and w1 (IEEE division), their numerators from the pixel's offset to
+// vertex 2.
+__device__ __forceinline__ void bary_at(const Bary& b, float dxp, float dyp, float& w0, float& w1) {
+  w0 = __fdiv_rn(add(mul(b.a12, dxp), mul(b.b21, dyp)), b.ds);
+  w1 = __fdiv_rn(add(mul(b.a20, dxp), mul(b.b02, dyp)), b.ds);
 }
 
 struct Edge {
-  float abx, aby, d2ab, inv, num, t, tc, dx, dy, d2;
+  float abx, aby, d2ab, inv;  // per edge: b - a, |b - a|^2, 1 / max(|b - a|^2, 1e-12)
 };
 
-__device__ __forceinline__ Edge edge_at(float px, float py, float ax, float ay, float bx, float by) {
+__device__ __forceinline__ Edge edge_setup(float ax, float ay, float bx, float by) {
   Edge e;
   e.abx = bx - ax;
   e.aby = by - ay;
   e.d2ab = e.abx * e.abx + e.aby * e.aby;
   e.inv = 1.0f / fmaxf(e.d2ab, 1e-12f);
-  e.num = (px - ax) * e.abx + (py - ay) * e.aby;
-  e.t = e.num * e.inv;
-  e.tc = fminf(fmaxf(e.t, 0.0f), 1.0f);
-  e.dx = px - (ax + e.tc * e.abx);
-  e.dy = py - (ay + e.tc * e.aby);
-  e.d2 = e.dx * e.dx + e.dy * e.dy;
   return e;
 }
 
-// d(edge d2)/d(a, b) times g_d, added into ga/gb (x, y).
-__device__ __forceinline__ void edge_grad(const Edge& e, float px, float py, float ax, float ay, float g_d,
-                                          float& gax, float& gay, float& gbx, float& gby) {
-  const float gdx = 2.0f * e.dx * g_d, gdy = 2.0f * e.dy * g_d;
-  const float g_tc = -(gdx * e.abx + gdy * e.aby);
-  const float pass_t = (e.t > 0.0f && e.t < 1.0f) ? 1.0f : ((e.t == 0.0f || e.t == 1.0f) ? 0.5f : 0.0f);
-  const float g_t = g_tc * pass_t;
-  const float g_num = g_t * e.inv;
-  const float g_d2ab = e.d2ab > 1e-12f ? -g_t * e.num * e.inv * e.inv : 0.0f;
-  gax += gdx * (e.tc - 1.0f) + g_num * (-e.abx - (px - ax)) - 2.0f * e.abx * g_d2ab;
-  gbx += -gdx * e.tc + g_num * (px - ax) + 2.0f * e.abx * g_d2ab;
-  gay += gdy * (e.tc - 1.0f) + g_num * (-e.aby - (py - ay)) - 2.0f * e.aby * g_d2ab;
-  gby += -gdy * e.tc + g_num * (py - ay) + 2.0f * e.aby * g_d2ab;
-}
-
-struct Soft {
-  Edge e01, e12, e20;
-  float m12, d2, prob, log1m;
+// The pixel's projection onto one edge segment.
+struct Proj {
+  float num, t, tc, dx, dy, d2;
 };
 
-__device__ __forceinline__ Soft soft_at(const float (*sh)[CHUNK], int j, float px, float py, bool inside,
-                                        float sigma_px2) {
-  const float x0 = sh[E_X0][j], y0 = sh[E_Y0][j], x1 = sh[E_X1][j], y1 = sh[E_Y1][j];
-  const float x2 = sh[E_X2][j], y2 = sh[E_Y2][j];
-  Soft s;
-  s.e01 = edge_at(px, py, x0, y0, x1, y1);
-  s.e12 = edge_at(px, py, x1, y1, x2, y2);
-  s.e20 = edge_at(px, py, x2, y2, x0, y0);
-  s.m12 = fminf(s.e12.d2, s.e20.d2);
-  s.d2 = fminf(s.e01.d2, s.m12);
-  const float signed_d2 = inside ? -s.d2 : s.d2;
-  s.prob = 1.0f / (1.0f + expf(signed_d2 / sigma_px2));  // sigmoid(-signed / s2)
-  s.log1m = log1pf(-fminf(s.prob, ONE_MINUS));
-  return s;
+__device__ __forceinline__ Proj proj_at(const Edge& e, float px, float py, float ax, float ay) {
+  Proj q;
+  q.num = (px - ax) * e.abx + (py - ay) * e.aby;
+  q.t = q.num * e.inv;
+  q.tc = fminf(fmaxf(q.t, 0.0f), 1.0f);
+  q.dx = px - (ax + q.tc * e.abx);
+  q.dy = py - (ay + q.tc * e.aby);
+  q.d2 = q.dx * q.dx + q.dy * q.dy;
+  return q;
+}
+
+// d(edge d2)/d(a, b) times g_d, added into ga/gb (x, y).
+__device__ __forceinline__ void edge_grad(const Edge& e, const Proj& q, float px, float py, float ax, float ay,
+                                          float g_d, float& gax, float& gay, float& gbx, float& gby) {
+  const float gdx = 2.0f * q.dx * g_d, gdy = 2.0f * q.dy * g_d;
+  const float g_tc = -(gdx * e.abx + gdy * e.aby);
+  const float pass_t = (q.t > 0.0f && q.t < 1.0f) ? 1.0f : ((q.t == 0.0f || q.t == 1.0f) ? 0.5f : 0.0f);
+  const float g_t = g_tc * pass_t;
+  const float g_num = g_t * e.inv;
+  const float g_d2ab = e.d2ab > 1e-12f ? -g_t * q.num * e.inv * e.inv : 0.0f;
+  gax += gdx * (q.tc - 1.0f) + g_num * (-e.abx - (px - ax)) - 2.0f * e.abx * g_d2ab;
+  gbx += -gdx * q.tc + g_num * (px - ax) + 2.0f * e.abx * g_d2ab;
+  gay += gdy * (q.tc - 1.0f) + g_num * (-e.aby - (py - ay)) - 2.0f * e.aby * g_d2ab;
+  gby += -gdy * q.tc + g_num * (py - ay) + 2.0f * e.aby * g_d2ab;
+}
+
+__device__ __forceinline__ float sigmoid_of_signed(float d2, bool inside, float sigma_px2) {
+  const float signed_d2 = inside ? -d2 : d2;
+  return 1.0f / (1.0f + expf(signed_d2 / sigma_px2));  // sigmoid(-signed / s2)
 }
 
 __device__ __forceinline__ void stage_chunk(float (*sh)[CHUNK], const float* __restrict__ entries, long long dp,
@@ -160,7 +172,8 @@ __global__ void __launch_bounds__(P) mesh_fwd_kernel(
     const float* __restrict__ entries, long long dp,
     const int32_t* __restrict__ tile_start, const int32_t* __restrict__ tile_count,
     int tiles_x, int ncmax, int soft, float sigma_px2, float log_sat,
-    float* __restrict__ hard_out, float* __restrict__ soft_out) {
+    float* __restrict__ hard_out, float* __restrict__ soft_out,
+    int32_t* __restrict__ win_out, float* __restrict__ s_out, int32_t* __restrict__ live_out) {
   __shared__ float sh[NSTAGE][CHUNK];
   const int t = blockIdx.x;
   const int p = threadIdx.x;
@@ -170,21 +183,38 @@ __global__ void __launch_bounds__(P) mesh_fwd_kernel(
   const float py = static_cast<float>((t / tiles_x) * TILE + p / TILE);
 
   float best_z = BIG, nx = 0.0f, ny = 0.0f, nz = 0.0f, log_om = 0.0f;
+  int best_i = -1, live = 0;
   for (int k = 0; k < nchunks; ++k) {
     __syncthreads();  // the previous chunk is consumed
-    stage_chunk(sh, entries, dp, start + static_cast<long long>(k) * CHUNK);
+    const long long base = start + static_cast<long long>(k) * CHUNK;
+    stage_chunk(sh, entries, dp, base);
     // the barrier also decides, for the whole tile, whether the soft term
     // of this chunk is live
     const bool do_soft = __syncthreads_or(soft && log_om > log_sat);
+    if (do_soft) live = k + 1;
     for (int j = 0; j < CHUNK; ++j) {
-      const Hard h = hard_at(sh, j, px, py);
-      if (h.ok && h.z < best_z) {
-        best_z = h.z;
+      const float x0 = sh[E_X0][j], y0 = sh[E_Y0][j], x1 = sh[E_X1][j], y1 = sh[E_Y1][j];
+      const float x2 = sh[E_X2][j], y2 = sh[E_Y2][j];
+      const Bary b = bary_setup(x0, y0, x1, y1, x2, y2);
+      float w0, w1;
+      bary_at(b, sub(px, x2), sub(py, y2), w0, w1);
+      const float w2 = sub(sub(1.0f, w0), w1);
+      const bool inside = w0 >= 0.0f && w1 >= 0.0f && w2 >= 0.0f;
+      const bool valid = sh[E_VALID][j] > 0.0f;
+      const float z = add(add(mul(w0, sh[E_Z0][j]), mul(w1, sh[E_Z1][j])), mul(w2, sh[E_Z2][j]));
+      if (inside && valid && !b.degenerate && z < best_z) {
+        best_z = z;
+        best_i = static_cast<int>(base) + j;
         nx = sh[E_NX][j];
         ny = sh[E_NY][j];
         nz = sh[E_NZ][j];
       }
-      if (do_soft && sh[E_VALID][j] > 0.0f) log_om += soft_at(sh, j, px, py, h.inside, sigma_px2).log1m;
+      if (do_soft && valid) {
+        const float d2 = fminf(proj_at(edge_setup(x0, y0, x1, y1), px, py, x0, y0).d2,
+                               fminf(proj_at(edge_setup(x1, y1, x2, y2), px, py, x1, y1).d2,
+                                     proj_at(edge_setup(x2, y2, x0, y0), px, py, x2, y2).d2));
+        log_om += log1pf(-fminf(sigmoid_of_signed(d2, inside, sigma_px2), ONE_MINUS));
+      }
     }
   }
   const long long o = static_cast<long long>(t) * 4 * P + p;
@@ -193,110 +223,109 @@ __global__ void __launch_bounds__(P) mesh_fwd_kernel(
   hard_out[o + P] = hit ? ny : 0.0f;
   hard_out[o + 2 * P] = hit ? nz : 0.0f;
   hard_out[o + 3 * P] = hit ? 1.0f : 0.0f;
-  soft_out[static_cast<long long>(t) * P + p] = soft ? 1.0f - expf(log_om) : 0.0f;
+  const long long op = static_cast<long long>(t) * P + p;
+  soft_out[op] = soft ? 1.0f - expf(log_om) : 0.0f;
+  win_out[op] = hit ? best_i : -1;
+  s_out[op] = log_om;
+  if (p == 0) live_out[t] = live;
 }
 
-__global__ void __launch_bounds__(P) mesh_bwd_kernel(
+// Threads per entry in B5, each over P / SPLIT of the pixels.
+constexpr int SPLIT = 2;
+
+__global__ void __launch_bounds__(CHUNK * SPLIT) mesh_bwd_kernel(
     const float* __restrict__ entries, long long dp,
     const int32_t* __restrict__ tile_start, const int32_t* __restrict__ tile_count,
-    int tiles_x, int ncmax, int soft, float sigma_px2, float log_sat,
+    int num_tiles, int tiles_x, int ncmax, int soft, float sigma_px2,
     const float* __restrict__ g_hard, const float* __restrict__ g_soft,
+    const int32_t* __restrict__ win, const float* __restrict__ s_in, const int32_t* __restrict__ live,
     float* __restrict__ d_entries) {
   constexpr int NV = 9;  // gradient values: 6 coordinates, 3 normal
-  __shared__ float sh[NSTAGE][CHUNK];
-  __shared__ float red[NWARP][NV][CHUNK];
-  const int t = blockIdx.x;
-  const int p = threadIdx.x;
-  const int warp = p / 32, lane = p % 32;
-  const long long start = tile_start[t];
-  const int nchunks = min(tile_count[t] / CHUNK, ncmax);
-  const float px = static_cast<float>((t % tiles_x) * TILE + p % TILE);
-  const float py = static_cast<float>((t / tiles_x) * TILE + p / TILE);
-  const long long o = static_cast<long long>(t) * 4 * P + p;
-  const float gnx = g_hard[o], gny = g_hard[o + P], gnz = g_hard[o + 2 * P];
-
-  // ---- pass A: best z and S, with the forward's skips
-  float best_z = BIG, log_om = 0.0f;
-  for (int k = 0; k < nchunks; ++k) {
-    __syncthreads();
-    stage_chunk(sh, entries, dp, start + static_cast<long long>(k) * CHUNK);
-    const bool do_soft = __syncthreads_or(soft && log_om > log_sat);
-    for (int j = 0; j < CHUNK; ++j) {
-      const Hard h = hard_at(sh, j, px, py);
-      if (h.ok) best_z = fminf(best_z, h.z);
-      if (do_soft && sh[E_VALID][j] > 0.0f) log_om += soft_at(sh, j, px, py, h.inside, sigma_px2).log1m;
-    }
+  __shared__ int s_owner;
+  __shared__ float s_dl[P], s_gn[3][P];
+  __shared__ int s_win[P];
+  __shared__ float s_part[SPLIT - 1][NV][CHUNK];
+  const long long slot = blockIdx.x;
+  const int t = owner_of(slot, tile_start, tile_count, num_tiles, ncmax, &s_owner);
+  if (t < 0) return;  // no tile owns this slot
+  const int k = static_cast<int>(slot - tile_start[t] / CHUNK);
+  const bool soft_live = soft && k < live[t];
+  for (int p = threadIdx.x; p < P; p += CHUNK * SPLIT) {
+    const long long op = static_cast<long long>(t) * P + p;
+    // soft = 1 - e^S, so dL/dS = -g_soft e^S
+    s_dl[p] = soft_live ? -g_soft[op] * expf(s_in[op]) : 0.0f;
+    s_win[p] = win[op];
+    const long long oh = static_cast<long long>(t) * 4 * P + p;
+    s_gn[0][p] = g_hard[oh];
+    s_gn[1][p] = g_hard[oh + P];
+    s_gn[2][p] = g_hard[oh + 2 * P];
   }
-  // soft = 1 - e^S, so dL/dS = -g_soft e^S
-  const float dl_ds = soft ? -g_soft[static_cast<long long>(t) * P + p] * expf(log_om) : 0.0f;
+  __syncthreads();
 
-  // ---- pass B: per-entry gradients
-  bool claimed = false;
-  float log_om_b = 0.0f;
-  for (int k = 0; k < nchunks; ++k) {
-    __syncthreads();  // the previous chunk's reductions are stored
-    stage_chunk(sh, entries, dp, start + static_cast<long long>(k) * CHUNK);
-    const bool do_soft = __syncthreads_or(soft && log_om_b > log_sat);
-    for (int j = 0; j < CHUNK; ++j) {
-      float v[NV];
+  const int j = threadIdx.x % CHUNK, part = threadIdx.x / CHUNK;
+  const long long e = slot * CHUNK + j;
+  const float x0 = entries[E_X0 * dp + e], y0 = entries[E_Y0 * dp + e];
+  const float x1 = entries[E_X1 * dp + e], y1 = entries[E_Y1 * dp + e];
+  const float x2 = entries[E_X2 * dp + e], y2 = entries[E_Y2 * dp + e];
+  const bool live_entry = soft_live && entries[E_VALID * dp + e] > 0.0f;
+  const Bary b = bary_setup(x0, y0, x1, y1, x2, y2);
+  const Edge e01 = edge_setup(x0, y0, x1, y1), e12 = edge_setup(x1, y1, x2, y2), e20 = edge_setup(x2, y2, x0, y0);
+  const int tx0 = (t % tiles_x) * TILE, ty0 = (t / tiles_x) * TILE;
+  const int ent = static_cast<int>(e);
+
+  float v[NV];
 #pragma unroll
-      for (int r = 0; r < NV; ++r) v[r] = 0.0f;
-      bool nonzero = false;
-      const Hard h = hard_at(sh, j, px, py);
-      if (!claimed && best_z < BIG && h.ok && h.z <= best_z) {
-        claimed = true;
-        v[6] = gnx;
-        v[7] = gny;
-        v[8] = gnz;
-        nonzero = true;
-      }
-      if (do_soft && sh[E_VALID][j] > 0.0f) {
-        const Soft s = soft_at(sh, j, px, py, h.inside, sigma_px2);
-        log_om_b += s.log1m;
-        const float q = fminf(s.prob, ONE_MINUS);
-        const float g_q = -dl_ds / (1.0f - q);
-        const float g_prob = s.prob < ONE_MINUS ? g_q : (s.prob == ONE_MINUS ? 0.5f * g_q : 0.0f);
-        const float g_signed = -(g_prob * s.prob * (1.0f - s.prob)) / sigma_px2;
-        const float g_d2 = h.inside ? -g_signed : g_signed;
-        // the argmin edge of min(d01, min(d12, d20)), ties split evenly
-        const float t0 = s.e01.d2 == s.m12 ? 0.5f : 0.0f;
-        const float g01 = g_d2 * (s.e01.d2 < s.m12 ? 1.0f : t0);
-        const float g_m12 = g_d2 * (s.m12 < s.e01.d2 ? 1.0f : t0);
-        const float t1 = s.e12.d2 == s.e20.d2 ? 0.5f : 0.0f;
-        const float g12 = g_m12 * (s.e12.d2 < s.e20.d2 ? 1.0f : t1);
-        const float g20 = g_m12 * (s.e20.d2 < s.e12.d2 ? 1.0f : t1);
-        const float x0 = sh[E_X0][j], y0 = sh[E_Y0][j], x1 = sh[E_X1][j], y1 = sh[E_Y1][j];
-        const float x2 = sh[E_X2][j], y2 = sh[E_Y2][j];
-        edge_grad(s.e01, px, py, x0, y0, g01, v[0], v[1], v[2], v[3]);
-        edge_grad(s.e12, px, py, x1, y1, g12, v[2], v[3], v[4], v[5]);
-        edge_grad(s.e20, px, py, x2, y2, g20, v[4], v[5], v[0], v[1]);
-        nonzero = nonzero || g_d2 != 0.0f;
-      }
-      if (__any_sync(FULL, nonzero)) {
-#pragma unroll
-        for (int r = 0; r < NV; ++r) {
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1) v[r] += __shfl_down_sync(FULL, v[r], off);
-        }
-      }
-      if (lane == 0) {
-#pragma unroll
-        for (int r = 0; r < NV; ++r) red[warp][r][j] = v[r];
-      }
+  for (int i = 0; i < NV; ++i) v[i] = 0.0f;
+  for (int i = 0; i < P / SPLIT; ++i) {
+    const int p = part * (P / SPLIT) + i;
+    if (s_win[p] == ent) {
+      v[6] += s_gn[0][p];
+      v[7] += s_gn[1][p];
+      v[8] += s_gn[2][p];
     }
-    __syncthreads();
-    float* out = d_entries + start + static_cast<long long>(k) * CHUNK;
-    for (int i = p; i < NCH * CHUNK; i += P) {
-      const int r = i / CHUNK, j = i % CHUNK;
-      // rows 0-5 take the coordinate gradients, rows 9-11 the normal's
-      const int src = r < 6 ? r : (r >= E_NX && r <= E_NZ ? r - E_NX + 6 : -1);
-      float sum = 0.0f;
-      if (src >= 0) {
+    const float dl_ds = s_dl[p];
+    if (dl_ds == 0.0f || !live_entry) continue;
+    const float px = static_cast<float>(tx0 + p % TILE), py = static_cast<float>(ty0 + p / TILE);
+    float w0, w1;
+    bary_at(b, sub(px, x2), sub(py, y2), w0, w1);
+    const bool inside = w0 >= 0.0f && w1 >= 0.0f && sub(sub(1.0f, w0), w1) >= 0.0f;
+    const Proj q01 = proj_at(e01, px, py, x0, y0), q12 = proj_at(e12, px, py, x1, y1);
+    const Proj q20 = proj_at(e20, px, py, x2, y2);
+    const float m12 = fminf(q12.d2, q20.d2);
+    const float prob = sigmoid_of_signed(fminf(q01.d2, m12), inside, sigma_px2);
+    const float q = fminf(prob, ONE_MINUS);
+    const float g_q = -dl_ds / (1.0f - q);
+    const float g_prob = prob < ONE_MINUS ? g_q : (prob == ONE_MINUS ? 0.5f * g_q : 0.0f);
+    const float g_signed = -(g_prob * prob * (1.0f - prob)) / sigma_px2;
+    const float g_d2 = inside ? -g_signed : g_signed;
+    // the argmin edge of min(d01, min(d12, d20)), ties split evenly
+    const float t0 = q01.d2 == m12 ? 0.5f : 0.0f;
+    const float g01 = g_d2 * (q01.d2 < m12 ? 1.0f : t0);
+    const float g_m12 = g_d2 * (m12 < q01.d2 ? 1.0f : t0);
+    const float t1 = q12.d2 == q20.d2 ? 0.5f : 0.0f;
+    const float g12 = g_m12 * (q12.d2 < q20.d2 ? 1.0f : t1);
+    const float g20 = g_m12 * (q20.d2 < q12.d2 ? 1.0f : t1);
+    edge_grad(e01, q01, px, py, x0, y0, g01, v[0], v[1], v[2], v[3]);
+    edge_grad(e12, q12, px, py, x1, y1, g12, v[2], v[3], v[4], v[5]);
+    edge_grad(e20, q20, px, py, x2, y2, g20, v[4], v[5], v[0], v[1]);
+  }
+  if (part > 0) {
 #pragma unroll
-        for (int w = 0; w < NWARP; ++w) sum += red[w][src][j];
-      }
-      out[r * dp + j] = sum;
-    }
+    for (int i = 0; i < NV; ++i) s_part[part - 1][i][j] = v[i];
+  }
+  __syncthreads();
+  if (part > 0) return;
+#pragma unroll
+  for (int s = 0; s < SPLIT - 1; ++s) {
+#pragma unroll
+    for (int i = 0; i < NV; ++i) v[i] += s_part[s][i][j];
+  }
+  // rows 0-5 take the coordinate gradients, rows 9-11 the normal's, the
+  // rest zeros
+#pragma unroll
+  for (int row = 0; row < NCH; ++row) {
+    const float val = row < 6 ? v[row] : (row >= E_NX && row <= E_NZ ? v[row - E_NX + 6] : 0.0f);
+    d_entries[row * dp + e] = val;
   }
 }
 
@@ -304,27 +333,34 @@ __global__ void __launch_bounds__(P) mesh_bwd_kernel(
 
 // Launches B4 on `stream`: entries (16, dp) f32; tile_start, tile_count
 // (num_tiles,) i32; outputs hard (num_tiles, 4, 256) = [normal xyz, hit] and
-// soft (num_tiles, 1, 256) f32, every tile written (soft is 0 when `soft` is
-// 0).  Returns the CUDA error of the launch (0 on success).
+// soft (num_tiles, 1, 256) f32 (0 when `soft` is 0), and the residuals of
+// B5: win (num_tiles, 256) i32, S (num_tiles, 256) f32, live
+// (num_tiles,) i32; every tile written.  Returns the CUDA error of the
+// launch (0 on success).
 extern "C" int gom_mesh_fwd(const float* entries, long long dp, const int32_t* tile_start,
                             const int32_t* tile_count, int num_tiles, int tiles_x, int ncmax, int soft,
-                            float sigma_px2, float log_sat, float* hard, float* soft_out, void* stream) {
+                            float sigma_px2, float log_sat, float* hard, float* soft_out, int32_t* win,
+                            float* s_out, int32_t* live, void* stream) {
   if (num_tiles <= 0) return 0;
   mesh_fwd_kernel<<<num_tiles, P, 0, static_cast<cudaStream_t>(stream)>>>(
-      entries, dp, tile_start, tile_count, tiles_x, ncmax, soft, sigma_px2, log_sat, hard, soft_out);
+      entries, dp, tile_start, tile_count, tiles_x, ncmax, soft, sigma_px2, log_sat, hard, soft_out, win, s_out,
+      live);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launches B5 on `stream`: as B4, plus the cotangents g_hard
-// (num_tiles, 4, 256) (the hit row is ignored) and g_soft (num_tiles, 1, 256)
-// f32; writes d_entries (16, dp) on every slot a tile owns.  Returns the
+// Launches B5 on `stream`: entries and tiles as B4, the cotangents g_hard
+// (num_tiles, 4, 256) (the hit row is ignored) and g_soft (num_tiles, 1,
+// 256) f32, and B4's residuals win, S, live; one block per 128-entry slot
+// of dp.  Writes d_entries (16, dp) on every slot a tile owns.  Returns the
 // CUDA error of the launch.
 extern "C" int gom_mesh_bwd(const float* entries, long long dp, const int32_t* tile_start,
                             const int32_t* tile_count, int num_tiles, int tiles_x, int ncmax, int soft,
-                            float sigma_px2, float log_sat, const float* g_hard, const float* g_soft,
-                            float* d_entries, void* stream) {
-  if (num_tiles <= 0) return 0;
-  mesh_bwd_kernel<<<num_tiles, P, 0, static_cast<cudaStream_t>(stream)>>>(
-      entries, dp, tile_start, tile_count, tiles_x, ncmax, soft, sigma_px2, log_sat, g_hard, g_soft, d_entries);
+                            float sigma_px2, const float* g_hard, const float* g_soft, const int32_t* win,
+                            const float* s_in, const int32_t* live, float* d_entries, void* stream) {
+  const long long n_slots = dp / CHUNK;
+  if (num_tiles <= 0 || n_slots <= 0) return 0;
+  mesh_bwd_kernel<<<n_slots, CHUNK * SPLIT, 0, static_cast<cudaStream_t>(stream)>>>(
+      entries, dp, tile_start, tile_count, num_tiles, tiles_x, ncmax, soft, sigma_px2, g_hard, g_soft, win, s_in,
+      live, d_entries);
   return static_cast<int>(cudaGetLastError());
 }

@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` exports a plain C interface and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into ``build/kernels/lib<name>-<hash>.so``
-under the repository root, at first use; the hash of the source names the
-library, so an edited source is never served a stale build.  Libraries are
-loaded with ``ctypes``.  Nothing here runs at import time.
+under the repository root, at first use; the hash of the source and of the
+shared headers ``csrc/*.cuh`` names the library, so an edited source is
+never served a stale build.  Libraries are loaded with ``ctypes``.  Nothing
+here runs at import time.
 
     python -m gomavatar_tpu_torch.cuda_build      # build every kernel, print ptxas info
 """
@@ -35,7 +36,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
+    h = hashlib.sha1()
+    for path in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        h.update(path.read_bytes())
+    digest = h.hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

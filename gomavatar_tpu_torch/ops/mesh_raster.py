@@ -36,6 +36,9 @@ _Z_NEAR = 1e-5
 _BIG = 1e10
 NCH = 16  # entry rows: x0 y0 x1 y1 x2 y2 | z0 z1 z2 | nsum xyz | valid | pad
 _ONE_MINUS = 1.0 - 1e-7
+# the kernels skip a tile's later soft chunks once every pixel's sum of
+# log(1 - p) is at or below this
+_LOG_SAT = -18.0
 
 
 class MeshRasterOut(NamedTuple):
@@ -89,6 +92,43 @@ def _point_tri_sq_dist(px, py, x0, y0, x1, y1, x2, y2):
     return torch.minimum(d01, torch.minimum(d12, d20))
 
 
+def _chunk_terms(entries, start, count, k, px, py, sigma_px2, soft):
+    """Chunk k of each tile's segment against its pixels, in the plain
+    arithmetic: (entries (NCH, n, 1, CHUNK), z of each covered, valid,
+    non-degenerate pair and _BIG elsewhere (n, P, CHUNK), log(1 - p) of each
+    valid pair and 0 elsewhere (n, P, CHUNK), or None without ``soft``)."""
+    offs = torch.clamp_max(start + k * CHUNK, entries.shape[1] - CHUNK)
+    in_range = (k * CHUNK < count).to(torch.float32)[:, None, None]
+    e = entries[:, offs[:, None] + torch.arange(CHUNK, device=entries.device)][:, :, None, :]
+    x0, y0, x1, y1, x2, y2 = e[0], e[1], e[2], e[3], e[4], e[5]
+    ev = e[12] * in_range
+    # edge functions -> barycentrics
+    denom = (y1 - y2) * (x0 - x2) + (x2 - x1) * (y0 - y2)
+    denom_bad = torch.abs(denom) < 1e-12
+    denom_safe = torch.where(denom_bad, torch.ones_like(denom), denom)
+    w0 = ((y1 - y2) * (px - x2) + (x2 - x1) * (py - y2)) / denom_safe
+    w1 = ((y2 - y0) * (px - x2) + (x0 - x2) * (py - y2)) / denom_safe
+    w2 = 1.0 - w0 - w1  # (n, P, CHUNK)
+    inside = (w0 >= 0) & (w1 >= 0) & (w2 >= 0)
+    ok = inside & (ev > 0) & ~denom_bad
+    z_px = w0 * e[6] + w1 * e[7] + w2 * e[8]
+    z_cand = torch.where(ok, z_px, torch.full_like(z_px, _BIG))
+    if not soft:
+        return e, z_cand, None
+    d2 = _point_tri_sq_dist(px, py, x0, y0, x1, y1, x2, y2)
+    signed = torch.where(inside, -d2, d2)
+    prob = torch.sigmoid(-signed / sigma_px2)
+    prob = torch.where(ev > 0, prob, torch.zeros((), dtype=prob.dtype, device=prob.device))
+    return e, z_cand, torch.log1p(-torch.minimum(prob, torch.full_like(prob, _ONE_MINUS)))
+
+
+def _first_at_min(z_cand):
+    """(the chunk's minimum z per pixel (n, P), the first lane that holds it)."""
+    z_chunk = torch.amin(z_cand, dim=-1)
+    lane = torch.arange(z_cand.shape[-1], device=z_cand.device)
+    return z_chunk, torch.amin(torch.where(z_cand <= z_chunk[..., None], lane, 2 * CHUNK), dim=-1)
+
+
 def mesh_composite_plain(
     entries: torch.Tensor,  # (NCH, Dp)
     tile_start: torch.Tensor,  # (T,)
@@ -104,7 +144,6 @@ def mesh_composite_plain(
     together, chunk by chunk, up to the longest segment (at most
     ``max_chunks``); it has no saturation skip."""
     T = num_tiles_x * num_tiles_y
-    Dp = entries.shape[1]
     dev = entries.device
     f32 = dict(dtype=torch.float32, device=dev)
     hard_t = torch.zeros((T, 4, P), **f32)
@@ -117,46 +156,22 @@ def mesh_composite_plain(
     kmax = int(torch.clamp_max(torch.div(count + CHUNK - 1, CHUNK, rounding_mode="floor"), max_chunks).max())
     px, py = tile_pixels(tiles, num_tiles_x)
     px, py = px[:, :, None], py[:, :, None]  # (n, P, 1)
-    lane = torch.arange(CHUNK, device=dev)
 
     n = tiles.shape[0]
-    zero = torch.zeros((), **f32)
     best_z = torch.full((n, P), _BIG, **f32)
     best_n = torch.zeros((n, 3, P), **f32)
     log_om = torch.zeros((n, P), **f32)
     for k in range(kmax):
-        offs = torch.clamp_max(start + k * CHUNK, Dp - CHUNK)
-        in_range = (k * CHUNK < count).to(torch.float32)[:, None, None]
-        e = entries[:, offs[:, None] + lane][:, :, None, :]  # (NCH, n, 1, CHUNK)
-        x0, y0, x1, y1, x2, y2 = e[0], e[1], e[2], e[3], e[4], e[5]
-        ev = e[12] * in_range
-        # edge functions -> barycentrics
-        denom = (y1 - y2) * (x0 - x2) + (x2 - x1) * (y0 - y2)
-        denom_bad = torch.abs(denom) < 1e-12
-        denom_safe = torch.where(denom_bad, torch.ones_like(denom), denom)
-        w0 = ((y1 - y2) * (px - x2) + (x2 - x1) * (py - y2)) / denom_safe
-        w1 = ((y2 - y0) * (px - x2) + (x0 - x2) * (py - y2)) / denom_safe
-        w2 = 1.0 - w0 - w1  # (n, P, CHUNK)
-        inside = (w0 >= 0) & (w1 >= 0) & (w2 >= 0)
-        ok = inside & (ev > 0) & ~denom_bad
-        z_px = w0 * e[6] + w1 * e[7] + w2 * e[8]
-        z_cand = torch.where(ok, z_px, torch.full_like(z_px, _BIG))
-
+        e, z_cand, log1m = _chunk_terms(entries, start, count, k, px, py, sigma_px2, soft)
         # hard pass: the first lane at the chunk minimum, kept on a strict <
-        z_chunk = torch.amin(z_cand, dim=-1)  # (n, P)
-        first = torch.amin(torch.where(z_cand <= z_chunk[..., None], lane, 2 * CHUNK), dim=-1)
+        z_chunk, first = _first_at_min(z_cand)
         nsum = e[9:12, :, 0, :].permute(1, 0, 2)  # (n, 3, CHUNK)
         n_chunk = torch.gather(nsum, 2, first[:, None, :].expand(n, 3, P))
         better = z_chunk < best_z
         best_n = torch.where(better[:, None, :], n_chunk, best_n)
         best_z = torch.where(better, z_chunk, best_z)
-
         if soft:
-            d2 = _point_tri_sq_dist(px, py, x0, y0, x1, y1, x2, y2)
-            signed = torch.where(inside, -d2, d2)
-            prob = torch.sigmoid(-signed / sigma_px2)
-            prob = torch.where(ev > 0, prob, zero)
-            log_om = log_om + torch.sum(torch.log1p(-torch.minimum(prob, torch.full_like(prob, _ONE_MINUS))), dim=-1)
+            log_om = log_om + torch.sum(log1m, dim=-1)
 
     hit = (best_z < _BIG).to(torch.float32)
     hard = torch.cat([best_n * hit[:, None, :], hit[:, None, :]], dim=1)
@@ -164,6 +179,44 @@ def mesh_composite_plain(
     if soft:
         soft_t = soft_t.index_copy(0, tiles, (1.0 - torch.exp(log_om))[:, None, :])
     return hard_t, soft_t
+
+
+@torch.no_grad()
+def mesh_residuals_plain(entries, tile_start, tile_count, num_tiles_x: int, soft: bool, sigma_px2: float,
+                         max_chunks: int = NCMAX):
+    """Plain version of the residuals kernel B4 saves for B5: (win (T, P)
+    int32, the entry index of each pixel's z-buffer winner or -1; S (T, P),
+    the sum of log(1 - p) over the live soft chunks; live (T,) int32, the
+    number of live soft chunks).  A tile's chunk k < min(count / CHUNK,
+    max_chunks) is live while some pixel of the tile has S > ``_LOG_SAT``
+    at its start, as in the kernels."""
+    T, dev = tile_start.shape[0], entries.device
+    win_t = torch.full((T, P), -1, dtype=torch.int32, device=dev)
+    s_t = torch.zeros((T, P), dtype=torch.float32, device=dev)
+    live_t = torch.zeros((T,), dtype=torch.int32, device=dev)
+    tiles = torch.nonzero(tile_count > 0).flatten()
+    if tiles.numel() == 0:
+        return win_t, s_t, live_t
+    start, count = tile_start[tiles].long(), tile_count[tiles].long()
+    nchunks = torch.clamp_max(torch.div(count, CHUNK, rounding_mode="floor"), max_chunks)
+    px, py = tile_pixels(tiles, num_tiles_x)
+    px, py = px[:, :, None], py[:, :, None]
+    best_z = torch.full(px.shape[:2], _BIG, dtype=torch.float32, device=dev)
+    win = torch.full(px.shape[:2], -1, dtype=torch.int64, device=dev)
+    log_om = torch.zeros_like(best_z)
+    live = torch.zeros_like(start)
+    for k in range(int(nchunks.max())):
+        _, z_cand, log1m = _chunk_terms(entries, start, nchunks * CHUNK, k, px, py, sigma_px2, soft)
+        z_chunk, first = _first_at_min(z_cand)
+        better = z_chunk < best_z
+        win = torch.where(better, (start + k * CHUNK)[:, None] + first, win)
+        best_z = torch.where(better, z_chunk, best_z)
+        if soft:
+            do_soft = (k < nchunks) & (log_om.amax(dim=1) > _LOG_SAT)
+            live = torch.where(do_soft, k + 1, live)
+            log_om = log_om + torch.where(do_soft[:, None], log1m.sum(dim=-1), torch.zeros_like(log_om))
+    return (win_t.index_copy(0, tiles, win.to(torch.int32)), s_t.index_copy(0, tiles, log_om),
+            live_t.index_copy(0, tiles, live.to(torch.int32)))
 
 
 def rasterize_mesh(

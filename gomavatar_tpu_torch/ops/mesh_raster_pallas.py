@@ -8,21 +8,27 @@ wrapper (port of gomavatar_tpu/ops/mesh_raster_pallas.py).
   by autograd; any other device raises.
 * Entries are (16, Dp): x0 y0 x1 y1 x2 y2 | z0 z1 z2 | summed normal xyz |
   valid | zero rows.
+* B4 saves three residuals for B5 (``mesh_raster.mesh_residuals_plain`` is
+  their plain version): each pixel's winning entry, each pixel's final
+  sum S of log(1 - p), and each tile's number of live soft chunks.
 
 Both kernels skip the soft term of a tile's later chunks once every pixel of
-the tile has sum log(1 - p) below ``_LOG_SAT``: such a chunk changes the
-silhouette by less than exp(-18) per face, and B5 gives its entries zero
+the tile has sum log(1 - p) at or below ``_LOG_SAT``: such a chunk changes
+the silhouette by less than exp(-18) per face, and B5 gives its entries zero
 soft gradient, the exact gradient of the truncated sum.  The plain version
 has no skip; the kernel tests' tolerances cover the difference.
 
 Source note for the kernels (details in the .cu file): they replace
 gomavatar_tpu/ops/mesh_raster_pallas.py:_fwd_kernel and _bwd_kernel.  On
-the H100 they are bound by arithmetic: the soft term costs ~60 fp32
-operations, an exp and a log per (pixel, entry) pair, the hard term ~20.
-One block per tile, one thread per pixel, each chunk staged once in shared
-memory; B5's per-entry gradients are block reductions with one plain store
-per entry.  The hard pass uses IEEE division and FMA-free arithmetic, so the
-z-buffer picks the same face as the plain version on the same inputs.
+the H100 they are bound by arithmetic: the soft term costs ~80 fp32
+operations, an exp and a log per (pixel, entry) pair, its chain in B5 ~250.
+B4 runs one block per tile, one thread per pixel, each chunk staged once in
+shared memory; its hard pass uses IEEE division and FMA-free arithmetic, so
+the z-buffer picks the same face as the plain version on the same inputs.
+B5 replays nothing: it reads the residuals and runs one block per chunk of
+the entry buffer; each entry's two threads, each over half of its tile's
+pixels, add their sums once and store the gradient once, with no
+cross-warp reductions and no atomics.
 """
 
 from __future__ import annotations
@@ -31,23 +37,26 @@ import ctypes
 
 import torch
 
-from gomavatar_tpu_torch.ops.mesh_raster import _ONE_MINUS, NCH, mesh_composite_plain
+from gomavatar_tpu_torch.ops.mesh_raster import _LOG_SAT, _ONE_MINUS, NCH, mesh_composite_plain
 from gomavatar_tpu_torch.ops.splat.binning import CHUNK, TILE
-from gomavatar_tpu_torch.ops.splat.pallas_kernel import select_d_entries
+from gomavatar_tpu_torch.ops.splat.pallas_kernel import check_tensor, launch_kernel, select_d_entries
 from gomavatar_tpu_torch.ops.splat.tiled_jnp import NCMAX, P
 
-_LOG_SAT = -18.0
-
-_FWD_ARGTYPES = [
+_TILE_ARGTYPES = [
     ctypes.c_void_p, ctypes.c_longlong,  # entries, dp
     ctypes.c_void_p, ctypes.c_void_p,  # tile_start, tile_count
     ctypes.c_int, ctypes.c_int, ctypes.c_int,  # num_tiles, tiles_x, ncmax
-    ctypes.c_int, ctypes.c_float, ctypes.c_float,  # soft, sigma_px2, log_sat
+    ctypes.c_int, ctypes.c_float,  # soft, sigma_px2
+]
+_FWD_ARGTYPES = _TILE_ARGTYPES + [
+    ctypes.c_float,  # log_sat
     ctypes.c_void_p, ctypes.c_void_p,  # hard_out, soft_out
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # win, S, live
     ctypes.c_void_p,  # stream
 ]
-_BWD_ARGTYPES = _FWD_ARGTYPES[:10] + [
+_BWD_ARGTYPES = _TILE_ARGTYPES + [
     ctypes.c_void_p, ctypes.c_void_p,  # g_hard, g_soft
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # win, S, live
     ctypes.c_void_p,  # d_entries
     ctypes.c_void_p,  # stream
 ]
@@ -76,44 +85,34 @@ def _check_cuda_inputs(entries, tile_start, tile_count):
 
 
 def mesh_fwd(entries, tile_start, tile_count, num_tiles_x, soft, sigma_px2, ncmax=NCMAX):
-    """Kernel B4 on CUDA tensors: (hard (T, 4, P), soft (T, 1, P))."""
+    """Kernel B4 on CUDA tensors: (hard (T, 4, P), soft (T, 1, P)) and B5's
+    residuals (win (T, P) int32, S (T, P), live (T,) int32)."""
     _check_cuda_inputs(entries, tile_start, tile_count)
-    T = tile_start.shape[0]
-    hard = torch.empty((T, 4, P), dtype=torch.float32, device=entries.device)
-    soft_t = torch.empty((T, 1, P), dtype=torch.float32, device=entries.device)
-    fwd, _ = _kernel_fns()
-    with torch.cuda.device(entries.device):
-        err = fwd(
-            entries.data_ptr(), entries.shape[1], tile_start.data_ptr(), tile_count.data_ptr(),
-            T, num_tiles_x, ncmax, int(soft), sigma_px2, _LOG_SAT,
-            hard.data_ptr(), soft_t.data_ptr(), torch.cuda.current_stream().cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"kernel B4 launch failed with CUDA error {err}")
+    T, dev = tile_start.shape[0], entries.device
+    f32, i32 = dict(dtype=torch.float32, device=dev), dict(dtype=torch.int32, device=dev)
+    hard, soft_t = torch.empty((T, 4, P), **f32), torch.empty((T, 1, P), **f32)
+    win, S, live = torch.empty((T, P), **i32), torch.empty((T, P), **f32), torch.empty((T,), **i32)
+    launch_kernel("B4", _kernel_fns()[0], entries, entries.shape[1], tile_start, tile_count, T, num_tiles_x, ncmax,
+                  int(soft), sigma_px2, _LOG_SAT, hard, soft_t, win, S, live)
     mesh_fwd.launches += 1
-    return hard, soft_t
+    return hard, soft_t, win, S, live
 
 
-def mesh_bwd(entries, tile_start, tile_count, g_hard_t, g_soft_t, num_tiles_x, soft, sigma_px2, ncmax=NCMAX):
-    """Kernel B5 on CUDA tensors: d_entries (16, Dp).  Every slot a tile owns
-    is written (zero where no gradient flows); slots no tile owns are left
-    unwritten."""
+def mesh_bwd(entries, tile_start, tile_count, g_hard_t, g_soft_t, win, S, live, num_tiles_x, soft, sigma_px2,
+             ncmax=NCMAX):
+    """Kernel B5 on CUDA tensors, from B4's residuals: d_entries (16, Dp).
+    Every slot a tile owns is written (zero where no gradient flows); slots
+    no tile owns are left unwritten."""
     _check_cuda_inputs(entries, tile_start, tile_count)
-    T = tile_start.shape[0]
-    for name, g, c in (("g_hard", g_hard_t, 4), ("g_soft", g_soft_t, 1)):
-        if g.dtype != torch.float32 or g.shape != (T, c, P) or not g.is_contiguous() or g.device != entries.device:
-            raise ValueError(f"{name} must be a contiguous ({T}, {c}, {P}) float32 tensor")
+    T, dev = tile_start.shape[0], entries.device
+    check_tensor("g_hard", g_hard_t, (T, 4, P), dev)
+    check_tensor("g_soft", g_soft_t, (T, 1, P), dev)
+    check_tensor("win", win, (T, P), dev, torch.int32)
+    check_tensor("S", S, (T, P), dev)
+    check_tensor("live", live, (T,), dev, torch.int32)
     d_entries = torch.empty_like(entries)
-    _, bwd = _kernel_fns()
-    with torch.cuda.device(entries.device):
-        err = bwd(
-            entries.data_ptr(), entries.shape[1], tile_start.data_ptr(), tile_count.data_ptr(),
-            T, num_tiles_x, ncmax, int(soft), sigma_px2, _LOG_SAT,
-            g_hard_t.data_ptr(), g_soft_t.data_ptr(), d_entries.data_ptr(),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"kernel B5 launch failed with CUDA error {err}")
+    launch_kernel("B5", _kernel_fns()[1], entries, entries.shape[1], tile_start, tile_count, T, num_tiles_x, ncmax,
+                  int(soft), sigma_px2, g_hard_t, g_soft_t, win, S, live, d_entries)
     mesh_bwd.launches += 1
     return d_entries
 
@@ -221,8 +220,8 @@ def _retile_cotangents(g_normal, g_soft, num_tiles_x, num_tiles_y):
 class _MeshComposite(torch.autograd.Function):
     @staticmethod
     def forward(ctx, entries, entry_valid, tile_start, tile_count, num_tiles_x, num_tiles_y, soft, sigma_px2):
-        hard_t, soft_t = mesh_fwd(entries, tile_start, tile_count, num_tiles_x, soft, sigma_px2)
-        ctx.save_for_backward(entries, entry_valid, tile_start, tile_count)
+        hard_t, soft_t, win, S, live = mesh_fwd(entries, tile_start, tile_count, num_tiles_x, soft, sigma_px2)
+        ctx.save_for_backward(entries, entry_valid, tile_start, tile_count, win, S, live)
         ctx.geometry = (num_tiles_x, num_tiles_y, soft, sigma_px2)
         normal, mask, soft_img = _untile_outputs(hard_t, soft_t, num_tiles_x, num_tiles_y)
         ctx.mark_non_differentiable(mask)  # the hard mask carries no gradient
@@ -230,10 +229,11 @@ class _MeshComposite(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_normal, _g_mask, g_soft):
-        entries, entry_valid, tile_start, tile_count = ctx.saved_tensors
+        entries, entry_valid, tile_start, tile_count, win, S, live = ctx.saved_tensors
         num_tiles_x, num_tiles_y, soft, sigma_px2 = ctx.geometry
         g_hard_t, g_soft_t = _retile_cotangents(g_normal, g_soft, num_tiles_x, num_tiles_y)
-        d_entries = mesh_bwd(entries, tile_start, tile_count, g_hard_t, g_soft_t, num_tiles_x, soft, sigma_px2)
+        d_entries = mesh_bwd(entries, tile_start, tile_count, g_hard_t, g_soft_t, win, S, live, num_tiles_x, soft,
+                             sigma_px2)
         d_entries = select_d_entries(d_entries, entry_valid, tile_start, tile_count, NCH)
         return d_entries, None, None, None, None, None, None, None
 
