@@ -8,21 +8,28 @@ through its kernels, and agrees with its plain versions on the card.
 Phases, each fatal on failure:
   1. the card's name and power limit; build every CUDA kernel from the
      sources in gomavatar_tpu_torch/csrc (one nvcc per source, in parallel).
-  2. kernel B1 against its plain PyTorch version on the card, on the 64^2
-     gate scene (untrained, seed 0) and on the trained 512^2 frame, with and
-     without the mesh pass; then the whole gate-scene forward on the card
-     against the same forward on the CPU.
+  2. kernel B1 (its two launches B1a and B1b) against its plain PyTorch
+     version and against the plain twin of its two launches on the card,
+     B1a's partials against the twin's, on the 64^2 gate scene (untrained,
+     seed 0) and on the trained 512^2 frame, with and without the mesh pass,
+     and with its slot arrays padded past 2,048 slots; then the whole
+     gate-scene forward on the card against the same forward on the CPU;
+     B1 timed through its wrapper and as B1a and B1b, with their work and
+     bounds.
   3. the eval path: the trained 57,600-face avatar rendered at 512^2 by
      ``gom_forward(train=False)`` on three frames (the packed frame and two
      with a perturbed pose vector and camera), with every launch count set
-     to 0 just before and read just after; drop counters, overflow and
-     finiteness are checked; then the forward and kernel B1 are timed.
+     to 0 just before and read just after (B1a and B1b once per frame);
+     drop counters, overflow and finiteness are checked; then the forward is
+     timed.
   4. the train path:
      a. kernels B2/B3 (splat blend) and B4/B5 (mesh raster) against their
         plain versions on the card, forward outputs, the residuals B2 and B4
         save for the backward, and entry gradients for the cotangents of a
-        real loss, on the gate scene and on the trained 512^2 frame; each
-        kernel (B3 as its two launches B3a and B3b) and plain version timed
+        real loss, on the gate scene and on the trained 512^2 frame; B4 also
+        against the plain twin of its two launches, and B4a's partials
+        against the twin's; each kernel (B3 as its two launches B3a and B3b,
+        B4 through its wrapper and as B4a and B4b) and plain version timed
         there;
      b. one gate-scene train step on the card against the same step on the
         CPU: loss terms and the step's gradients;
@@ -30,11 +37,14 @@ Phases, each fatal on failure:
         512^2 (its train config, the optimizer fast-forwarded to its
         iteration), over the three frames with the port's own eval renders
         as targets, every launch count set to 0 just before and read just
-        after; B2, B3a, B3b, B4 and B5 must launch once per step, nothing
+        after; B2, B3a, B3b, B4a, B4b and B5 must launch once per step, nothing
         may be dropped and every loss, gradient and parameter must be
         finite;
      d. the train step timed (median and p90 over 20 steps), with each
         kernel's work and bound.
+Kernel times are CUDA events around back-to-back calls after a warm-up;
+each part of a two-launch kernel also prints its device time (the calls
+queued behind a device-side sleep) beside it, as a diagnostic.
 Each phase prints its seconds.  The last five lines are the forward timings
 as JSON, the train-step timings as JSON, the kernels JSON line, the card line
 and the result JSON.  Without a CUDA card it exits non-zero and prints no
@@ -99,19 +109,25 @@ PEAK_EXP_PER_S = 16 * 132 * 1.98e9
 # for u, 2 for the u w sum) and one exp; B3b 72 (16 for the alpha, 40 for
 # the alpha, conic, mean, opacity and color gradients, 9 to add each pair's
 # nine values into its entry's sums, 7 for the transmittance and the
-# suffix) and one exp.  Per swept mesh pair, the hard term: 31 in B4 (the
-# barycentrics from the vertices with two divisions, the depth and the
-# z-test); 1 in B5 (the winner compare).  Per soft pair (valid entry, tile
-# not yet saturated): 81 in B4 (three edge projections of 24, the sign,
-# sigmoid and log1p), an exp and a log.  B5 sets up each valid entry of a
-# live soft chunk once, outside its pixel loop: 32 (11 for the barycentric
-# set-up, 7 for each edge's); then, per soft pair whose pixel's dL/dS is not
-# 0, 239 in the pixel loop (15 for the inside test: the two barycentrics, w2
-# and three compares; 17 for each edge projection; 6 for the sign and
-# sigmoid; the hand-written chain of 167 with the six coordinate sums) and
-# one exp.
+# suffix) and one exp.  B4 sets up each entry of a swept chunk once, outside
+# its pixel loop: 11 for the barycentric set-up, and 21 (7 for each edge's)
+# for an entry whose soft term runs (valid, tile not yet saturated).  Per
+# swept mesh pair, the hard term: 22 in B4 (the pixel's offset to vertex 2,
+# the two barycentrics with their IEEE divisions, w2, three compares, the
+# depth, the flag and the z-test); 1 in B5 (the winner compare).  Per soft
+# pair: 61 in B4 (17 for each edge projection, the minimum, the sign,
+# sigmoid and log1p, the sum), an exp and a log.  B5 sets up each valid
+# entry of a live soft chunk once, outside its pixel loop: 32 (11 for the
+# barycentric set-up, 7 for each edge's); then, per soft pair whose pixel's
+# dL/dS is not 0, 239 in the pixel loop (15 for the inside test: the two
+# barycentrics, w2 and three compares; 17 for each edge projection; 6 for
+# the sign and sigmoid; the hand-written chain of 167 with the six
+# coordinate sums) and one exp.
 B2_OPS, B3A_OPS, B3B_OPS, B2_SFU, B3A_SFU, B3B_SFU = 27, 27, 72, 1, 1, 1
-B4_HARD, B4_SOFT, B4_SFU = 31, 81, 2
+B4_HARD, B4_ENTRY_HARD, B4_SOFT, B4_ENTRY_SOFT, B4_SFU = 22, 11, 61, 21, 2
+# B4 counted as a sweep that derives the set-ups on every pair: 31 per
+# swept pair (barycentric set-up included), 81 per soft pair (the edges')
+PAIR_B4_HARD, PAIR_B4_SOFT = 31, 81
 B5_HARD, B5_ENTRY, B5_SOFT, B5_SFU = 1, 32, 239, 1
 # the same counts for the earlier kernels, which replayed the forward: B3 100 ops
 # and two exps per live splat pair; B5 64 per swept pair, 329 and two exps
@@ -144,17 +160,56 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, iters: int) -> float:
-    """Mean device time of one call over ``iters`` calls, after one warm-up."""
+    """Mean time of one call over ``iters`` back-to-back calls, after one
+    warm-up, between two CUDA events: the kernels line's ``ms``.  Where a
+    call's host time (argument checks, allocations, the ctypes launch)
+    exceeds its device time, this measures the host."""
     fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+SM_CLOCK_HZ = 1.98e9  # the H100 SXM boost clock: the cycles of torch.cuda._sleep
+
+
+def device_ms(fn, iters: int) -> float:
+    """A diagnostic beside :func:`cuda_ms`: the mean device time of one call,
+    its ``iters`` calls enqueued behind a device-side sleep of 1.5x the host
+    time they take (measured on a synchronised call), so that the events see
+    device work only."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(1.5 * host_s * iters * SM_CLOCK_HZ))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def time_split(label: str, whole, parts: dict) -> dict:
+    """A kernel of two launches timed by :func:`cuda_ms` through its whole
+    wrapper (``whole``) and through each launch's wrapper (``parts``), with
+    each one's device time printed beside it.  Returns {"ms": whole, "parts":
+    {name: ms}}."""
+    fns = {"whole": whole, **parts}
+    ms = {k: cuda_ms(f, KERNEL_ITERS) for k, f in fns.items()}
+    dev = {k: device_ms(f, KERNEL_ITERS) for k, f in fns.items()}
+    print(f"  {label}: " + ", ".join(f"{k} {ms[k]:.4f} ms (device {dev[k]:.4f})" for k in fns)
+          + " by events around back-to-back calls (device time: the calls queued behind a sleep)")
+    return {"ms": ms["whole"], "parts": {k: ms[k] for k in parts}}
 
 
 def check_close(label: str, a: torch.Tensor, b: torch.Tensor) -> float:
@@ -180,29 +235,85 @@ def check_sel(label: str, a: torch.Tensor, b: torch.Tensor) -> None:
 
 
 def compare_b1(label, table, bins, img_size):
-    """Kernel B1 vs its plain version on the same entries, with and without
-    the mesh pass.  Returns (worst rgb/alpha difference, kernel ms, plain
-    ms), both times with the mesh pass on."""
-    from gomavatar_tpu_torch.ops.frame_render import (
-        frame_sweep, frame_sweep_plain, gather_entries, untile,
-    )
+    """Kernel B1 (B1a then B1b) vs its plain version and vs the plain twin of
+    its two launches on the same entries, with and without the mesh pass;
+    B1a's partials vs the twin's; B1 with its slot arrays padded.  Returns
+    (worst rgb/alpha difference, {"ms": the wrapper's, "plain_ms", "parts":
+    {"B1a": ms, "B1b": ms}}), the times with the mesh pass on."""
+    from gomavatar_tpu_torch.ops import frame_render as FR
 
-    entries = gather_entries(table, bins)
+    entries = FR.gather_entries(table, bins)
     args = (entries, bins.active_id, bins.seg_start, bins.seg_count, bins.n_active, bins.num_tiles_x)
     worst = 0.0
+    resweeps = {}
     for with_mesh in (True, False):
-        k = frame_sweep(*args, with_mesh=with_mesh)
-        p = frame_sweep_plain(*args, with_mesh=with_mesh)
+        k = FR.frame_sweep(*args, with_mesh=with_mesh)
+        p = FR.frame_sweep_plain(*args, with_mesh=with_mesh)
+        tw = FR.frame_split_plain(*args, with_mesh=with_mesh, stats=resweeps if with_mesh else None)
         torch.cuda.synchronize()
         tag = f"{label} {'mesh on' if with_mesh else 'mesh off'}"
-        worst = max(worst, check_close(f"{tag} rgb", untile(k[0], bins, img_size), untile(p[0], bins, img_size)))
-        worst = max(worst, check_close(f"{tag} alpha", untile(k[1], bins, img_size), untile(p[1], bins, img_size)))
-        if with_mesh:
-            check_sel(f"{tag} sel", untile(k[2], bins, img_size), untile(p[2], bins, img_size))
-    kernel_ms = cuda_ms(lambda: frame_sweep(*args), KERNEL_ITERS)
-    plain_ms = cuda_ms(lambda: frame_sweep_plain(*args), PLAIN_ITERS)
-    print(f"  {label}: B1 kernel {kernel_ms:.4f} ms, plain version {plain_ms:.3f} ms")
-    return worst, kernel_ms, plain_ms
+        for ref, name in ((p, "plain"), (tw, "twin")):
+            for i, out in ((0, "rgb"), (1, "alpha")):
+                worst = max(worst, check_close(f"{tag} {out} vs {name}", FR.untile(k[i], bins, img_size),
+                                               FR.untile(ref[i], bins, img_size)))
+            if with_mesh:
+                check_sel(f"{tag} sel vs {name}", FR.untile(k[2], bins, img_size), FR.untile(ref[2], bins, img_size))
+        check_b1_partials(tag, FR.frame_partials(*args, with_mesh=with_mesh),
+                          FR.frame_chunk_partials_plain(*args, with_mesh=with_mesh), with_mesh,
+                          FR.chunk_plan(*args[2:5], FR.NCMAX, FR.num_pairs(entries.shape[1], args[1].shape[0])))
+    print(f"  {label} B1 twin: {resweeps['resweeps']} (pixel, chunk) re-sweeps, {resweeps['resweep_pairs']} "
+          f"(pixel, entry) pairs re-swept")
+    check_b1_padded(label, args)
+    partials = FR.frame_partials(*args)
+    timed = time_split(f"{label} B1", lambda: FR.frame_sweep(*args),
+                       {"B1a": lambda: FR.frame_partials(*args), "B1b": lambda: FR.frame_merge(*args, partials)})
+    timed["plain_ms"] = cuda_ms(lambda: FR.frame_sweep_plain(*args), PLAIN_ITERS)
+    print(f"  {label}: B1 {timed['ms']:.4f} ms, plain version {timed['plain_ms']:.3f} ms")
+    return worst, timed
+
+
+PADDED_SLOTS = 2304  # nine runs of 256 slots in B1's chunk plan
+
+
+def check_b1_padded(label, args):
+    """B1 on the same entries with its slot arrays padded past n_active to
+    PADDED_SLOTS (at least 256 more than they hold): the active slots'
+    outputs bit-equal to the unpadded call's.  B1 takes any number of active
+    slots."""
+    from gomavatar_tpu_torch.ops import frame_render as FR
+
+    entries, active_id, seg_start, seg_count, n_active, tiles_x = args
+    A = active_id.shape[0]
+    slots = max(PADDED_SLOTS, A + 256)
+    padded = [torch.cat([t, t.new_zeros(slots - A)]) for t in (active_id, seg_start, seg_count)]
+    got = FR.frame_sweep(entries, *padded, n_active, tiles_x)
+    want = FR.frame_sweep(*args)
+    n = int(n_active)
+    same = all(bool(torch.equal(g[:n], w[:n])) for g, w in zip(got, want))
+    print(f"  {label} B1 at {slots} slots (from {A}): outputs of the {n} active slots bit-equal: {same}")
+    require(same, f"{label}: B1 with padded slot arrays differs")
+
+
+def check_b1_partials(label, kernel, plain, with_mesh, plan):
+    """B1a's partials against the twin's on the pairs of the chunk plan: the
+    kernel's plan equal to ``plan``, the crossed flags equal on >= 99.9 % of
+    values, the local sums and transmittance within 1e-4 on > 99.95 % of
+    the values both hold, the z-buffer partial's entry equal on >= 99.9 %."""
+    from gomavatar_tpu_torch.ops.frame_render import CROSSED
+
+    (part_k, idx_k, end_k, _), (part_p, idx_p) = kernel, plain
+    require(bool(torch.equal(end_k, plan)), f"{label} B1a: the chunk plan differs from its plain version")
+    n = int(end_k[-1])
+    part_k, part_p, idx_k, idx_p = part_k[:n], part_p[:n], idx_k[:n], idx_p[:n]
+    require(bool(torch.isfinite(part_k[:, :5]).all()), f"{label} B1a partials: non-finite values")
+    crossed_k, crossed_p = part_k[:, 4] == CROSSED, part_p[:, 4] == CROSSED
+    same = float((crossed_k == crossed_p).float().mean())
+    both = (~crossed_k & ~crossed_p)[:, None, :].expand(-1, 5, -1)
+    frac = float(((part_k[:, :5] - part_p[:, :5]).abs() <= CLOSE_TOL)[both].float().mean())
+    win = float((idx_k == idx_p).float().mean()) if with_mesh else 1.0
+    print(f"  {label} B1a partials: {n} (tile, chunk) pairs, crossed equal on {same * 100:.4f} %, "
+          f"{frac * 100:.4f} % within {CLOSE_TOL:g}, z-buffer entry equal on {win * 100:.4f} %")
+    require(same >= HIT_FRAC and frac > CLOSE_FRAC and win >= HIT_FRAC, f"{label} B1a partials: outside the criteria")
 
 
 def frame_inputs(params, statics, cfg, frame):
@@ -247,11 +358,17 @@ def perturbed_frames(frame, seed: int = 0):
 
 
 def b1_work(table, bins, ncmax: int):
-    """(ops, bytes, swept entries, swept pairs, live splat pairs) of one B1
-    call on this frame's data: entries swept (clamped to ncmax chunks from
-    the aligned-down start), the (pixel, entry) pairs, and the pairs whose
-    splat term is still live (the pixel's transmittance not yet spent)."""
-    from gomavatar_tpu_torch.ops.frame_render import P, gather_entries
+    """(ops, {B1, B1a, B1b: bytes}, swept entries, swept pairs, live splat
+    pairs, (tile, chunk) pairs) of one B1 call on this frame's data: entries
+    swept (clamped to ncmax chunks from the aligned-down start), the (pixel,
+    entry) pairs, and the pairs whose splat term is still live (the pixel's
+    transmittance not yet spent).  B1 reads the entries and the slot arrays
+    and writes its outputs; B1a reads the entries and the slot arrays and
+    writes its partials, the chunk plan and the zeroed tickets; B1b reads
+    the partials, the plan, the slot arrays and the selection rows of each
+    pixel's winner, takes its tickets and writes the outputs (its re-sweeps
+    are not counted)."""
+    from gomavatar_tpu_torch.ops.frame_render import NPART, P, chunk_plan, gather_entries, num_pairs
     from gomavatar_tpu_torch.ops.splat.binning import CHUNK, TILE
     from gomavatar_tpu_torch.ops.splat.reference import ALPHA_MAX, ALPHA_MIN, T_EPS
 
@@ -278,8 +395,16 @@ def b1_work(table, bins, ncmax: int):
     live = int(((t_excl >= T_EPS) & ok[:, None, :]).sum())
     pairs = int(swept.sum()) * P
     ops = SPLAT_OPS * live + MESH_OPS * pairs
-    nbytes = int(swept.sum()) * entries.shape[0] * 4 + n * (3 + 1 + 5) * P * 4 + 4 * (3 * n + 1)
-    return ops, nbytes, int(swept.sum()), pairs, live
+    A = bins.active_id.shape[0]
+    chunk_pairs = int(chunk_plan(bins.seg_start, bins.seg_count, bins.n_active, ncmax,
+                                 num_pairs(entries.shape[1], A))[-1])
+    ints = 4 * (3 * n + 1)  # active_id, seg_start, seg_count, n_active
+    in_bytes = int(swept.sum()) * entries.shape[0] * 4
+    out_bytes = n * (3 + 1 + 5) * P * 4
+    part_bytes = chunk_pairs * (NPART + 1) * P * 4
+    nbytes = {"B1": in_bytes + out_bytes + ints, "B1a": in_bytes + ints + part_bytes + 8 * A,
+              "B1b": part_bytes + ints + 8 * A + n * P * 4 * 4 + out_bytes}
+    return ops, nbytes, int(swept.sum()), pairs, live, chunk_pairs
 
 
 # ---- the train kernels B2-B5 --------------------------------------------------
@@ -369,11 +494,12 @@ def splat_work(entries, tile_start, tile_count, C, num_tiles_x, ncmax):
 
 
 def mesh_work(entries, tile_start, tile_count, num_tiles_x, sigma_px2, ncmax, dl_ds):
-    """(swept pairs, soft pairs, B5's soft pairs) of one B4/B5 call on this
-    data: every chunk of a segment is swept by the z-buffer; a chunk's soft
-    term runs on its valid entries until every pixel of the tile has sum
-    log(1 - p) <= -18; B5 runs the chain on the soft pairs whose pixel has
-    dL/dS (``dl_ds`` (T, P)) not 0."""
+    """(swept pairs, soft pairs, B5's soft pairs, speculative soft pairs) of
+    one B4/B5 call on this data: every chunk of a segment is swept by the
+    z-buffer; a chunk's soft term runs on its valid entries until every
+    pixel of the tile has sum log(1 - p) <= -18; B5 runs the chain on the
+    soft pairs whose pixel has dL/dS (``dl_ds`` (T, P)) not 0; B4a computes
+    the soft term of the later, dead chunks too (the speculative pairs)."""
     from gomavatar_tpu_torch.ops.mesh_raster import _ONE_MINUS, _point_tri_sq_dist
     from gomavatar_tpu_torch.ops.mesh_raster_pallas import _LOG_SAT
     from gomavatar_tpu_torch.ops.splat.binning import CHUNK
@@ -386,7 +512,7 @@ def mesh_work(entries, tile_start, tile_count, num_tiles_x, sigma_px2, ncmax, dl
     lane = torch.arange(CHUNK, device=entries.device)
     log_om = torch.zeros(px.shape[:2], device=entries.device)
     dl_live = (dl_ds[tiles] != 0)[:, :, None]
-    swept = soft = soft_dl = 0
+    swept = soft = soft_dl = speculative = 0
     with torch.no_grad():
         for k in range(min(int(count.max()) // CHUNK, ncmax)):
             in_seg = k * CHUNK < count
@@ -406,7 +532,8 @@ def mesh_work(entries, tile_start, tile_count, num_tiles_x, sigma_px2, ncmax, dl
             swept += int(in_seg.sum()) * CHUNK * P
             soft += int(valid.sum()) * P
             soft_dl += int((valid & dl_live).sum())
-    return swept, soft, soft_dl
+            speculative += int(((e[12] > 0) & (in_seg & ~live)[:, None, None]).sum()) * P
+    return swept, soft, soft_dl, speculative
 
 
 def compare_b2b3(label, bins, entries, t_rgb, t_mask, timed: bool):
@@ -488,29 +615,25 @@ def compare_b4b5(label, bins, entries, valid, sigma_px2, shadow, t_rgb, t_mask, 
     normal-mask L1 of the soft silhouette against the dilated t_mask, summed
     over pixels as in :func:`compare_b2b3`."""
     from gomavatar_tpu_torch.losses import dilate_mask
+    from gomavatar_tpu_torch.ops import mesh_raster as MR
     from gomavatar_tpu_torch.ops import mesh_raster_pallas as MK
-    from gomavatar_tpu_torch.ops.mesh_raster import mesh_composite_plain, mesh_residuals_plain
+    from gomavatar_tpu_torch.ops.mesh_raster import mesh_composite_plain
 
     TX, TY = bins.num_tiles_x, bins.num_tiles_y
     start, count = bins.tile_start, bins.tile_count
     hard_k, soft_k, win_k, S_k, live_k = MK.mesh_fwd(entries, start, count, TX, True, sigma_px2)
+    res = (win_k, S_k, live_k)
     with torch.no_grad():
         hard_p, soft_p = mesh_composite_plain(entries, start, count, TX, TY, True, sigma_px2)
-    check_mesh_residuals(label, (win_k, S_k, live_k), mesh_residuals_plain(entries, start, count, TX, True, sigma_px2))
+        twin = MR.mesh_split_plain(entries, start, count, TX, True, sigma_px2)
+    check_mesh_residuals(label, res, MR.mesh_residuals_plain(entries, start, count, TX, True, sigma_px2))
+    check_mesh_residuals(f"{label} vs twin", res, twin[2:])
     n_k, hit_k, s_k = MK._untile_outputs(hard_k, soft_k, TX, TY)
-    n_p, hit_p, s_p = MK._untile_outputs(hard_p, soft_p, TX, TY)
-    same = hit_k == hit_p
-    both = same & (hit_k > 0)
-    hit_frac = float(same.float().mean())
-    n_worst = float((n_k - n_p).abs().amax(dim=-1)[both].max())
-    print(f"  {label} B4: hit equal on {hit_frac * 100:.4f} %, normal worst {n_worst:.3g} over "
-          f"{int(both.sum())} hit pixels")
-    require(hit_frac >= HIT_FRAC and n_worst <= NORMAL_TOL, f"{label} B4 hard pass: outside the criteria")
-    sd = (s_k - s_p).abs()
-    s_frac = float((sd <= SOFT_TOL).float().mean())
-    print(f"  {label} B4 soft: {s_frac * 100:.4f} % within {SOFT_TOL:g}, worst {float(sd.max()):.3g}")
-    require(bool(torch.isfinite(s_k).all()) and s_frac > GRAD_FRAC, f"{label} B4 soft: outside the criteria")
-    worst4 = max(n_worst, float(sd.max()))
+    worst4 = check_b4_outputs(label, (n_k, hit_k, s_k), MK._untile_outputs(hard_p, soft_p, TX, TY))
+    check_b4_outputs(f"{label} vs twin", (n_k, hit_k, s_k), MK._untile_outputs(*twin[:2], TX, TY))
+    check_b4_partials(label, MK.mesh_fwd_partials(entries, start, count, TX, True, sigma_px2),
+                      MR.mesh_chunk_partials_plain(entries, start, count, TX, True, sigma_px2),
+                      owned_slots(start, count, entries.shape[1]))
 
     normal = n_k.detach().requires_grad_(True)
     soft = s_k.detach().requires_grad_(True)
@@ -519,7 +642,6 @@ def compare_b4b5(label, bins, entries, valid, sigma_px2, shadow, t_rgb, t_mask, 
     loss = (albedo * shading - t_rgb).abs().sum() + (soft - dilate_mask(t_mask, 7)).abs().sum()
     g_normal, g_soft = torch.autograd.grad(loss, (normal, soft))
     g_hard_t, g_soft_t = MK._retile_cotangents(g_normal, g_soft, TX, TY)
-    res = (win_k, S_k, live_k)
     d_k = MK.select_d_entries(MK.mesh_bwd(entries, start, count, g_hard_t, g_soft_t, *res, TX, True, sigma_px2),
                               valid, start, count, MK.NCH)
 
@@ -533,9 +655,12 @@ def compare_b4b5(label, bins, entries, valid, sigma_px2, shadow, t_rgb, t_mask, 
     worst5 = check_grad(f"{label} B5 d_entries", d_k, d_p, keep & rows, MESH_GRAD_TOL)
     out = {"B4": [worst4], "B5": [worst5]}
     if timed:
-        out["B4"] += [cuda_ms(lambda: MK.mesh_fwd(entries, start, count, TX, True, sigma_px2), KERNEL_ITERS),
-                      cuda_ms(lambda: mesh_composite_plain(entries, start, count, TX, TY, True, sigma_px2),
-                              PLAIN_ITERS)]
+        partials = MK.mesh_fwd_partials(entries, start, count, TX, True, sigma_px2)
+        b4 = time_split(f"{label} B4", lambda: MK.mesh_fwd(entries, start, count, TX, True, sigma_px2),
+                        {"B4a": lambda: MK.mesh_fwd_partials(entries, start, count, TX, True, sigma_px2),
+                         "B4b": lambda: MK.mesh_fwd_merge(entries, start, count, partials, True)})
+        out["B4"] += [b4["ms"], cuda_ms(lambda: mesh_composite_plain(entries, start, count, TX, TY, True, sigma_px2),
+                                        PLAIN_ITERS), b4["parts"]]
         out["B5"] += [cuda_ms(lambda: MK.mesh_bwd(entries, start, count, g_hard_t, g_soft_t, *res, TX, True,
                                                   sigma_px2), KERNEL_ITERS),
                       cuda_ms(lambda: tile_batched_grad(entries, count, plain_outputs, (g_hard_t, g_soft_t), 32), 2)]
@@ -543,6 +668,43 @@ def compare_b4b5(label, bins, entries, valid, sigma_px2, shadow, t_rgb, t_mask, 
             print(f"  {label}: {k} kernel {out[k][1]:.4f} ms, plain version {out[k][2]:.3f} ms")
         out["dl_ds"] = -g_soft_t[:, 0] * torch.exp(S_k)  # B5's dL/dS, for its work count
     return out
+
+
+def check_b4_outputs(label, kernel, plain):
+    """B4's untiled outputs (normal, hit, soft) against a plain version's:
+    the hit equal on >= 99.9 % of pixels, the normal within 1e-5 where the
+    hits agree, the soft silhouette within 1e-4 on > 99.9 %.  Returns the
+    worst difference."""
+    (n_k, hit_k, s_k), (n_p, hit_p, s_p) = kernel, plain
+    same = hit_k == hit_p
+    both = same & (hit_k > 0)
+    hit_frac = float(same.float().mean())
+    n_worst = float((n_k - n_p).abs().amax(dim=-1)[both].max())
+    print(f"  {label} B4: hit equal on {hit_frac * 100:.4f} %, normal worst {n_worst:.3g} over "
+          f"{int(both.sum())} hit pixels")
+    require(hit_frac >= HIT_FRAC and n_worst <= NORMAL_TOL, f"{label} B4 hard pass: outside the criteria")
+    sd = (s_k - s_p).abs()
+    s_frac = float((sd <= SOFT_TOL).float().mean())
+    print(f"  {label} B4 soft: {s_frac * 100:.4f} % within {SOFT_TOL:g}, worst {float(sd.max()):.3g}")
+    require(bool(torch.isfinite(s_k).all()) and s_frac > GRAD_FRAC, f"{label} B4 soft: outside the criteria")
+    return max(n_worst, float(sd.max()))
+
+
+def check_b4_partials(label, kernel, plain, owned):
+    """B4a's partials against the twin's on the owned slots: the chunk
+    winner's entry equal on >= 99.9 % of (slot, pixel) values, the soft
+    partial within 1e-4 relative on > 99.9 %; the share whose z is
+    bit-equal is printed."""
+    (z_k, i_k, s_k), (z_p, i_p, s_p) = ((t[owned] for t in x) for x in (kernel, plain))
+    win_frac = float((i_k == i_p).float().mean())
+    z_same = float((z_k == z_p).float().mean())
+    d = (s_k - s_p).abs()
+    s_frac = float((d <= S_RTOL * s_p.abs() + S_ATOL).float().mean())
+    print(f"  {label} B4a partials: {int(owned.sum())} slots, winner equal on {win_frac * 100:.4f} %, z bit-equal on "
+          f"{z_same * 100:.4f} %, soft partial {s_frac * 100:.4f} % within {S_RTOL:g} relative "
+          f"(worst {float(d.max()):.3g})")
+    require(bool(torch.isfinite(s_k).all()), f"{label} B4a partials: non-finite soft partial")
+    require(win_frac >= HIT_FRAC and s_frac > GRAD_FRAC, f"{label} B4a partials: outside the criteria")
 
 
 def check_mesh_residuals(label, kernel, plain):
@@ -575,16 +737,18 @@ def train_kernel_bounds(bins, s_entries, m_entries, sigma_px2, dl_ds, C=3):
     """The least time of B2-B5 on this frame's data, each the larger of its
     fp32 and special-function operations at peak and the bytes it must move
     (each input read once, each output written once) at the memory rate;
-    B3 as one function and as its launches B3a and B3b; B3 and B5 also by
-    the count of the earlier kernels that replayed the forward.  Returns
-    {kernel: (bound_ms, bound_by, description)}."""
+    B3 and B4 as one function each and as their launches B3a, B3b, B4a and
+    B4b; B3 and B5 also by the count of the earlier kernels that replayed
+    the forward, B4 by the per-pair count of a sweep that derives every
+    set-up on every pair.  Returns {kernel: (bound_ms, bound_by,
+    description)}."""
     from gomavatar_tpu_torch.ops.splat.binning import CHUNK
     from gomavatar_tpu_torch.ops.splat.tiled_jnp import NCMAX, P
 
     start, count, TX = bins.tile_start, bins.tile_count, bins.num_tiles_x
     T = count.shape[0]
     s_chunks, live = splat_work(s_entries, start, count, C, TX, NCMAX)
-    swept, soft, soft_dl = mesh_work(m_entries, start, count, TX, sigma_px2, NCMAX, dl_ds)
+    swept, soft, soft_dl, speculative = mesh_work(m_entries, start, count, TX, sigma_px2, NCMAX, dl_ds)
     m_chunks = swept // (CHUNK * P)
     owned = int(torch.clamp_max(torch.div(count, CHUNK, rounding_mode="floor"), NCMAX).sum())
     row = CHUNK * 4  # bytes of one row of a chunk
@@ -593,12 +757,17 @@ def train_kernel_bounds(bins, s_entries, m_entries, sigma_px2, dl_ds, C=3):
     state = owned * P * 4  # B2's chunk-start state, or B3a's partials
     m_in = m_chunks * 13 * row + T * 5 * P * 4 + ints
     residuals = T * P * 8 + T * 4  # B4's win, S, live
+    b4_ops = B4_HARD * swept + B4_ENTRY_HARD * (swept // P) + B4_SOFT * soft + B4_ENTRY_SOFT * (soft // P)
+    b4_partials = owned * P * 12  # B4a's z, entry index and soft partial per (slot, pixel)
     work = {
         "B2": (B2_OPS * live, B2_SFU * live, s_in + state),
         "B3": ((B3A_OPS + B3B_OPS) * live, (B3A_SFU + B3B_SFU) * live, s_in + state + owned * s_entries.shape[0] * row),
         "B3a": (B3A_OPS * live, B3A_SFU * live, s_in + 2 * state),
         "B3b": (B3B_OPS * live, B3B_SFU * live, s_in + 2 * state + owned * s_entries.shape[0] * row),
-        "B4": (B4_HARD * swept + B4_SOFT * soft, B4_SFU * soft, m_in + residuals),
+        "B4": (b4_ops, B4_SFU * soft, m_in + residuals),
+        "B4a": (b4_ops, B4_SFU * soft, m_chunks * 10 * row + ints + b4_partials),
+        "B4b": (0, 0, b4_partials + T * 5 * P * 4 + ints + residuals),
+        "B4 per pair": (PAIR_B4_HARD * swept + PAIR_B4_SOFT * soft, B4_SFU * soft, m_in + residuals),
         "B5": (B5_HARD * swept + B5_ENTRY * (soft // P) + B5_SOFT * soft_dl, B5_SFU * soft_dl,
                m_in + residuals + owned * m_entries.shape[0] * row),
         "B3 replayed": (REPLAY_B3_OPS * live, REPLAY_B3_SFU * live, s_in + owned * s_entries.shape[0] * row),
@@ -611,7 +780,8 @@ def train_kernel_bounds(bins, s_entries, m_entries, sigma_px2, dl_ds, C=3):
         out[name] = (b, by, f"{ops:.4g} fp32 ops ({t_ops:.4f} ms), {sfu:.4g} exp/log ({t_sfu:.4f} ms), "
                             f"{nbytes} bytes ({t_bytes:.4f} ms)")
     print(f"  train kernel work: {s_chunks} splat chunks read, {live} live splat pairs; {m_chunks} mesh chunks "
-          f"swept ({swept} pairs), {soft} soft pairs, {soft_dl} of them with dL/dS != 0")
+          f"swept ({swept} pairs), {soft} soft pairs, {soft_dl} of them with dL/dS != 0; not counted: "
+          f"{speculative} speculative soft pairs of B4a (dead chunks)")
     return out
 
 
@@ -710,20 +880,26 @@ def phase_kernels_b1(card):
     print(f"  trained avatar loaded: {cfg.num_faces} faces at {cfg.img_size}, "
           f"{time.perf_counter() - t0:.1f} s")
     t_table, t_bins, _ = frame_inputs(params, statics, cfg, frame)
-    max_abs_err, b1_ms, plain_ms = compare_b1("trained 512^2", t_table, t_bins, cfg.img_size)
+    max_abs_err, timed = compare_b1("trained 512^2", t_table, t_bins, cfg.img_size)
 
     print("  gate-scene forward, card vs CPU")
     rgb_c, mask_c, _ = forward(g_params, g_statics, g_cfg, g_frame)
     rgb_h, mask_h, _ = forward(*gate_scene(device="cpu", seed=0), device="cpu")
     check_close("gate forward rgb", rgb_c.cpu(), rgb_h)
     check_close("gate forward mask", mask_c.cpu(), mask_h)
-    ops, nbytes, n_entries, pairs, live = b1_work(t_table, t_bins, NCMAX_B1)
-    b1_bound, b1_by, t_ops, t_exp, t_bytes = bound(ops, live, nbytes)
-    print(f"  B1 work: {int(t_bins.n_active)} active tiles, {n_entries} swept entries, {pairs} pairs, "
-          f"{live} live splat pairs; {ops:.4g} fp32 ops ({t_ops:.4f} ms at 67 TFLOP/s), "
-          f"{live} exps ({t_exp:.4f} ms at {PEAK_EXP_PER_S:.3g}/s), "
-          f"{nbytes} bytes ({t_bytes:.4f} ms at 3.35 TB/s)")
-    b1 = {"max_abs_err": max_abs_err, "ms": b1_ms, "plain_ms": plain_ms, "bound_ms": b1_bound, "bound_by": b1_by}
+    ops, nbytes, n_entries, pairs, live, chunk_pairs = b1_work(t_table, t_bins, NCMAX_B1)
+    print(f"  B1 work: {int(t_bins.n_active)} active tiles, {chunk_pairs} (tile, chunk) pairs, {n_entries} swept "
+          f"entries, {pairs} pairs, {live} live splat pairs; {ops:.4g} fp32 ops, {live} exps; not counted: the "
+          f"twin's re-sweeps above")
+    b1 = {"max_abs_err": max_abs_err, "ms": timed["ms"], "plain_ms": timed["plain_ms"], "parts": {}}
+    # B1a does all of the pair work; B1b's merge is bound by its bytes
+    for name, (n_ops, n_exp) in (("B1", (ops, live)), ("B1a", (ops, live)), ("B1b", (0, 0))):
+        b, by, t_ops, t_exp, t_bytes = bound(n_ops, n_exp, nbytes[name])
+        print(f"  {name} bound {b:.4f} ms by {by}: {n_ops:.4g} fp32 ops ({t_ops:.4f} ms at 67 TFLOP/s), "
+              f"{n_exp} exps ({t_exp:.4f} ms at {PEAK_EXP_PER_S:.3g}/s), {nbytes[name]} bytes ({t_bytes:.4f} ms "
+              f"at 3.35 TB/s)")
+        entry = b1 if name == "B1" else b1["parts"].setdefault(name, {"ms": timed["parts"][name]})
+        entry.update(bound_ms=b, bound_by=by)
     return trained, b1
 
 
@@ -733,10 +909,13 @@ def phase_eval_path(trained, card):
     params, statics, cfg, frame = trained
     print("[3] eval path: gom_forward(train=False) on the trained avatar at 512^2")
     frames = perturbed_frames(frame)
-    FR.frame_sweep.launches = 0
+    wrappers = {"B1a": FR.frame_partials, "B1b": FR.frame_merge}
+    torch.cuda.synchronize()
+    for w in wrappers.values():
+        w.launches = 0
     outs = [forward(params, statics, cfg, f) for f in frames]
     torch.cuda.synchronize()
-    launches = FR.frame_sweep.launches
+    launches = {k: w.launches for k, w in wrappers.items()}
     W, H = cfg.img_size
     for i, (rgb, mask, aux) in enumerate(outs):
         tel = aux["binning"]
@@ -749,7 +928,9 @@ def phase_eval_path(trained, card):
         require(float(mask.mean()) > 0.01, f"frame {i}: empty render")
         require(dropped == 0 and overflow == 0, f"frame {i}: binning dropped entries")
     print(f"  B1 launches: {launches} for {len(frames)} frames")
-    require(launches == len(frames), "the eval path did not launch B1 once per frame")
+    for k in wrappers:
+        require(launches[k] == len(frames), f"the eval path did not launch {k} once per frame")
+    launches["B1"] = launches["B1a"] + launches["B1b"]
 
     # timings (after the counted run)
     for _ in range(3):
@@ -809,13 +990,14 @@ def phase_train_kernels(trained):
                 results[k].update(bound_ms=b, bound_by=by)
                 print(f"  {k}: {results[k]['ms']:.4f} ms, plain version {results[k]['plain_ms']:.3f} ms, "
                       f"bound {b:.4f} ms by {by}: {desc}")
-            for k in ("B3a", "B3b"):
+            for kernel, k in (("B3", "B3a"), ("B3", "B3b"), ("B4", "B4a"), ("B4", "B4b")):
                 b, by, desc = bounds[k]
-                results["B3"]["parts"][k].update(bound_ms=b, bound_by=by)
-                print(f"  {k}: {results['B3']['parts'][k]['ms']:.4f} ms, bound {b:.4f} ms by {by}: {desc}")
-            for k in ("B3", "B5"):
-                b, by, desc = bounds[f"{k} replayed"]
-                print(f"  {k}: bound {bounds[k][0]:.4f} ms by the current count, {b:.4f} ms by the replaying kernels' ({by}: {desc})")
+                results[kernel]["parts"][k].update(bound_ms=b, bound_by=by)
+                print(f"  {k}: {results[kernel]['parts'][k]['ms']:.4f} ms, bound {b:.4f} ms by {by}: {desc}")
+            for k, other in (("B3", "B3 replayed"), ("B5", "B5 replayed"), ("B4", "B4 per pair")):
+                b, by, desc = bounds[other]
+                print(f"  {k}: bound {bounds[k][0]:.4f} ms by the current count, {b:.4f} ms by the count of "
+                      f"'{other}' ({by}: {desc})")
     return results
 
 
@@ -838,8 +1020,8 @@ def phase_train_path(trained, card):
     batches = [train_batch(params, statics, cfg, f, f) for f in frames]
     trainer = make_trainer(params, statics, cfg, i_iter, "cuda")
     before = [p.clone() for p in tree_leaves(trainer.params)]
-    wrappers = {"B1": FR.frame_sweep, "B2": SK.splat_fwd, "B3": SK.splat_bwd, "B3a": SK.splat_bwd_partials,
-                "B3b": SK.splat_bwd_grads, "B4": MK.mesh_fwd, "B5": MK.mesh_bwd}
+    wrappers = {"B1a": FR.frame_partials, "B1b": FR.frame_merge, "B2": SK.splat_fwd, "B3a": SK.splat_bwd_partials,
+                "B3b": SK.splat_bwd_grads, "B4a": MK.mesh_fwd_partials, "B4b": MK.mesh_fwd_merge, "B5": MK.mesh_bwd}
     torch.cuda.synchronize()
     for w in wrappers.values():
         w.launches = 0
@@ -853,8 +1035,10 @@ def phase_train_path(trained, card):
         dropped = terms["bin_drop_budget"] + terms["bin_drop_buffer"] + terms["bin_drop_ncmax"]
         require(dropped == 0, f"step {i}: the binning dropped entries")
     print(f"  launches over {TRAIN_STEPS} steps: {launches}")
-    for k in ("B2", "B3", "B3a", "B3b", "B4", "B5"):
+    for k in ("B2", "B3a", "B3b", "B4a", "B4b", "B5"):
         require(launches[k] == TRAIN_STEPS, f"the train path did not launch {k} once per step")
+    for k in ("B3", "B4"):  # two kernels each: their launches
+        launches[k] = launches[f"{k}a"] + launches[f"{k}b"]
     after = tree_leaves(trainer.params)
     moments = list(trainer.opt_state.mu) + list(trainer.opt_state.nu)
     require(all(bool(torch.isfinite(p).all()) for p in after + moments), "non-finite parameters or gradients")
@@ -879,12 +1063,13 @@ def phase_train_path(trained, card):
 
 
 KERNELS = {
-    "B1": ("B1 frame_render", "gomavatar_tpu_torch/csrc/frame_render.cu", "gomavatar_tpu/ops/frame_render.py:74"),
+    "B1": ("B1 frame_render (B1a partials + B1b merge)", "gomavatar_tpu_torch/csrc/frame_render.cu",
+           "gomavatar_tpu/ops/frame_render.py:74"),
     "B2": ("B2 splat_fwd", "gomavatar_tpu_torch/csrc/splat_composite.cu",
            "gomavatar_tpu/ops/splat/pallas_kernel.py:164"),
     "B3": ("B3 splat_bwd (B3a partials + B3b gradients)", "gomavatar_tpu_torch/csrc/splat_composite.cu",
            "gomavatar_tpu/ops/splat/pallas_kernel.py:241"),
-    "B4": ("B4 mesh_fwd", "gomavatar_tpu_torch/csrc/mesh_raster.cu",
+    "B4": ("B4 mesh_fwd (B4a partials + B4b merge)", "gomavatar_tpu_torch/csrc/mesh_raster.cu",
            "gomavatar_tpu/ops/mesh_raster_pallas.py:126"),
     "B5": ("B5 mesh_bwd", "gomavatar_tpu_torch/csrc/mesh_raster.cu",
            "gomavatar_tpu/ops/mesh_raster_pallas.py:203"),
@@ -932,13 +1117,15 @@ def main() -> int:
     train_launches, train = phase_train_path(trained, card)
     done("4b-4d", t0)
 
-    measured = {"B1": dict(b1, launches=b1_launches)}
+    measured = {"B1": dict(b1, launches=b1_launches["B1"])}
     for k in ("B2", "B3", "B4", "B5"):
         measured[k] = dict(train_kernels[k], launches=train_launches[k])
-    # B3 is two kernels: its launches are theirs, its time their sum
-    measured["B3"]["launches"] = train_launches["B3a"] + train_launches["B3b"]
-    for part, m in measured["B3"]["parts"].items():
-        m["launches"] = train_launches[part]
+    # B1, B3 and B4 are two kernels each: their launches are their parts'
+    # (counted where each part launches), B3's time the sum of its parts',
+    # B1's and B4's the time of their whole wrapper
+    for k, launches in (("B1", b1_launches), ("B3", train_launches), ("B4", train_launches)):
+        for part, m in measured[k]["parts"].items():
+            m["launches"] = launches[part]
     result = {"kernels": []}
     for k, (name, source, replaces) in KERNELS.items():
         m = measured[k]

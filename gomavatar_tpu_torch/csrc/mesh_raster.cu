@@ -25,7 +25,7 @@
 // it would change the silhouette by < e^-18 per face.  S never rises, so
 // the live chunks are a prefix of the segment.
 //
-// B4 also saves what the backward needs, three values it holds at its end:
+// B4 also saves what the backward needs, three values its merge ends with:
 //   win  (T, 256) i32: the entry index (offset into dp) of each pixel's
 //        winner, -1 where nothing hit;
 //   S    (T, 256) f32: the final sum above (0 with the soft pass off);
@@ -48,20 +48,33 @@
 // soft_log1m_grad` is the same chain in plain PyTorch, held to the
 // reference's autodiff by the tests.
 //
-// What bounds them on the card: arithmetic.  The soft term costs ~80 fp32
+// What bounds them on the card: arithmetic.  The soft term costs ~60 fp32
 // operations, an exp and a log per (pixel, entry) pair in B4, its chain
-// ~250 in B5; the entries are 64 B each.  Design:
-//   * B4: one block per tile, 256 threads (one per pixel), every per-pixel
-//     carry in registers, each chunk staged once in shared memory; the
-//     three residuals are one or two stores per pixel and one per tile.
+// ~240 in B5; the entries are 64 B each.  A tile's segment runs to 14
+// chunks on the trained 512^2 frame while the mean is 6.5, so the pair
+// work runs one block per chunk, not per tile: one block per 128-entry slot
+// of the entry buffer (sized from dp on the host); the block finds the tile
+// that owns its slot on the device (common.cuh: owner_of, a scan of
+// tile_start / tile_count, which also states what happens where buffer
+// clamping makes tiles share a tile_start) and returns at once if none
+// does.  Design:
+//   * B4 is two launches.  B4a, one block per chunk, 256 threads (one per
+//     pixel): the block derives each entry's barycentric and edge set-up
+//     once into shared memory (the hard pass's values bit-equal to a
+//     per-pair derivation: same round-to-nearest operations), then each
+//     pixel sweeps the chunk alone and stores its hard partial, the first
+//     entry at the minimum z as (z, entry index), and its soft partial, the
+//     chunk's sum of log(1 - p) from 0.  The soft partial is computed for
+//     every chunk, live or not: whether a chunk is live depends on the sum
+//     of the chunks before it, which B4a cannot see.  B4b, one block per
+//     tile, walks the tile's partials in chunk order: the live rule at each
+//     chunk's start (one barrier), S += the live partials, and a strict <
+//     on z in chunk order, which keeps the first entry at the minimum z as
+//     the one-pass sweep does.  It writes the outputs and the residuals.
+//     The scratch is 12 bytes per (slot, pixel), allocated by the wrapper.
 //   * B5 replays nothing: with win and S saved, the z-buffer and the soft
-//     sum need no pass of their own.  Its grid runs over chunks, not tiles:
-//     one block per 128-entry slot of the entry buffer (sized from dp on
-//     the host); the block finds the tile that owns its slot on the device
-//     (common.cuh: owner_of, a scan of tile_start / tile_count, which also
-//     states what happens where buffer clamping makes tiles share a
-//     tile_start) and returns at once if none does.
-//   * B5 gives each entry its own threads.  The block stages the tile's
+//     sum need no pass of their own.  It gives each entry its own threads
+//     (one block per chunk, as B4a).  The block stages the tile's
 //     per-pixel dL/dS, win and normal cotangent in shared memory (5 KB);
 //     each thread keeps its entry's vertices, edge constants and nine
 //     gradient sums in registers and loops over its pixels (a warp reads
@@ -79,7 +92,6 @@
 namespace {
 
 constexpr int NCH = 16;
-constexpr int NSTAGE = 13;  // rows read by the kernels: coords, z, normal, valid
 constexpr float BIG = 1e10f;
 constexpr float ONE_MINUS = 1.0f - 1e-7f;
 
@@ -160,68 +172,142 @@ __device__ __forceinline__ float sigmoid_of_signed(float d2, bool inside, float 
   return 1.0f / (1.0f + expf(signed_d2 / sigma_px2));  // sigmoid(-signed / s2)
 }
 
-__device__ __forceinline__ void stage_chunk(float (*sh)[CHUNK], const float* __restrict__ entries, long long dp,
-                                            long long base) {
-  for (int i = threadIdx.x; i < NSTAGE * CHUNK; i += P) {
-    const int r = i / CHUNK, l = i % CHUNK;
-    sh[r][l] = entries[r * dp + base + l];
-  }
+// Each entry's set-up in B4a's shared memory: the vertices, the depths,
+// the barycentric set-up, the three edges' (b - a, 1 / |b - a|^2) and two
+// flags: hard (valid and not degenerate) and soft (valid).
+enum { S_X0 = 0, S_Y0, S_X1, S_Y1, S_X2, S_Y2, S_Z0, S_Z1, S_Z2, S_A12, S_B21, S_A20, S_B02, S_DS,
+       S_E01, S_E12 = S_E01 + 3, S_E20 = S_E12 + 3, S_HARD = S_E20 + 3, S_SOFT, NSET };
+
+__device__ __forceinline__ void stage_edge(float (*sh)[CHUNK], int row, int j, const Edge& e) {
+  sh[row][j] = e.abx;
+  sh[row + 1][j] = e.aby;
+  sh[row + 2][j] = e.inv;
 }
 
-__global__ void __launch_bounds__(P) mesh_fwd_kernel(
+__device__ __forceinline__ Edge staged_edge(const float (*sh)[CHUNK], int row, int j) {
+  Edge e;
+  e.abx = sh[row][j];
+  e.aby = sh[row + 1][j];
+  e.d2ab = 0.0f;  // not read by proj_at
+  e.inv = sh[row + 2][j];
+  return e;
+}
+
+// B4a: one block per chunk slot, one thread per pixel of the owning tile.
+// Writes, for its slot, each pixel's hard partial (z_part: the depth of the
+// first eligible entry at the chunk's minimum z, BIG where none; i_part: its
+// entry index, -1 where none) and soft partial (s_part: the chunk's sum of
+// log(1 - p) over valid entries, 0 with the soft pass off).
+__global__ void __launch_bounds__(P) mesh_fwd_chunk_kernel(
     const float* __restrict__ entries, long long dp,
     const int32_t* __restrict__ tile_start, const int32_t* __restrict__ tile_count,
-    int tiles_x, int ncmax, int soft, float sigma_px2, float log_sat,
-    float* __restrict__ hard_out, float* __restrict__ soft_out,
-    int32_t* __restrict__ win_out, float* __restrict__ s_out, int32_t* __restrict__ live_out) {
-  __shared__ float sh[NSTAGE][CHUNK];
-  const int t = blockIdx.x;
+    int num_tiles, int tiles_x, int ncmax, int soft, float sigma_px2,
+    float* __restrict__ z_part, int32_t* __restrict__ i_part, float* __restrict__ s_part) {
+  __shared__ int s_owner;
+  __shared__ float sh[NSET][CHUNK];
+  const long long slot = blockIdx.x;
+  const int t = owner_of(slot, tile_start, tile_count, num_tiles, ncmax, &s_owner);
+  if (t < 0) return;  // no tile owns this slot
+  const long long base = slot * CHUNK;
+  if (threadIdx.x < CHUNK) {
+    const int j = threadIdx.x;
+    const long long e = base + j;
+    const float x0 = entries[E_X0 * dp + e], y0 = entries[E_Y0 * dp + e];
+    const float x1 = entries[E_X1 * dp + e], y1 = entries[E_Y1 * dp + e];
+    const float x2 = entries[E_X2 * dp + e], y2 = entries[E_Y2 * dp + e];
+    const Bary b = bary_setup(x0, y0, x1, y1, x2, y2);
+    const bool valid = entries[E_VALID * dp + e] > 0.0f;
+    sh[S_X0][j] = x0;
+    sh[S_Y0][j] = y0;
+    sh[S_X1][j] = x1;
+    sh[S_Y1][j] = y1;
+    sh[S_X2][j] = x2;
+    sh[S_Y2][j] = y2;
+    sh[S_Z0][j] = entries[E_Z0 * dp + e];
+    sh[S_Z1][j] = entries[E_Z1 * dp + e];
+    sh[S_Z2][j] = entries[E_Z2 * dp + e];
+    sh[S_A12][j] = b.a12;
+    sh[S_B21][j] = b.b21;
+    sh[S_A20][j] = b.a20;
+    sh[S_B02][j] = b.b02;
+    sh[S_DS][j] = b.ds;
+    stage_edge(sh, S_E01, j, edge_setup(x0, y0, x1, y1));
+    stage_edge(sh, S_E12, j, edge_setup(x1, y1, x2, y2));
+    stage_edge(sh, S_E20, j, edge_setup(x2, y2, x0, y0));
+    sh[S_HARD][j] = valid && !b.degenerate ? 1.0f : 0.0f;
+    sh[S_SOFT][j] = valid ? 1.0f : 0.0f;
+  }
+  __syncthreads();
+
   const int p = threadIdx.x;
-  const long long start = tile_start[t];
-  const int nchunks = min(tile_count[t] / CHUNK, ncmax);
   const float px = static_cast<float>((t % tiles_x) * TILE + p % TILE);
   const float py = static_cast<float>((t / tiles_x) * TILE + p / TILE);
+  float best_z = BIG, log_om = 0.0f;
+  int best_j = -1;
+  for (int j = 0; j < CHUNK; ++j) {
+    Bary b;
+    b.a12 = sh[S_A12][j];
+    b.b21 = sh[S_B21][j];
+    b.a20 = sh[S_A20][j];
+    b.b02 = sh[S_B02][j];
+    b.ds = sh[S_DS][j];
+    const float x0 = sh[S_X0][j], y0 = sh[S_Y0][j], x1 = sh[S_X1][j], y1 = sh[S_Y1][j];
+    const float x2 = sh[S_X2][j], y2 = sh[S_Y2][j];
+    float w0, w1;
+    bary_at(b, sub(px, x2), sub(py, y2), w0, w1);
+    const float w2 = sub(sub(1.0f, w0), w1);
+    const bool inside = w0 >= 0.0f && w1 >= 0.0f && w2 >= 0.0f;
+    const float z = add(add(mul(w0, sh[S_Z0][j]), mul(w1, sh[S_Z1][j])), mul(w2, sh[S_Z2][j]));
+    if (inside && sh[S_HARD][j] > 0.0f && z < best_z) {
+      best_z = z;
+      best_j = j;
+    }
+    if (soft && sh[S_SOFT][j] > 0.0f) {
+      const float d2 = fminf(proj_at(staged_edge(sh, S_E01, j), px, py, x0, y0).d2,
+                             fminf(proj_at(staged_edge(sh, S_E12, j), px, py, x1, y1).d2,
+                                   proj_at(staged_edge(sh, S_E20, j), px, py, x2, y2).d2));
+      log_om += log1pf(-fminf(sigmoid_of_signed(d2, inside, sigma_px2), ONE_MINUS));
+    }
+  }
+  const long long o = slot * P + p;
+  z_part[o] = best_z;
+  i_part[o] = best_j < 0 ? -1 : static_cast<int>(base) + best_j;
+  s_part[o] = log_om;
+}
 
-  float best_z = BIG, nx = 0.0f, ny = 0.0f, nz = 0.0f, log_om = 0.0f;
+// B4b: one block per tile, one thread per pixel: the tile's partials merged
+// in chunk order into the outputs and B5's residuals.
+__global__ void __launch_bounds__(P) mesh_fwd_merge_kernel(
+    const float* __restrict__ entries, long long dp,
+    const int32_t* __restrict__ tile_start, const int32_t* __restrict__ tile_count, int ncmax, int soft,
+    float log_sat, const float* __restrict__ z_part, const int32_t* __restrict__ i_part,
+    const float* __restrict__ s_part, float* __restrict__ hard_out, float* __restrict__ soft_out,
+    int32_t* __restrict__ win_out, float* __restrict__ s_out, int32_t* __restrict__ live_out) {
+  const int t = blockIdx.x;
+  const int p = threadIdx.x;
+  const long long s0 = tile_start[t] / CHUNK;
+  const int nchunks = min(tile_count[t] / CHUNK, ncmax);
+  float best_z = BIG, log_om = 0.0f;
   int best_i = -1, live = 0;
   for (int k = 0; k < nchunks; ++k) {
-    __syncthreads();  // the previous chunk is consumed
-    const long long base = start + static_cast<long long>(k) * CHUNK;
-    stage_chunk(sh, entries, dp, base);
-    // the barrier also decides, for the whole tile, whether the soft term
-    // of this chunk is live
-    const bool do_soft = __syncthreads_or(soft && log_om > log_sat);
-    if (do_soft) live = k + 1;
-    for (int j = 0; j < CHUNK; ++j) {
-      const float x0 = sh[E_X0][j], y0 = sh[E_Y0][j], x1 = sh[E_X1][j], y1 = sh[E_Y1][j];
-      const float x2 = sh[E_X2][j], y2 = sh[E_Y2][j];
-      const Bary b = bary_setup(x0, y0, x1, y1, x2, y2);
-      float w0, w1;
-      bary_at(b, sub(px, x2), sub(py, y2), w0, w1);
-      const float w2 = sub(sub(1.0f, w0), w1);
-      const bool inside = w0 >= 0.0f && w1 >= 0.0f && w2 >= 0.0f;
-      const bool valid = sh[E_VALID][j] > 0.0f;
-      const float z = add(add(mul(w0, sh[E_Z0][j]), mul(w1, sh[E_Z1][j])), mul(w2, sh[E_Z2][j]));
-      if (inside && valid && !b.degenerate && z < best_z) {
-        best_z = z;
-        best_i = static_cast<int>(base) + j;
-        nx = sh[E_NX][j];
-        ny = sh[E_NY][j];
-        nz = sh[E_NZ][j];
-      }
-      if (do_soft && valid) {
-        const float d2 = fminf(proj_at(edge_setup(x0, y0, x1, y1), px, py, x0, y0).d2,
-                               fminf(proj_at(edge_setup(x1, y1, x2, y2), px, py, x1, y1).d2,
-                                     proj_at(edge_setup(x2, y2, x0, y0), px, py, x2, y2).d2));
-        log_om += log1pf(-fminf(sigmoid_of_signed(d2, inside, sigma_px2), ONE_MINUS));
-      }
+    const long long o = (s0 + k) * P + p;
+    // the barrier decides, for the whole tile, whether the soft term of
+    // chunk k is live
+    if (__syncthreads_or(soft && log_om > log_sat)) {
+      live = k + 1;
+      log_om += s_part[o];
+    }
+    const float z = z_part[o];
+    if (z < best_z) {  // strict, in chunk order: the first entry at the minimum z
+      best_z = z;
+      best_i = i_part[o];
     }
   }
   const long long o = static_cast<long long>(t) * 4 * P + p;
   const bool hit = best_z < BIG;
-  hard_out[o] = hit ? nx : 0.0f;
-  hard_out[o + P] = hit ? ny : 0.0f;
-  hard_out[o + 2 * P] = hit ? nz : 0.0f;
+  hard_out[o] = hit ? entries[E_NX * dp + best_i] : 0.0f;
+  hard_out[o + P] = hit ? entries[E_NY * dp + best_i] : 0.0f;
+  hard_out[o + 2 * P] = hit ? entries[E_NZ * dp + best_i] : 0.0f;
   hard_out[o + 3 * P] = hit ? 1.0f : 0.0f;
   const long long op = static_cast<long long>(t) * P + p;
   soft_out[op] = soft ? 1.0f - expf(log_om) : 0.0f;
@@ -331,19 +417,34 @@ __global__ void __launch_bounds__(CHUNK * SPLIT) mesh_bwd_kernel(
 
 }  // namespace
 
-// Launches B4 on `stream`: entries (16, dp) f32; tile_start, tile_count
-// (num_tiles,) i32; outputs hard (num_tiles, 4, 256) = [normal xyz, hit] and
-// soft (num_tiles, 1, 256) f32 (0 when `soft` is 0), and the residuals of
-// B5: win (num_tiles, 256) i32, S (num_tiles, 256) f32, live
-// (num_tiles,) i32; every tile written.  Returns the CUDA error of the
-// launch (0 on success).
-extern "C" int gom_mesh_fwd(const float* entries, long long dp, const int32_t* tile_start,
-                            const int32_t* tile_count, int num_tiles, int tiles_x, int ncmax, int soft,
-                            float sigma_px2, float log_sat, float* hard, float* soft_out, int32_t* win,
-                            float* s_out, int32_t* live, void* stream) {
+// Launches B4a on `stream`: entries (16, dp) f32; tile_start, tile_count
+// (num_tiles,) i32; one block per 128-entry slot of dp.  Writes the
+// partials z_part (dp / 128, 256) f32, i_part (dp / 128, 256) i32 and s_part
+// (dp / 128, 256) f32 on every slot a tile owns.  Returns the CUDA error of
+// the launch (0 on success).
+extern "C" int gom_mesh_fwd_partials(const float* entries, long long dp, const int32_t* tile_start,
+                                     const int32_t* tile_count, int num_tiles, int tiles_x, int ncmax, int soft,
+                                     float sigma_px2, float* z_part, int32_t* i_part, float* s_part,
+                                     void* stream) {
+  const long long n_slots = dp / CHUNK;
+  if (num_tiles <= 0 || n_slots <= 0) return 0;
+  mesh_fwd_chunk_kernel<<<n_slots, P, 0, static_cast<cudaStream_t>(stream)>>>(
+      entries, dp, tile_start, tile_count, num_tiles, tiles_x, ncmax, soft, sigma_px2, z_part, i_part, s_part);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launches B4b on `stream`: entries and tiles as B4a, its partials; outputs
+// hard (num_tiles, 4, 256) = [normal xyz, hit] and soft (num_tiles, 1, 256)
+// f32 (0 when `soft` is 0), and the residuals of B5: win (num_tiles, 256)
+// i32, S (num_tiles, 256) f32, live (num_tiles,) i32; every tile written.
+// Returns the CUDA error of the launch.
+extern "C" int gom_mesh_fwd_merge(const float* entries, long long dp, const int32_t* tile_start,
+                                  const int32_t* tile_count, int num_tiles, int ncmax, int soft, float log_sat,
+                                  const float* z_part, const int32_t* i_part, const float* s_part, float* hard,
+                                  float* soft_out, int32_t* win, float* s_out, int32_t* live, void* stream) {
   if (num_tiles <= 0) return 0;
-  mesh_fwd_kernel<<<num_tiles, P, 0, static_cast<cudaStream_t>(stream)>>>(
-      entries, dp, tile_start, tile_count, tiles_x, ncmax, soft, sigma_px2, log_sat, hard, soft_out, win, s_out,
+  mesh_fwd_merge_kernel<<<num_tiles, P, 0, static_cast<cudaStream_t>(stream)>>>(
+      entries, dp, tile_start, tile_count, ncmax, soft, log_sat, z_part, i_part, s_part, hard, soft_out, win, s_out,
       live);
   return static_cast<int>(cudaGetLastError());
 }

@@ -219,6 +219,89 @@ def mesh_residuals_plain(entries, tile_start, tile_count, num_tiles_x: int, soft
             live_t.index_copy(0, tiles, live.to(torch.int32)))
 
 
+def _swept_tiles(tile_start, tile_count, max_chunks):
+    """(non-empty tiles, their first slot, their swept chunk counts)."""
+    tiles = torch.nonzero(tile_count > 0).flatten()
+    start, count = tile_start[tiles].long(), tile_count[tiles].long()
+    nchunks = torch.clamp_max(torch.div(count, CHUNK, rounding_mode="floor"), max_chunks)
+    return tiles, torch.div(start, CHUNK, rounding_mode="floor"), nchunks
+
+
+@torch.no_grad()
+def mesh_chunk_partials_plain(entries, tile_start, tile_count, num_tiles_x: int, soft: bool, sigma_px2: float,
+                              max_chunks: int = NCMAX):
+    """Plain version of kernel B4a: every chunk a tile sweeps, taken alone.
+    Returns (z, i, s), each (Dp / CHUNK, P): the depth of the chunk's first
+    eligible entry at its minimum z (_BIG where none), that entry's index
+    (int32, -1 where none), and the chunk's sum of log(1 - p) over its
+    valid entries (0 without ``soft``), on the slots a tile sweeps; the
+    other slots hold _BIG, -1 and 0."""
+    n_slots, dev = entries.shape[1] // CHUNK, entries.device
+    z = torch.full((n_slots + 1, P), _BIG, dtype=torch.float32, device=dev)  # the last row takes the rest
+    idx = torch.full((n_slots + 1, P), -1, dtype=torch.int32, device=dev)
+    s = torch.zeros((n_slots + 1, P), dtype=torch.float32, device=dev)
+    tiles, s0, nchunks = _swept_tiles(tile_start, tile_count, max_chunks)
+    if tiles.numel():
+        px, py = tile_pixels(tiles, num_tiles_x)
+        px, py = px[:, :, None], py[:, :, None]
+        for k in range(int(nchunks.max())):
+            _, z_cand, log1m = _chunk_terms(entries, s0 * CHUNK, nchunks * CHUNK, k, px, py, sigma_px2, soft)
+            z_chunk, first = _first_at_min(z_cand)
+            slot = torch.where(k < nchunks, s0 + k, n_slots)
+            z.index_copy_(0, slot, z_chunk)
+            idx.index_copy_(0, slot, torch.where(z_chunk < _BIG, (s0 + k)[:, None] * CHUNK + first, -1).to(torch.int32))
+            if soft:
+                s.index_copy_(0, slot, log1m.sum(dim=-1))
+    return z[:n_slots], idx[:n_slots], s[:n_slots]
+
+
+@torch.no_grad()
+def mesh_merge_plain(entries, tile_start, tile_count, partials, soft: bool, max_chunks: int = NCMAX):
+    """Plain version of kernel B4b: each tile's chunk partials (z, i, s) of
+    :func:`mesh_chunk_partials_plain`, merged in chunk order.  A chunk's soft
+    partial is added while some pixel of the tile has S > ``_LOG_SAT`` at
+    its start; the winner is the first chunk's at the minimum z (strict <
+    in chunk order).  Returns (hard (T, 4, P), soft (T, 1, P), win (T, P)
+    int32, S (T, P), live (T,) int32)."""
+    z_part, i_part, s_part = partials
+    T, dev = tile_start.shape[0], entries.device
+    win_t = torch.full((T, P), -1, dtype=torch.int32, device=dev)
+    s_t = torch.zeros((T, P), dtype=torch.float32, device=dev)
+    live_t = torch.zeros((T,), dtype=torch.int32, device=dev)
+    tiles, s0, nchunks = _swept_tiles(tile_start, tile_count, max_chunks)
+    if tiles.numel():
+        best_z = torch.full((tiles.numel(), P), _BIG, dtype=torch.float32, device=dev)
+        win = torch.full_like(best_z, -1, dtype=torch.int32)
+        log_om = torch.zeros_like(best_z)
+        live = torch.zeros_like(s0)
+        for k in range(int(nchunks.max())):
+            in_seg = k < nchunks
+            slot = torch.where(in_seg, s0 + k, 0)
+            better = in_seg[:, None] & (z_part[slot] < best_z)
+            win = torch.where(better, i_part[slot], win)
+            best_z = torch.where(better, z_part[slot], best_z)
+            if soft:
+                do_soft = in_seg & (log_om.amax(dim=1) > _LOG_SAT)
+                live = torch.where(do_soft, k + 1, live)
+                log_om = log_om + torch.where(do_soft[:, None], s_part[slot], torch.zeros_like(log_om))
+        win_t.index_copy_(0, tiles, win)
+        s_t.index_copy_(0, tiles, log_om)
+        live_t.index_copy_(0, tiles, live.to(torch.int32))
+    hit = (win_t >= 0).to(torch.float32)
+    normal = entries[9:12, win_t.clamp_min(0).long()].permute(1, 0, 2) * hit[:, None]
+    soft_t = (1.0 - torch.exp(s_t))[:, None] if soft else torch.zeros_like(s_t)[:, None]
+    return torch.cat([normal, hit[:, None]], dim=1), soft_t, win_t, s_t, live_t
+
+
+def mesh_split_plain(entries, tile_start, tile_count, num_tiles_x: int, soft: bool, sigma_px2: float,
+                     max_chunks: int = NCMAX):
+    """Kernel B4 as its two launches compute it, in plain PyTorch: the chunk
+    partials (B4a), then their merge in chunk order (B4b).  Returns (hard,
+    soft, win, S, live) as :func:`mesh_merge_plain`."""
+    partials = mesh_chunk_partials_plain(entries, tile_start, tile_count, num_tiles_x, soft, sigma_px2, max_chunks)
+    return mesh_merge_plain(entries, tile_start, tile_count, partials, soft, max_chunks)
+
+
 def rasterize_mesh(
     verts: torch.Tensor,
     vertex_normals: torch.Tensor,

@@ -2,10 +2,12 @@
 wrapper (port of gomavatar_tpu/ops/mesh_raster_pallas.py).
 
 * ``mesh_composite`` is the wrapper: on CUDA tensors it is a
-  ``torch.autograd.Function`` whose forward launches B4 and whose backward
-  launches B5 (``csrc/mesh_raster.cu``), each counted in ``launches``; on
-  CPU tensors it runs ``mesh_raster.mesh_composite_plain``, differentiated
-  by autograd; any other device raises.
+  ``torch.autograd.Function`` whose forward launches B4 (B4a then B4b) and
+  whose backward launches B5 (``csrc/mesh_raster.cu``), each kernel counted
+  in its own wrapper's ``launches`` (``mesh_fwd_partials``,
+  ``mesh_fwd_merge``, ``mesh_bwd``); on CPU tensors it runs
+  ``mesh_raster.mesh_composite_plain``, differentiated by autograd; any
+  other device raises.
 * Entries are (16, Dp): x0 y0 x1 y1 x2 y2 | z0 z1 z2 | summed normal xyz |
   valid | zero rows.
 * B4 saves three residuals for B5 (``mesh_raster.mesh_residuals_plain`` is
@@ -20,15 +22,22 @@ has no skip; the kernel tests' tolerances cover the difference.
 
 Source note for the kernels (details in the .cu file): they replace
 gomavatar_tpu/ops/mesh_raster_pallas.py:_fwd_kernel and _bwd_kernel.  On
-the H100 they are bound by arithmetic: the soft term costs ~80 fp32
-operations, an exp and a log per (pixel, entry) pair, its chain in B5 ~250.
-B4 runs one block per tile, one thread per pixel, each chunk staged once in
-shared memory; its hard pass uses IEEE division and FMA-free arithmetic, so
-the z-buffer picks the same face as the plain version on the same inputs.
-B5 replays nothing: it reads the residuals and runs one block per chunk of
-the entry buffer; each entry's two threads, each over half of its tile's
-pixels, add their sums once and store the gradient once, with no
-cross-warp reductions and no atomics.
+the H100 they are bound by arithmetic: the soft term costs ~60 fp32
+operations, an exp and a log per (pixel, entry) pair, its chain in B5 ~240.
+A tile's segment runs to 14 chunks while the mean is 6.5, so the pair work
+runs one block per chunk of the entry buffer, not one per tile.  B4 is two
+launches: B4a sweeps one chunk per block, one thread per pixel, each
+entry's set-up derived once in shared memory, and stores each pixel's hard
+partial (z, entry index) and soft partial (the chunk's sum of log(1 - p),
+computed for every chunk since liveness depends on the earlier chunks);
+B4b, one block per tile, merges them in chunk order with the saturation
+rule.  The hard pass uses IEEE division and FMA-free arithmetic, so the
+z-buffer picks the same face as the plain version on the same inputs
+(``mesh_raster.mesh_split_plain`` is the plain twin of the two launches).
+B5 replays nothing: it reads the residuals and runs one block per chunk;
+each entry's two threads, each over half of its tile's pixels, add their
+sums once and store the gradient once, with no cross-warp reductions and
+no atomics.
 """
 
 from __future__ import annotations
@@ -42,14 +51,21 @@ from gomavatar_tpu_torch.ops.splat.binning import CHUNK, TILE
 from gomavatar_tpu_torch.ops.splat.pallas_kernel import check_tensor, launch_kernel, select_d_entries
 from gomavatar_tpu_torch.ops.splat.tiled_jnp import NCMAX, P
 
-_TILE_ARGTYPES = [
+_ENTRY_ARGTYPES = [
     ctypes.c_void_p, ctypes.c_longlong,  # entries, dp
     ctypes.c_void_p, ctypes.c_void_p,  # tile_start, tile_count
+]
+_TILE_ARGTYPES = _ENTRY_ARGTYPES + [
     ctypes.c_int, ctypes.c_int, ctypes.c_int,  # num_tiles, tiles_x, ncmax
     ctypes.c_int, ctypes.c_float,  # soft, sigma_px2
 ]
-_FWD_ARGTYPES = _TILE_ARGTYPES + [
-    ctypes.c_float,  # log_sat
+_B4A_ARGTYPES = _TILE_ARGTYPES + [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # z_part, i_part, s_part
+    ctypes.c_void_p,  # stream
+]
+_B4B_ARGTYPES = _ENTRY_ARGTYPES + [
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,  # num_tiles, ncmax, soft, log_sat
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # z_part, i_part, s_part
     ctypes.c_void_p, ctypes.c_void_p,  # hard_out, soft_out
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # win, S, live
     ctypes.c_void_p,  # stream
@@ -63,13 +79,14 @@ _BWD_ARGTYPES = _TILE_ARGTYPES + [
 
 
 def _kernel_fns():
+    """The C launchers of (B4a, B4b, B5)."""
     from gomavatar_tpu_torch import cuda_build
 
     lib = cuda_build.load("mesh_raster")
-    fwd, bwd = lib.gom_mesh_fwd, lib.gom_mesh_bwd
-    fwd.argtypes, fwd.restype = _FWD_ARGTYPES, ctypes.c_int
-    bwd.argtypes, bwd.restype = _BWD_ARGTYPES, ctypes.c_int
-    return fwd, bwd
+    fns = lib.gom_mesh_fwd_partials, lib.gom_mesh_fwd_merge, lib.gom_mesh_bwd
+    for fn, argtypes in zip(fns, (_B4A_ARGTYPES, _B4B_ARGTYPES, _BWD_ARGTYPES)):
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return fns
 
 
 def _check_cuda_inputs(entries, tile_start, tile_count):
@@ -84,18 +101,44 @@ def _check_cuda_inputs(entries, tile_start, tile_count):
             raise ValueError(f"{name} must be a contiguous ({T},) int32 tensor on {dev}")
 
 
-def mesh_fwd(entries, tile_start, tile_count, num_tiles_x, soft, sigma_px2, ncmax=NCMAX):
-    """Kernel B4 on CUDA tensors: (hard (T, 4, P), soft (T, 1, P)) and B5's
-    residuals (win (T, P) int32, S (T, P), live (T,) int32)."""
+def mesh_fwd_partials(entries, tile_start, tile_count, num_tiles_x, soft, sigma_px2, ncmax=NCMAX):
+    """Kernel B4a on CUDA tensors: each owned chunk's partials, from that
+    chunk alone (``mesh_raster.mesh_chunk_partials_plain`` is the plain
+    version): z (Dp / CHUNK, P), i (Dp / CHUNK, P) int32, s (Dp / CHUNK, P),
+    written on the slots a tile owns."""
     _check_cuda_inputs(entries, tile_start, tile_count)
     T, dev = tile_start.shape[0], entries.device
+    shape = (entries.shape[1] // CHUNK, P)
+    z, i, s = (torch.empty(shape, dtype=dt, device=dev) for dt in (torch.float32, torch.int32, torch.float32))
+    launch_kernel("B4a", _kernel_fns()[0], entries, entries.shape[1], tile_start, tile_count, T, num_tiles_x, ncmax,
+                  int(soft), sigma_px2, z, i, s)
+    mesh_fwd_partials.launches += 1
+    return z, i, s
+
+
+def mesh_fwd_merge(entries, tile_start, tile_count, partials, soft, ncmax=NCMAX):
+    """Kernel B4b on CUDA tensors: B4a's ``partials`` merged in chunk order
+    into (hard (T, 4, P), soft (T, 1, P)) and B5's residuals (win (T, P)
+    int32, S (T, P), live (T,) int32)."""
+    _check_cuda_inputs(entries, tile_start, tile_count)
+    T, dev = tile_start.shape[0], entries.device
+    shape = (entries.shape[1] // CHUNK, P)
+    for name, x, dt in zip("zis", partials, (torch.float32, torch.int32, torch.float32)):
+        check_tensor(f"{name}_part", x, shape, dev, dt)
     f32, i32 = dict(dtype=torch.float32, device=dev), dict(dtype=torch.int32, device=dev)
     hard, soft_t = torch.empty((T, 4, P), **f32), torch.empty((T, 1, P), **f32)
     win, S, live = torch.empty((T, P), **i32), torch.empty((T, P), **f32), torch.empty((T,), **i32)
-    launch_kernel("B4", _kernel_fns()[0], entries, entries.shape[1], tile_start, tile_count, T, num_tiles_x, ncmax,
-                  int(soft), sigma_px2, _LOG_SAT, hard, soft_t, win, S, live)
-    mesh_fwd.launches += 1
+    launch_kernel("B4b", _kernel_fns()[1], entries, entries.shape[1], tile_start, tile_count, T, ncmax, int(soft),
+                  _LOG_SAT, *partials, hard, soft_t, win, S, live)
+    mesh_fwd_merge.launches += 1
     return hard, soft_t, win, S, live
+
+
+def mesh_fwd(entries, tile_start, tile_count, num_tiles_x, soft, sigma_px2, ncmax=NCMAX):
+    """Kernel B4 on CUDA tensors, B4a then B4b: (hard (T, 4, P), soft (T, 1,
+    P)) and B5's residuals (win (T, P) int32, S (T, P), live (T,) int32)."""
+    partials = mesh_fwd_partials(entries, tile_start, tile_count, num_tiles_x, soft, sigma_px2, ncmax)
+    return mesh_fwd_merge(entries, tile_start, tile_count, partials, soft, ncmax)
 
 
 def mesh_bwd(entries, tile_start, tile_count, g_hard_t, g_soft_t, win, S, live, num_tiles_x, soft, sigma_px2,
@@ -111,13 +154,14 @@ def mesh_bwd(entries, tile_start, tile_count, g_hard_t, g_soft_t, win, S, live, 
     check_tensor("S", S, (T, P), dev)
     check_tensor("live", live, (T,), dev, torch.int32)
     d_entries = torch.empty_like(entries)
-    launch_kernel("B5", _kernel_fns()[1], entries, entries.shape[1], tile_start, tile_count, T, num_tiles_x, ncmax,
+    launch_kernel("B5", _kernel_fns()[2], entries, entries.shape[1], tile_start, tile_count, T, num_tiles_x, ncmax,
                   int(soft), sigma_px2, g_hard_t, g_soft_t, win, S, live, d_entries)
     mesh_bwd.launches += 1
     return d_entries
 
 
-mesh_fwd.launches = 0
+mesh_fwd_partials.launches = 0
+mesh_fwd_merge.launches = 0
 mesh_bwd.launches = 0
 
 

@@ -224,14 +224,11 @@ def splat_bwd(entries, tile_start, tile_count, t_start, g_color_t, g_alpha_t, C,
     ``t_start``, written on every slot a tile owns."""
     partial = splat_bwd_partials(entries, tile_start, tile_count, t_start, g_color_t, g_alpha_t, C, num_tiles_x,
                                  ncmax)
-    d_entries = splat_bwd_grads(entries, tile_start, tile_count, t_start, partial, g_color_t, g_alpha_t, C,
-                                num_tiles_x, ncmax)
-    splat_bwd.launches += 1
-    return d_entries
+    return splat_bwd_grads(entries, tile_start, tile_count, t_start, partial, g_color_t, g_alpha_t, C,
+                           num_tiles_x, ncmax)
 
 
 splat_fwd.launches = 0
-splat_bwd.launches = 0
 splat_bwd_partials.launches = 0
 splat_bwd_grads.launches = 0
 

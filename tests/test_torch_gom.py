@@ -143,7 +143,7 @@ def test_gate_scene_is_seeded_and_renders():
     rgb, mask, aux = _forward(a)
     assert torch.isfinite(rgb).all() and float(mask.mean()) > 0.05
     assert int(aux["binning"].total_dropped()) == 0 and int(aux["tile_overflow"]) == 0
-    assert TF.frame_sweep.launches == 0
+    assert TF.frame_partials.launches == TF.frame_merge.launches == 0
 
 
 def test_train_path_is_not_ported(scenes):

@@ -77,7 +77,7 @@ def _tiny_b1_inputs(device):
 
 def test_cpu_call_leaves_launch_count_at_zero():
     rgb, alpha, sel = TF.frame_sweep(*_tiny_b1_inputs("cpu"), num_tiles_x=4)
-    assert TF.frame_sweep.launches == 0
+    assert TF.frame_partials.launches == TF.frame_merge.launches == 0
     # pixel (7, 7): power = -0.5 * 0.1 * (0.5^2 + 0.5^2), alpha = e^power
     expected = math.exp(-0.025)
     assert float(alpha[0, 0, 7 * 16 + 7]) == pytest.approx(expected, rel=1e-6)
@@ -89,12 +89,12 @@ def test_cpu_call_leaves_launch_count_at_zero():
 def test_other_devices_raise():
     with pytest.raises(ValueError):
         TF.frame_sweep(*_tiny_b1_inputs("meta"), num_tiles_x=4)
-    assert TF.frame_sweep.launches == 0
+    assert TF.frame_partials.launches == TF.frame_merge.launches == 0
 
 
 def _train_launches():
-    return (SK.splat_fwd.launches, SK.splat_bwd.launches, SK.splat_bwd_partials.launches,
-            SK.splat_bwd_grads.launches, MK.mesh_fwd.launches, MK.mesh_bwd.launches)
+    return (SK.splat_fwd.launches, SK.splat_bwd_partials.launches, SK.splat_bwd_grads.launches,
+            MK.mesh_fwd_partials.launches, MK.mesh_fwd_merge.launches, MK.mesh_bwd.launches)
 
 
 def _tiny_train_inputs(device):
