@@ -26,20 +26,22 @@ Phases, each fatal on failure:
      a. kernels B2/B3 (splat blend) and B4/B5 (mesh raster) against their
         plain versions on the card, forward outputs, the residuals B2 and B4
         save for the backward, and entry gradients for the cotangents of a
-        real loss, on the gate scene and on the trained 512^2 frame; B4 also
-        against the plain twin of its two launches, and B4a's partials
-        against the twin's; each kernel (B3 as its two launches B3a and B3b,
-        B4 through its wrapper and as B4a and B4b) and plain version timed
-        there;
+        real loss, on the gate scene and on the trained 512^2 frame; B2 and
+        B4 also against the plain twins of their two launches, and B2a's
+        and B4a's partials against the twins'; B3a's per-entry replay of
+        every owned chunk from B2's state, which must never cross 1e-4 on a
+        chunk B2 let through; each kernel (B3 as its two launches B3a and
+        B3b, B2 and B4 through their wrappers and as B2a, B2b, B4a and B4b)
+        and plain version timed there;
      b. one gate-scene train step on the card against the same step on the
         CPU: loss terms and the step's gradients;
      c. the main path: 5 ``Trainer.step`` calls on the trained avatar at
         512^2 (its train config, the optimizer fast-forwarded to its
         iteration), over the three frames with the port's own eval renders
         as targets, every launch count set to 0 just before and read just
-        after; B2, B3a, B3b, B4a, B4b and B5 must launch once per step, nothing
-        may be dropped and every loss, gradient and parameter must be
-        finite;
+        after; B2a, B2b, B3a, B3b, B4a, B4b and B5 must launch once per
+        step, nothing may be dropped and every loss, gradient and parameter
+        must be finite;
      d. the train step timed (median and p90 over 20 steps), with each
         kernel's work and bound.
 Kernel times are CUDA events around back-to-back calls after a warm-up;
@@ -104,7 +106,8 @@ PEAK_EXP_PER_S = 16 * 132 * 1.98e9
 # fp32 operations of the train kernels, counted from their sources
 # (csrc/splat_composite.cu, csrc/mesh_raster.cu), and their exp/log on the
 # special-function units.  Per live splat pair (the pixel's transmittance not
-# yet spent): B2 as B1's splat term, 27 and one exp; B3a 27 (11 for the
+# yet spent): B2 (B2a) as B1's splat term, 27 and one exp, B2b's re-sweeps
+# and B2a's pairs past the pixel's stop not counted; B3a 27 (11 for the
 # power polynomial, 4 for the alpha gates, 4 for the transmittance step, 6
 # for u, 2 for the u w sum) and one exp; B3b 72 (16 for the alpha, 40 for
 # the alpha, conic, mean, opacity and color gradients, 9 to add each pair's
@@ -537,23 +540,39 @@ def mesh_work(entries, tile_start, tile_count, num_tiles_x, sigma_px2, ncmax, dl
 
 
 def compare_b2b3(label, bins, entries, t_rgb, t_mask, timed: bool):
-    """Kernels B2 and B3 against their plain version on the same entries; the
+    """Kernels B2 and B3 against their plain version on the same entries; B2
+    (B2a then B2b) also against the plain twin of its two launches, B2a's
+    partials against the twin's, and B2's state replayed by B3a's rule.  The
     cotangents are those of the rgb L1 + 5 x mask L1 loss against (t_rgb,
     t_mask), summed over pixels rather than averaged so that the gradients
-    are O(1) and the absolute tolerance bites.  Returns {"B2": (worst, ms, plain ms), "B3": ...} (times only
-    when ``timed``) and the inputs of the work count."""
+    are O(1) and the absolute tolerance bites.  Returns {"B2": (worst, ms,
+    plain ms, {"B2a": ms, "B2b": ms}), "B3": ...} (times only when
+    ``timed``)."""
     from gomavatar_tpu_torch.ops.splat import pallas_kernel as SK
 
     C, TX, TY = 3, bins.num_tiles_x, bins.num_tiles_y
     start, count = bins.tile_start, bins.tile_count
     color_k, alpha_k, state_k = SK.splat_fwd(entries, start, count, C, TX)
+    part_k, _ = SK.splat_fwd_partials(entries, start, count, C, TX)
+    twin = {}
     with torch.no_grad():
         color_p, alpha_p = SK.composite_plain_entries(entries, start, count, C, TX, TY)
         state_p = SK.splat_chunk_state_plain(entries, start, count, TX)
+        color_w, alpha_w, state_w = SK.splat_split_plain(entries, start, count, C, TX, stats=twin)
+        part_w = SK.splat_chunk_partials_plain(entries, start, count, C, TX)
     img_k, a_k = SK._untile(color_k, alpha_k, TX, TY, C)
     img_p, a_p = SK._untile(color_p, alpha_p, TX, TY, C)
+    img_w, a_w = SK._untile(color_w, alpha_w, TX, TY, C)
     worst2 = max(check_close(f"{label} B2 color", img_k, img_p), check_close(f"{label} B2 alpha", a_k, a_p))
-    check_chunk_state(label, state_k, state_p, owned_slots(start, count, entries.shape[1]))
+    check_close(f"{label} B2 color vs twin", img_k, img_w)
+    check_close(f"{label} B2 alpha vs twin", a_k, a_w)
+    owned = owned_slots(start, count, entries.shape[1])
+    check_chunk_state(label, state_k, state_p, owned)
+    check_chunk_state(f"{label} vs twin", state_k, state_w, owned)
+    check_b2_partials(label, part_k, part_w, owned)
+    print(f"  {label} B2 twin: {twin['resweeps']} (pixel, chunk) re-sweeps, {twin['margin']} of them for the "
+          f"margin alone, {twin['carries']} carried on, {twin['own']} after a carry")
+    check_b2_replay(label, entries, start, count, TX, state_k, part_k, C)
 
     img = img_k.detach().requires_grad_(True)
     alpha = a_k.detach().requires_grad_(True)
@@ -575,8 +594,12 @@ def compare_b2b3(label, bins, entries, t_rgb, t_mask, timed: bool):
         partial = SK.splat_bwd_partials(entries, start, count, state_k, *g, C, TX)
         b3a = cuda_ms(lambda: SK.splat_bwd_partials(entries, start, count, state_k, *g, C, TX), KERNEL_ITERS)
         b3b = cuda_ms(lambda: SK.splat_bwd_grads(entries, start, count, state_k, partial, *g, C, TX), KERNEL_ITERS)
-        out["B2"] += [cuda_ms(lambda: SK.splat_fwd(entries, start, count, C, TX), KERNEL_ITERS),
-                      cuda_ms(lambda: SK.composite_plain_entries(entries, start, count, C, TX, TY), PLAIN_ITERS)]
+        partials = SK.splat_fwd_partials(entries, start, count, C, TX)
+        b2 = time_split(f"{label} B2", lambda: SK.splat_fwd(entries, start, count, C, TX),
+                        {"B2a": lambda: SK.splat_fwd_partials(entries, start, count, C, TX),
+                         "B2b": lambda: SK.splat_fwd_merge(entries, start, count, partials, C, TX)})
+        out["B2"] += [b2["ms"], cuda_ms(lambda: SK.composite_plain_entries(entries, start, count, C, TX, TY),
+                                        PLAIN_ITERS), b2["parts"]]
         out["B3"] += [b3a + b3b, cuda_ms(lambda: tile_batched_grad(entries, count, plain_outputs, g, 64), 2),
                       {"B3a": b3a, "B3b": b3b}]
         print(f"  {label}: B3a {b3a:.4f} ms + B3b {b3b:.4f} ms")
@@ -606,6 +629,54 @@ def check_chunk_state(label, state_k, state_p, owned):
     print(f"  {label} B2 chunk state: {k.numel()} values on {int(owned.sum())} slots, sentinel equal on "
           f"{same * 100:.4f} %, {frac * 100:.4f} % of {int(both.sum())} within {STATE_TOL:g}")
     require(same >= HIT_FRAC and frac > STATE_FRAC, f"{label} B2 chunk state: outside the criteria")
+
+
+def check_b2_partials(label, kernel, plain, owned):
+    """B2a's partials (slots, C + 2, P) against the twin's on the owned
+    slots: the crossed flags equal on >= 99.9 % of (slot, pixel) values, the
+    sums and the local transmittance within 1e-4 on > 99.95 % of the values
+    where neither crossed."""
+    from gomavatar_tpu_torch.ops.splat.pallas_kernel import CROSSED
+
+    k, p = kernel[owned], plain[owned]
+    require(bool(torch.isfinite(k).all()), f"{label} B2a partials: non-finite values")
+    crossed_k, crossed_p = k[:, -1] == CROSSED, p[:, -1] == CROSSED
+    same = float((crossed_k == crossed_p).float().mean())
+    both = (~crossed_k & ~crossed_p)[:, None, :].expand_as(k)
+    frac = float(((k - p).abs() <= CLOSE_TOL)[both].float().mean())
+    print(f"  {label} B2a partials: {int(owned.sum())} slots, crossed equal on {same * 100:.4f} %, "
+          f"{frac * 100:.4f} % within {CLOSE_TOL:g} where neither crossed ({float(crossed_k.float().mean()) * 100:.2f} "
+          f"% of (slot, pixel) values crossed)")
+    require(same >= HIT_FRAC and frac > CLOSE_FRAC, f"{label} B2a partials: outside the criteria")
+
+
+def check_b2_replay(label, entries, start, count, TX, state, part, C):
+    """B3a's per-entry rule replayed (plain, on the card) from B2's state on
+    every owned chunk: no pixel may cross 1e-4 on a chunk B2 let through
+    (its state >= 0, B2a's local T not crossed and state * T_k at least the
+    margin threshold), and on >= 99.9 % of the (chunk, pixel) values with a
+    next chunk in their tile the replay crosses exactly where that next
+    chunk's state is -1."""
+    from gomavatar_tpu_torch.ops.splat import pallas_kernel as SK
+    from gomavatar_tpu_torch.ops.splat.binning import CHUNK
+    from gomavatar_tpu_torch.ops.splat.tiled_jnp import NCMAX, tile_pixels
+
+    slot, tile, k = SK.owned_chunks(start, count, NCMAX)
+    px, py = tile_pixels(tile, TX)
+    T0 = state[slot]
+    with torch.no_grad():
+        _, _, crossed, _ = SK.sweep_chunks_plain(entries, slot, px, py, T0, C)
+    t_k = part[slot, C + 1]
+    through = (T0 >= 0) & (t_k != SK.CROSSED) & (T0 * t_k >= SK.T_THROUGH)
+    bad = int((crossed & through).sum())
+    n = torch.clamp_max(torch.div(count.long(), CHUNK, rounding_mode="floor"), NCMAX)
+    has_next = (k + 1 < n[tile])[:, None].expand_as(crossed)
+    turns = (T0 >= 0) & (state[torch.clamp_max(slot + 1, state.shape[0] - 1)] < 0)
+    agree = float((crossed == turns)[has_next].float().mean())
+    print(f"  {label} B3a replay from B2's state: {int(through.sum())} (chunk, pixel) values let through, {bad} "
+          f"cross 1e-4 in the replay; {int(crossed.sum())} crossings, at the state's turn to -1 on "
+          f"{agree * 100:.4f} % of {int(has_next.sum())} values with a next chunk")
+    require(bad == 0 and agree >= HIT_FRAC, f"{label} B3a replay from B2's state: outside the criteria")
 
 
 def compare_b4b5(label, bins, entries, valid, sigma_px2, shadow, t_rgb, t_mask, albedo, timed: bool):
@@ -737,17 +808,20 @@ def train_kernel_bounds(bins, s_entries, m_entries, sigma_px2, dl_ds, C=3):
     """The least time of B2-B5 on this frame's data, each the larger of its
     fp32 and special-function operations at peak and the bytes it must move
     (each input read once, each output written once) at the memory rate;
-    B3 and B4 as one function each and as their launches B3a, B3b, B4a and
-    B4b; B3 and B5 also by the count of the earlier kernels that replayed
-    the forward, B4 by the per-pair count of a sweep that derives every
-    set-up on every pair.  Returns {kernel: (bound_ms, bound_by,
-    description)}."""
+    B2, B3 and B4 as one function each and as their launches B2a, B2b, B3a,
+    B3b, B4a and B4b; B3 and B5 also by the count of the earlier kernels
+    that replayed the forward, B4 by the per-pair count of a sweep that
+    derives every set-up on every pair.  Returns {kernel: (bound_ms,
+    bound_by, description)}."""
+    from gomavatar_tpu_torch.ops.splat import pallas_kernel as SK
     from gomavatar_tpu_torch.ops.splat.binning import CHUNK
     from gomavatar_tpu_torch.ops.splat.tiled_jnp import NCMAX, P
 
     start, count, TX = bins.tile_start, bins.tile_count, bins.num_tiles_x
     T = count.shape[0]
     s_chunks, live = splat_work(s_entries, start, count, C, TX, NCMAX)
+    b2a_stats = {}
+    SK.splat_chunk_partials_plain(s_entries, start, count, C, TX, stats=b2a_stats)
     swept, soft, soft_dl, speculative = mesh_work(m_entries, start, count, TX, sigma_px2, NCMAX, dl_ds)
     m_chunks = swept // (CHUNK * P)
     owned = int(torch.clamp_max(torch.div(count, CHUNK, rounding_mode="floor"), NCMAX).sum())
@@ -759,8 +833,15 @@ def train_kernel_bounds(bins, s_entries, m_entries, sigma_px2, dl_ds, C=3):
     residuals = T * P * 8 + T * 4  # B4's win, S, live
     b4_ops = B4_HARD * swept + B4_ENTRY_HARD * (swept // P) + B4_SOFT * soft + B4_ENTRY_SOFT * (soft // P)
     b4_partials = owned * P * 12  # B4a's z, entry index and soft partial per (slot, pixel)
+    b2_partials = owned * (C + 2) * P * 4  # B2a's colour and alpha sums and local T per (slot, pixel)
+    s_out = T * (C + 1) * P * 4  # B2's colour and alpha outputs
     work = {
         "B2": (B2_OPS * live, B2_SFU * live, s_in + state),
+        # B2a reads every owned chunk and writes its partials and the zeroed
+        # tickets; B2b reads the partials and the tickets, writes the state
+        # and the outputs (its re-sweeps not counted)
+        "B2a": (B2_OPS * live, B2_SFU * live, owned * (6 + C) * row + ints + b2_partials + 4 * T),
+        "B2b": (0, 0, b2_partials + ints + 4 * T + state + s_out),
         "B3": ((B3A_OPS + B3B_OPS) * live, (B3A_SFU + B3B_SFU) * live, s_in + state + owned * s_entries.shape[0] * row),
         "B3a": (B3A_OPS * live, B3A_SFU * live, s_in + 2 * state),
         "B3b": (B3B_OPS * live, B3B_SFU * live, s_in + 2 * state + owned * s_entries.shape[0] * row),
@@ -779,9 +860,11 @@ def train_kernel_bounds(bins, s_entries, m_entries, sigma_px2, dl_ds, C=3):
         b, by, t_ops, t_sfu, t_bytes = bound(ops, sfu, nbytes)
         out[name] = (b, by, f"{ops:.4g} fp32 ops ({t_ops:.4f} ms), {sfu:.4g} exp/log ({t_sfu:.4f} ms), "
                             f"{nbytes} bytes ({t_bytes:.4f} ms)")
-    print(f"  train kernel work: {s_chunks} splat chunks read, {live} live splat pairs; {m_chunks} mesh chunks "
-          f"swept ({swept} pairs), {soft} soft pairs, {soft_dl} of them with dL/dS != 0; not counted: "
-          f"{speculative} speculative soft pairs of B4a (dead chunks)")
+    b2a_swept = b2a_stats["swept_pairs"]
+    print(f"  train kernel work: {s_chunks} splat chunks read ({owned} owned), {live} live splat pairs; {m_chunks} "
+          f"mesh chunks swept ({swept} pairs), {soft} soft pairs, {soft_dl} of them with dL/dS != 0; not counted: "
+          f"{speculative} speculative soft pairs of B4a (dead chunks), {b2a_swept - live} speculative splat pairs "
+          f"of B2a ({b2a_swept} swept from T = 1 minus the live ones)")
     return out
 
 
@@ -990,7 +1073,8 @@ def phase_train_kernels(trained):
                 results[k].update(bound_ms=b, bound_by=by)
                 print(f"  {k}: {results[k]['ms']:.4f} ms, plain version {results[k]['plain_ms']:.3f} ms, "
                       f"bound {b:.4f} ms by {by}: {desc}")
-            for kernel, k in (("B3", "B3a"), ("B3", "B3b"), ("B4", "B4a"), ("B4", "B4b")):
+            for kernel, k in (("B2", "B2a"), ("B2", "B2b"), ("B3", "B3a"), ("B3", "B3b"), ("B4", "B4a"),
+                              ("B4", "B4b")):
                 b, by, desc = bounds[k]
                 results[kernel]["parts"][k].update(bound_ms=b, bound_by=by)
                 print(f"  {k}: {results[kernel]['parts'][k]['ms']:.4f} ms, bound {b:.4f} ms by {by}: {desc}")
@@ -1020,8 +1104,9 @@ def phase_train_path(trained, card):
     batches = [train_batch(params, statics, cfg, f, f) for f in frames]
     trainer = make_trainer(params, statics, cfg, i_iter, "cuda")
     before = [p.clone() for p in tree_leaves(trainer.params)]
-    wrappers = {"B1a": FR.frame_partials, "B1b": FR.frame_merge, "B2": SK.splat_fwd, "B3a": SK.splat_bwd_partials,
-                "B3b": SK.splat_bwd_grads, "B4a": MK.mesh_fwd_partials, "B4b": MK.mesh_fwd_merge, "B5": MK.mesh_bwd}
+    wrappers = {"B1a": FR.frame_partials, "B1b": FR.frame_merge, "B2a": SK.splat_fwd_partials,
+                "B2b": SK.splat_fwd_merge, "B3a": SK.splat_bwd_partials, "B3b": SK.splat_bwd_grads,
+                "B4a": MK.mesh_fwd_partials, "B4b": MK.mesh_fwd_merge, "B5": MK.mesh_bwd}
     torch.cuda.synchronize()
     for w in wrappers.values():
         w.launches = 0
@@ -1035,9 +1120,9 @@ def phase_train_path(trained, card):
         dropped = terms["bin_drop_budget"] + terms["bin_drop_buffer"] + terms["bin_drop_ncmax"]
         require(dropped == 0, f"step {i}: the binning dropped entries")
     print(f"  launches over {TRAIN_STEPS} steps: {launches}")
-    for k in ("B2", "B3a", "B3b", "B4a", "B4b", "B5"):
+    for k in ("B2a", "B2b", "B3a", "B3b", "B4a", "B4b", "B5"):
         require(launches[k] == TRAIN_STEPS, f"the train path did not launch {k} once per step")
-    for k in ("B3", "B4"):  # two kernels each: their launches
+    for k in ("B2", "B3", "B4"):  # two kernels each: their launches
         launches[k] = launches[f"{k}a"] + launches[f"{k}b"]
     after = tree_leaves(trainer.params)
     moments = list(trainer.opt_state.mu) + list(trainer.opt_state.nu)
@@ -1065,7 +1150,7 @@ def phase_train_path(trained, card):
 KERNELS = {
     "B1": ("B1 frame_render (B1a partials + B1b merge)", "gomavatar_tpu_torch/csrc/frame_render.cu",
            "gomavatar_tpu/ops/frame_render.py:74"),
-    "B2": ("B2 splat_fwd", "gomavatar_tpu_torch/csrc/splat_composite.cu",
+    "B2": ("B2 splat_fwd (B2a partials + B2b merge)", "gomavatar_tpu_torch/csrc/splat_composite.cu",
            "gomavatar_tpu/ops/splat/pallas_kernel.py:164"),
     "B3": ("B3 splat_bwd (B3a partials + B3b gradients)", "gomavatar_tpu_torch/csrc/splat_composite.cu",
            "gomavatar_tpu/ops/splat/pallas_kernel.py:241"),
@@ -1120,10 +1205,11 @@ def main() -> int:
     measured = {"B1": dict(b1, launches=b1_launches["B1"])}
     for k in ("B2", "B3", "B4", "B5"):
         measured[k] = dict(train_kernels[k], launches=train_launches[k])
-    # B1, B3 and B4 are two kernels each: their launches are their parts'
-    # (counted where each part launches), B3's time the sum of its parts',
-    # B1's and B4's the time of their whole wrapper
-    for k, launches in (("B1", b1_launches), ("B3", train_launches), ("B4", train_launches)):
+    # B1-B4 are two kernels each: their launches are their parts' (counted
+    # where each part launches), B3's time the sum of its parts', B1's, B2's
+    # and B4's the time of their whole wrapper
+    for k, launches in (("B1", b1_launches), ("B2", train_launches), ("B3", train_launches),
+                        ("B4", train_launches)):
         for part, m in measured[k]["parts"].items():
             m["launches"] = launches[part]
     result = {"kernels": []}

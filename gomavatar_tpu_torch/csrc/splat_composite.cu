@@ -1,5 +1,6 @@
 // Kernels B2 and B3 for Hopper: the train-path splat compositing forward and
-// its analytic backward, B3 in two launches (B3a, B3b).
+// its analytic backward, each in two launches over the chunks of the entry
+// buffer (B2a, B2b; B3a, B3b).
 //
 // Replace the TPU kernels gomavatar_tpu/ops/splat/pallas_kernel.py:_fwd_kernel
 // (B2) and _bwd_kernel (B3).  Entries are (nch, dp) f32, channel-major: mean
@@ -31,29 +32,68 @@
 // What bounds them on the card: arithmetic.  A 512^2 frame of the trained
 // avatar reads ~1.4e3 chunks (~6 MB) as ~2.4e7 live (pixel, entry) pairs
 // of ~30 (forward) and ~100 (backward, with its per-entry reductions) fp32
-// operations and one exp each.  Design:
-//   * B2: one block per tile, 256 threads (one per pixel), every per-pixel
-//     sum in registers; each 128-entry chunk is staged once in shared
-//     memory and read by all threads as broadcasts; a block stops once
-//     every pixel of its tile is spent.  B2 also saves, for the backward,
-//     each pixel's T at the start of every chunk its tile owns, or -1 once
-//     the pixel is spent: a (dp / 128, 256) array, the sentinel written
-//     into the chunks an early stop skips too.
-//   * B3 does not replay the forward.  Its grid runs over chunks, not
-//     tiles: one block per 128-entry slot of the buffer (sized from dp on
-//     the host), which finds the tile that owns the slot on the device
-//     (common.cuh: owner_of, a scan of tile_start / tile_count, which also
-//     states what happens where buffer clamping makes tiles share a
-//     tile_start) and returns at once if none does.  So the longest
-//     segment no longer runs on one SM.
+// operations and one exp each.  Its tiles own ~6 chunks each on average
+// but up to ~14, so no kernel here runs one block per tile: every grid
+// runs over chunks, one block per 128-entry slot of the buffer (sized from
+// dp on the host), 256 threads (one per pixel).  Each block finds the tile
+// that owns its slot on the device (common.cuh: owner_of, a scan of
+// tile_start / tile_count, which also states what happens where buffer
+// clamping makes tiles share a tile_start) and returns at once if none
+// does.  So the longest segment no longer runs on one SM.  Each block
+// stages its chunk once in shared memory, read by all threads as
+// broadcasts, and keeps every per-pixel sum in registers.  Design:
+//   * B2a: per pixel, the chunk swept alone from T = 1 with the per-entry
+//     rule: the local colour and alpha sums and the local transmittance
+//     T_k, or CROSSED where the local sweep already fell below 1e-4 (it
+//     stops there: T never rises).  (dp / 128, C + 2, 256) f32 of partials.
+//   * B2b, one block per owned slot (tile t, chunk k): each pixel's T
+//     entering chunk k is the product of the earlier chunks' T_j while
+//     every one of them lets it through (below); a pixel that reaches
+//     chunk k and is not let through re-sweeps it from that T with the
+//     per-entry rule (those pixels packed into the block's first threads)
+//     and stores what it took and where it ended.  Some 20 pixels of a
+//     chunk do so on the trained frame, one warp that other warps do not
+//     hide, so each evaluates the alphas of AHEAD entries before the steps
+//     of T that take them.  Then the block takes a
+//     ticket (atomicAdd after a __threadfence); the tile's last block walks
+//     its chunks in order and writes colour, alpha and the state row of
+//     every owned chunk: each pixel's T at the chunk's start, or -1 from
+//     its stop on (SPENT, also in the chunks after an early stop).  A chunk
+//     that lets the pixel through adds T times its partials and T *= T_k;
+//     a re-swept chunk adds the stored re-sweep, and the pixel is spent
+//     there or carries on from the re-sweep's end T; after such a carry the
+//     last block re-sweeps, itself, any later chunk that does not let the
+//     pixel through (a second pass, which costs a block barrier per chunk
+//     and runs only where some pixel carried).  The last block resets the
+//     tile's ticket (B2a zeroes
+//     them), so B2b can run again on the same partials.  A tile that sweeps
+//     no chunk has no block of its own: block t of B2b's grid (at least
+//     num_tiles blocks) writes its zero outputs.
+//   * The rule that keeps B3 exact.  B3a and B3b replay each chunk from the
+//     state B2b wrote and must spend a pixel at the very entry where B2
+//     did.  A chunk lets a pixel through unswept only if it did not cross
+//     on its own and T * T_k >= T_THROUGH = 1e-4 (1 + 1e-3).  This margin
+//     suffices: T_k and B3a's replay from the state T are products of the
+//     same <= 128 factors (1 - alpha) (the same floats: splat_at), each
+//     multiply rounded to nearest, so each lies within (1 +- 2^-24)^128 of
+//     its exact product, and T * T_k adds one rounding: the replay's end
+//     differs from T * T_k by less than 257 * 2^-24 ~ 1.53e-5 relative, and
+//     ends above 1e-4 (1 + 1e-3)(1 - 1.53e-5) > 1e-4.  T never rises (a
+//     factor <= 1 rounded to nearest cannot exceed T), so no entry before
+//     the end crosses either: B3a sweeps a let-through chunk whole.  Every
+//     other chunk a pixel reaches is re-swept from the T written as its
+//     state, in B3a's arithmetic, so B2 stops where B3a stops, or carries
+//     on from the T B3a ends with, which is the next chunk's state.
+//   * B3 does not replay the forward: it runs from B2's state.
 //   * B3a: per pixel, from the saved T, the partial sum of u w over its own
 //     chunk alone, (dp / 128, 256) f32.
 //   * B3b: per pixel, the suffix at the chunk's end is the sum of the later
 //     chunks' partials of the tile (at most ncmax - 1 reads); walking the
 //     chunk again with the local prefix gives S_e = later + (partial -
-//     prefix_e).  B2, B3a and B3b evaluate alpha, T and u w with the same
-//     round-to-nearest intrinsics (never contracted into FMAs), so a pixel
-//     is spent at the same entry in all three, the local prefix equals the
+//     prefix_e).  B2a, B2b, B3a and B3b evaluate alpha, T and u w with the
+//     same expf and round-to-nearest intrinsics (never contracted into
+//     FMAs), so with the margin above a pixel is spent at the same entry in
+//     B2 and B3, the local prefix equals the
 //     partial exactly there, and S is exactly 0 from that entry on: a spent
 //     pixel contributes nothing more.
 //   * B3b's per-entry gradients are block reductions over the 256 pixels
@@ -79,6 +119,8 @@ constexpr float ALPHA_MAX = 0.99f;
 constexpr float ALPHA_MIN = 1.0f / 255.0f;
 constexpr float T_EPS = 1e-4f;
 constexpr float SPENT = -1.0f;  // the chunk-start state of a spent pixel
+constexpr float CROSSED = -1.0f;  // B2a's local T of a chunk whose sweep from T = 1 fell below T_EPS
+constexpr float T_THROUGH = 1.001e-4f;  // T_EPS (1 + 1e-3): the least T * T_k that lets a chunk through
 
 enum { E_MX = 0, E_MY, E_CA, E_CB, E_CC, E_OP, E_COL };
 
@@ -142,51 +184,246 @@ __device__ __forceinline__ float warp_sum16(float (&v)[16], int lane) {
   return v[0] + __shfl_xor_sync(FULL, v[0], 1);
 }
 
+// A pixel's splat state over the entries it sweeps: transmittance, colour
+// and alpha sums, and whether an entry took T below T_EPS (it is spent).
 template <int C>
-__global__ void __launch_bounds__(P) splat_fwd_kernel(
+struct Blend {
+  float T, a, col[C];
+  bool stopped;
+};
+
+template <int C>
+__device__ __forceinline__ Blend<C> blend_from(float T) {
+  Blend<C> b;
+  b.T = T;
+  b.a = 0.0f;
+#pragma unroll
+  for (int c = 0; c < C; ++c) b.col[c] = 0.0f;
+  b.stopped = false;
+  return b;
+}
+
+// The per-entry rule over a staged chunk, from b.T, for the pixel at (px,
+// py): each entry's weight T alpha while the transmittance after it stays
+// >= T_EPS; the first entry that takes it below spends the pixel.  B3a
+// walks a chunk by the same arithmetic.  The alphas of U entries are
+// evaluated before the U steps of T take them (they do not depend on T),
+// so that their latencies overlap; the result is the same for every U.
+template <int C, int U = 1>
+__device__ __forceinline__ void sweep_chunk(const float (*sh)[CHUNK], float px, float py, Blend<C>& b) {
+  static_assert(CHUNK % U == 0, "U divides the chunk");
+  for (int j0 = 0; j0 < CHUNK && !b.stopped; j0 += U) {
+    float alpha[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) alpha[u] = splat_at(sh, j0 + u, px, py).alpha;
+#pragma unroll
+    for (int u = 0; u < U && !b.stopped; ++u) {
+      const float t_next = mul(b.T, sub(1.0f, alpha[u]));
+      if (t_next < T_EPS) {
+        b.stopped = true;
+      } else {
+        const float w = mul(b.T, alpha[u]);
+#pragma unroll
+        for (int c = 0; c < C; ++c) b.col[c] += w * sh[E_COL + c][j0 + u];
+        b.a += w;
+        b.T = t_next;
+      }
+    }
+  }
+}
+
+// Store a sweep's sums and its end (T, or CROSSED when it stopped) as C + 2
+// rows of stride P.
+template <int C>
+__device__ __forceinline__ void store_blend(float* out, const Blend<C>& b) {
+#pragma unroll
+  for (int c = 0; c < C; ++c) out[c * P] = b.col[c];
+  out[C * P] = b.a;
+  out[(C + 1) * P] = b.stopped ? CROSSED : b.T;
+}
+
+// B2a: one block per slot of the buffer; each pixel sweeps the slot's chunk
+// alone from T = 1.  The block of a tile's first chunk zeroes its ticket
+// for B2b.
+template <int C>
+__global__ void __launch_bounds__(P) splat_fwd_partials_kernel(
     const float* __restrict__ entries, long long dp,
-    const int32_t* __restrict__ tile_start, const int32_t* __restrict__ tile_count,
-    int tiles_x, int ncmax, float* __restrict__ color_out, float* __restrict__ alpha_out,
-    float* __restrict__ t_start) {
+    const int32_t* __restrict__ tile_start, const int32_t* __restrict__ tile_count, int num_tiles,
+    int tiles_x, int ncmax, float* __restrict__ part, int32_t* __restrict__ tickets) {
+  __shared__ int s_owner;
   __shared__ float sh[6 + C][CHUNK];
-  const int t = blockIdx.x;
+  const long long slot = blockIdx.x;
+  const int t = owner_of(slot, tile_start, tile_count, num_tiles, ncmax, &s_owner);
+  if (t < 0) return;  // no tile owns this slot
   const int p = threadIdx.x;
-  const long long start = tile_start[t];
-  const int nchunks = min(tile_count[t] / CHUNK, ncmax);
+  if (p == 0 && slot == tile_start[t] / CHUNK) tickets[t] = 0;
   const float px = static_cast<float>((t % tiles_x) * TILE + p % TILE);
   const float py = static_cast<float>((t / tiles_x) * TILE + p / TILE);
-  float* state = t_start + (start / CHUNK) * P + p;  // chunk k's state at state[k * P]
+  stage_chunk<6 + C>(sh, entries, dp, slot * CHUNK);
+  __syncthreads();
+  Blend<C> b = blend_from<C>(1.0f);
+  sweep_chunk<C>(sh, px, py, b);
+  store_blend<C>(part + slot * (C + 2) * P + threadIdx.x, b);
+}
 
-  float T = 1.0f, acc_a = 0.0f, acc[C];
+// Entries whose alphas B2b's re-sweeps evaluate ahead of the chain of T: a
+// chunk's ~20 re-sweeping pixels (on average) fill one warp, so its
+// latency is not hidden by other warps, and with one entry at a time each
+// step waits on the whole alpha arithmetic (expf included).  B2a's eight
+// full warps per block hide it, and sweep one entry at a time.
+constexpr int AHEAD = 4;
+
+// Whether chunk j lets a pixel with transmittance T through unswept: it did
+// not cross on its own, and T * T_j clears the margin.
+__device__ __forceinline__ bool lets_through(float T, float t_j) {
+  return t_j != CROSSED && mul(T, t_j) >= T_THROUGH;
+}
+
+// B2b: one block per owned slot (and at least one per tile): the re-sweep
+// of the chunk where each pixel is not let through, then, in the tile's
+// last block, the merge of its chunks in order.
+template <int C>
+__global__ void __launch_bounds__(P) splat_fwd_merge_kernel(
+    const float* __restrict__ entries, long long dp,
+    const int32_t* __restrict__ tile_start, const int32_t* __restrict__ tile_count, int num_tiles,
+    int tiles_x, int ncmax, const float* __restrict__ part, float* sweep, int32_t* tickets,
+    float* __restrict__ color_out, float* __restrict__ alpha_out, float* __restrict__ t_start) {
+  constexpr int NR = C + 2;  // rows of a partial and of a re-sweep record
+  __shared__ int s_owner, s_last, s_n;
+  __shared__ float sh[6 + C][CHUNK];
+  __shared__ int s_pix[P];  // the pixels that re-sweep this chunk, and their T
+  __shared__ float s_t[P];
+  const long long b = blockIdx.x;
+  const int p = threadIdx.x;
+  if (b < num_tiles && min(tile_count[b] / CHUNK, ncmax) <= 0) {  // tile b sweeps nothing: zero outputs
 #pragma unroll
-  for (int c = 0; c < C; ++c) acc[c] = 0.0f;
-  bool done = false;
+    for (int c = 0; c < C; ++c) color_out[(b * C + c) * P + p] = 0.0f;
+    alpha_out[b * P + p] = 0.0f;
+  }
+  if (b >= dp / CHUNK) return;
+  const int t = owner_of(b, tile_start, tile_count, num_tiles, ncmax, &s_owner);
+  if (t < 0) return;  // no tile owns this slot
+  const long long s0 = tile_start[t] / CHUNK;
+  const int n = min(tile_count[t] / CHUNK, ncmax);
+  const int k = static_cast<int>(b - s0);
+  const float x0 = static_cast<float>((t % tiles_x) * TILE);
+  const float y0 = static_cast<float>((t / tiles_x) * TILE);
+  const float* t_row = part + (s0 * NR + C + 1) * P + p;  // T_j at t_row[j * NR * P]
 
-  for (int k = 0; k < nchunks; ++k) {
-    if (__syncthreads_and(done)) {  // also: the previous chunk is consumed
-      for (; k < nchunks; ++k) state[static_cast<long long>(k) * P] = SPENT;
-      break;
-    }
-    state[static_cast<long long>(k) * P] = done ? SPENT : T;
-    stage_chunk<6 + C>(sh, entries, dp, start + k * CHUNK);
+  // the transmittance entering chunk k, while every earlier chunk lets the
+  // pixel through (no early exit, so that the loads go out together)
+  float T = 1.0f;
+  bool alive = true;
+#pragma unroll 4
+  for (int j = 0; j < k; ++j) {
+    const float t_j = t_row[static_cast<long long>(j) * NR * P];
+    alive = alive && lets_through(T, t_j);
+    if (alive) T = mul(T, t_j);
+  }
+  const bool here = alive && !lets_through(T, t_row[static_cast<long long>(k) * NR * P]);
+  // those pixels re-sweep chunk k from T, packed into the first threads
+  if (p == 0) s_n = 0;
+  __syncthreads();
+  if (here) {
+    const int i = atomicAdd(&s_n, 1);
+    s_pix[i] = p;
+    s_t[i] = T;
+  }
+  __syncthreads();
+  const int n_sweep = s_n;
+  if (n_sweep > 0) {
+    stage_chunk<6 + C>(sh, entries, dp, b * CHUNK);
     __syncthreads();
-    for (int j = 0; j < CHUNK && !done; ++j) {
-      const Splat s = splat_at(sh, j, px, py);
-      const float t_next = mul(T, sub(1.0f, s.alpha));
-      if (t_next < T_EPS) {
-        done = true;
-      } else {
-        const float w = mul(T, s.alpha);
+    if (p < n_sweep) {
+      const int q = s_pix[p];
+      Blend<C> r = blend_from<C>(s_t[p]);
+      sweep_chunk<C, AHEAD>(sh, x0 + static_cast<float>(q % TILE), y0 + static_cast<float>(q / TILE), r);
+      store_blend<C>(sweep + b * NR * P + q, r);
+    }
+  }
+
+  // the tile's last block to finish merges its chunks
+  __threadfence();  // this block's re-sweeps are visible before its ticket
+  __syncthreads();
+  if (p == 0) s_last = atomicAdd(&tickets[t], 1) == n - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  if (p == 0) tickets[t] = 0;  // reset for the next launch
+
+  // chunks that let the pixel through, then the re-sweep of the chunk where
+  // it stops, which block j stored from the same T
+  Blend<C> acc = blend_from<C>(1.0f);
+  bool carried = false;  // a re-sweep ended without a stop: T went on from it
+  int pend = n;  // after a carry, the first chunk that does not let the pixel through
+  for (int j = 0; j < n && pend == n; ++j) {
+    const long long row = s0 + j;
+    if (acc.stopped) {
+      t_start[row * P + p] = SPENT;
+      continue;
+    }
+    const float* in = part + row * NR * P + p;
+    float v[NR];  // loaded together: one round trip per chunk
 #pragma unroll
-        for (int c = 0; c < C; ++c) acc[c] += w * sh[E_COL + c][j];
-        acc_a += w;
-        T = t_next;
+    for (int r = 0; r < NR; ++r) v[r] = in[r * P];
+    t_start[row * P + p] = acc.T;
+    if (lets_through(acc.T, v[C + 1])) {
+#pragma unroll
+      for (int c = 0; c < C; ++c) acc.col[c] += acc.T * v[c];
+      acc.a += acc.T * v[C];
+      acc.T = mul(acc.T, v[C + 1]);
+    } else if (!carried) {  // read from L2, not from a stale L1 line
+      const float* sw = sweep + row * NR * P + p;
+#pragma unroll
+      for (int c = 0; c < C; ++c) acc.col[c] += __ldcg(sw + c * P);
+      acc.a += __ldcg(sw + C * P);
+      const float t_end = __ldcg(sw + (C + 1) * P);
+      acc.stopped = t_end == CROSSED;
+      carried = !acc.stopped;
+      if (carried) acc.T = t_end;
+    } else {
+      pend = j;
+    }
+  }
+  // rare: after a carry, the block re-sweeps the chunks that do not let the
+  // pixel through itself, from the carried T
+  if (__syncthreads_or(pend < n)) {
+    const float px = x0 + static_cast<float>(p % TILE);
+    const float py = y0 + static_cast<float>(p / TILE);
+    for (int j = 0; j < n; ++j) {
+      const long long row = s0 + j;
+      bool own = false;
+      if (j > pend) t_start[row * P + p] = acc.stopped ? SPENT : acc.T;
+      if (j >= pend && !acc.stopped) {
+        const float* in = part + row * NR * P + p;
+        const float t_j = in[(C + 1) * P];
+        own = j == pend || !lets_through(acc.T, t_j);
+        if (!own) {
+#pragma unroll
+          for (int c = 0; c < C; ++c) acc.col[c] += acc.T * in[c * P];
+          acc.a += acc.T * in[C * P];
+          acc.T = mul(acc.T, t_j);
+        }
+      }
+      if (__syncthreads_or(own)) {
+        stage_chunk<6 + C>(sh, entries, dp, row * CHUNK);
+        __syncthreads();
+        if (own) {
+          Blend<C> r = blend_from<C>(acc.T);
+          sweep_chunk<C, AHEAD>(sh, px, py, r);
+#pragma unroll
+          for (int c = 0; c < C; ++c) acc.col[c] += r.col[c];
+          acc.a += r.a;
+          acc.stopped = r.stopped;
+          if (!r.stopped) acc.T = r.T;
+        }
+        __syncthreads();  // the chunk is consumed before the next stage
       }
     }
   }
 #pragma unroll
-  for (int c = 0; c < C; ++c) color_out[(static_cast<long long>(t) * C + c) * P + p] = acc[c];
-  alpha_out[static_cast<long long>(t) * P + p] = acc_a;
+  for (int c = 0; c < C; ++c) color_out[(static_cast<long long>(t) * C + c) * P + p] = acc.col[c];
+  alpha_out[static_cast<long long>(t) * P + p] = acc.a;
 }
 
 
@@ -324,29 +561,59 @@ __global__ void __launch_bounds__(P) splat_bwd_grads_kernel(
 
 }  // namespace
 
-// Launches B2 on `stream`: entries (nch, dp) f32; tile_start, tile_count
-// (num_tiles,) i32; outputs color (num_tiles, C, 256) and alpha
-// (num_tiles, 1, 256) f32, every tile written, and the chunk-start state
-// t_start (dp / 128, 256) f32 on every slot a tile owns.  Returns the CUDA
-// error of the launch (0 on success); C outside 1..4 returns
-// cudaErrorInvalidValue.
-extern "C" int gom_splat_fwd(const float* entries, int nch, long long dp, const int32_t* tile_start,
-                             const int32_t* tile_count, int num_tiles, int tiles_x, int C, int ncmax,
-                             float* color, float* alpha, float* t_start, void* stream) {
+// Launches B2a on `stream` over dp / 128 blocks: entries (nch, dp) f32;
+// tile_start, tile_count (num_tiles,) i32; writes part (dp / 128, C + 2,
+// 256) f32 on every slot a tile owns (colour sums, alpha sum, local T or
+// CROSSED) and zeroes tickets (num_tiles,) i32 of every tile that sweeps a
+// chunk.  Returns the CUDA error of the launch (0 on success); C outside
+// 1..4 returns cudaErrorInvalidValue.
+extern "C" int gom_splat_fwd_partials(const float* entries, int nch, long long dp, const int32_t* tile_start,
+                                      const int32_t* tile_count, int num_tiles, int tiles_x, int C, int ncmax,
+                                      float* part, int32_t* tickets, void* stream) {
+  const long long n_slots = dp / CHUNK;
+  if (num_tiles <= 0 || n_slots <= 0) return 0;
+  if (nch < 6 + C) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define GOM_SPLAT_B2A(NC)                                                                                 \
+  splat_fwd_partials_kernel<NC><<<n_slots, P, 0, st>>>(entries, dp, tile_start, tile_count, num_tiles, \
+                                                       tiles_x, ncmax, part, tickets)
+  switch (C) {
+    case 1: GOM_SPLAT_B2A(1); break;
+    case 2: GOM_SPLAT_B2A(2); break;
+    case 3: GOM_SPLAT_B2A(3); break;
+    case 4: GOM_SPLAT_B2A(4); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef GOM_SPLAT_B2A
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launches B2b on `stream` over max(dp / 128, num_tiles) blocks: the inputs
+// of B2a, its partials and tickets, and the scratch sweep (dp / 128, C + 2,
+// 256) f32.  Writes color (num_tiles, C, 256) and alpha (num_tiles, 1, 256)
+// f32, every tile, and the chunk-start state t_start (dp / 128, 256) f32 on
+// every slot a tile owns; leaves part and tickets as it found them.
+// Returns the CUDA error of the launch.
+extern "C" int gom_splat_fwd_merge(const float* entries, int nch, long long dp, const int32_t* tile_start,
+                                   const int32_t* tile_count, int num_tiles, int tiles_x, int C, int ncmax,
+                                   const float* part, float* sweep, int32_t* tickets, float* color, float* alpha,
+                                   float* t_start, void* stream) {
+  const long long n_slots = dp / CHUNK;
   if (num_tiles <= 0) return 0;
   if (nch < 6 + C) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define GOM_SPLAT_FWD(NC)                                                                           \
-  splat_fwd_kernel<NC><<<num_tiles, P, 0, st>>>(entries, dp, tile_start, tile_count, tiles_x, ncmax, \
-                                                color, alpha, t_start)
+  const long long grid = n_slots > num_tiles ? n_slots : num_tiles;
+#define GOM_SPLAT_B2B(NC)                                                                                    \
+  splat_fwd_merge_kernel<NC><<<grid, P, 0, st>>>(entries, dp, tile_start, tile_count, num_tiles, tiles_x, \
+                                                 ncmax, part, sweep, tickets, color, alpha, t_start)
   switch (C) {
-    case 1: GOM_SPLAT_FWD(1); break;
-    case 2: GOM_SPLAT_FWD(2); break;
-    case 3: GOM_SPLAT_FWD(3); break;
-    case 4: GOM_SPLAT_FWD(4); break;
+    case 1: GOM_SPLAT_B2B(1); break;
+    case 2: GOM_SPLAT_B2B(2); break;
+    case 3: GOM_SPLAT_B2B(3); break;
+    case 4: GOM_SPLAT_B2B(4); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-#undef GOM_SPLAT_FWD
+#undef GOM_SPLAT_B2B
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -43,11 +43,13 @@ MESH_TOL, MESH_FRAC = 5e-3, 0.999
 
 # ---- the twins -------------------------------------------------------------
 
-def splat_bwd_split(entries, tile_start, tile_count, C, num_tiles_x, g_color_t, g_alpha_t, ncmax=NCMAX):
+def splat_bwd_split(entries, tile_start, tile_count, C, num_tiles_x, g_color_t, g_alpha_t, ncmax=NCMAX, state=None):
     """B3 as B3a and B3b compute it, in plain PyTorch: d_entries (NCH, Dp),
     zero on slots no tile sweeps.  The transmittance inside a chunk is the
-    running product from B2's saved state, as in the kernels."""
-    state = TK.splat_chunk_state_plain(entries, tile_start, tile_count, num_tiles_x, ncmax)
+    running product from B2's saved state, as in the kernels: ``state``, or
+    by default its plain version."""
+    if state is None:
+        state = TK.splat_chunk_state_plain(entries, tile_start, tile_count, num_tiles_x, ncmax)
     d = torch.zeros_like(entries)
     lane = torch.arange(CHUNK)
     for t in torch.nonzero(tile_count > 0).flatten().tolist():

@@ -93,8 +93,8 @@ def test_other_devices_raise():
 
 
 def _train_launches():
-    return (SK.splat_fwd.launches, SK.splat_bwd_partials.launches, SK.splat_bwd_grads.launches,
-            MK.mesh_fwd_partials.launches, MK.mesh_fwd_merge.launches, MK.mesh_bwd.launches)
+    return (SK.splat_fwd_partials.launches, SK.splat_fwd_merge.launches, SK.splat_bwd_partials.launches,
+            SK.splat_bwd_grads.launches, MK.mesh_fwd_partials.launches, MK.mesh_fwd_merge.launches, MK.mesh_bwd.launches)
 
 
 def _tiny_train_inputs(device):
@@ -125,7 +125,7 @@ def test_cpu_train_kernels_leave_launch_counts_at_zero():
     img, alpha = SK.composite_tiles(splat, valid, start, count, 3, 2, 2)
     normal, hit, soft = MK.mesh_composite(mesh, valid, start, count, 2, 2, True, 6.5)
     (img.sum() + alpha.sum() + normal.sum() + soft.sum()).backward()
-    assert _train_launches() == (0,) * 6
+    assert _train_launches() == (0,) * 7
     img, alpha, normal, hit, soft = (t.detach() for t in (img, alpha, normal, hit, soft))
     expected = math.exp(-0.025)  # pixel (7, 7), as for B1
     assert float(alpha[7, 7]) == pytest.approx(expected, rel=1e-6)
@@ -141,7 +141,7 @@ def test_other_devices_raise_for_the_train_kernels():
         SK.composite_tiles(splat, valid, start, count, 3, 2, 2)
     with pytest.raises(ValueError):
         MK.mesh_composite(mesh, valid, start, count, 2, 2, True, 6.5)
-    assert _train_launches() == (0,) * 6
+    assert _train_launches() == (0,) * 7
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):

@@ -126,5 +126,6 @@ def test_cpu_composite_tiles_runs_the_plain_version(rng):
     colors.requires_grad_(True)
     img, alpha = torch_render(means, cov, colors, opacity, K, E, (32, 32))
     (img.sum() + alpha.sum()).backward()
-    assert TK.splat_fwd.launches == TK.splat_bwd_partials.launches == TK.splat_bwd_grads.launches == 0
+    assert (TK.splat_fwd_partials.launches == TK.splat_fwd_merge.launches == TK.splat_bwd_partials.launches
+            == TK.splat_bwd_grads.launches == 0)
     assert torch.isfinite(colors.grad).all() and float(colors.grad.abs().sum()) > 0
