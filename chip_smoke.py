@@ -44,18 +44,41 @@ Phases, each fatal on failure:
         must be finite;
      d. the train step timed (median and p90 over 20 steps), with each
         kernel's work and bound.
+  5. the drivers, in-process (``cli.train.main``, ``cli.evaluate.main``),
+     each run with every launch count set to 0 just before and read just
+     after:
+     a. fixtures: a 512^2 capture of 6 train and 2 test frames written by
+        ``data/synthetic.py`` with the trained avatar's base body (14,400
+        faces), and the exp yaml of the trained avatar's configs;
+     b. the trained avatar saved as the port's checkpoint iter_6100, then
+        ``cli.evaluate --type train`` (ZJU protocol) and ``--type view``
+        (snapshot protocol, AlexNet-LPIPS): the replayed subdivision to
+        57,600 faces, B1a and B1b once per frame, 0 dropped, finite
+        metrics, PNGs that are not black, the first frame equal to the
+        avatar rendered in memory;
+     c. ``cli.train --resume --max_iters 6103`` with one periodic eval and
+        one save: B2a-B5 once per step, B1 once per eval frame, no dropped
+        entry (the opt-in per-step check), iter_6103 restored into a fresh
+        Trainer bit-equal to the run's; then the host decode of one item
+        and the steady loop's steps/s over two logged windows of 10;
+     d. the phase change on the card: the gate scene from init with
+        subdivide_iters [2], 4 steps on the card and on the CPU, the loss
+        terms close at every step, the faces x4 from step 2 on, every
+        train kernel once per step.
 Kernel times are CUDA events around back-to-back calls after a warm-up;
 each part of a two-launch kernel also prints its device time (the calls
 queued behind a device-side sleep) beside it, as a diagnostic.
-Each phase prints its seconds.  The last five lines are the forward timings
-as JSON, the train-step timings as JSON, the kernels JSON line, the card line
-and the result JSON.  Without a CUDA card it exits non-zero and prints no
+Each phase prints its seconds.  The last six lines are the drivers' numbers
+as JSON, the forward timings as JSON, the train-step timings as JSON, the
+kernels JSON line, the card line and the result JSON.  Without a CUDA card it exits non-zero and prints no
 result.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -213,6 +236,30 @@ def time_split(label: str, whole, parts: dict) -> dict:
     print(f"  {label}: " + ", ".join(f"{k} {ms[k]:.4f} ms (device {dev[k]:.4f})" for k in fns)
           + " by events around back-to-back calls (device time: the calls queued behind a sleep)")
     return {"ms": ms["whole"], "parts": {k: ms[k] for k in parts}}
+
+
+def all_wrappers():
+    from gomavatar_tpu_torch.ops import frame_render as FR
+    from gomavatar_tpu_torch.ops import mesh_raster_pallas as MK
+    from gomavatar_tpu_torch.ops.splat import pallas_kernel as SK
+
+    return {"B1a": FR.frame_partials, "B1b": FR.frame_merge, "B2a": SK.splat_fwd_partials,
+            "B2b": SK.splat_fwd_merge, "B3a": SK.splat_bwd_partials, "B3b": SK.splat_bwd_grads,
+            "B4a": MK.mesh_fwd_partials, "B4b": MK.mesh_fwd_merge, "B5": MK.mesh_bwd}
+
+
+def counted(fn):
+    """(fn(), launches of every kernel during it, wall seconds): the counts
+    set to 0 just before and read just after, the device synchronised."""
+    wrappers = all_wrappers()
+    torch.cuda.synchronize()
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return out, {k: w.launches for k, w in wrappers.items()}, seconds
 
 
 def check_close(label: str, a: torch.Tensor, b: torch.Tensor) -> float:
@@ -889,7 +936,7 @@ def make_trainer(params, statics, cfg, i_iter, device):
 
     train_cfg = trained_train_cfg()
     phase = len(train_cfg["model"]["subdivide_iters"])
-    return Trainer(train_cfg, lpips_params=load_lpips(device)[0], device=device,
+    return Trainer(train_cfg, lpips_params=load_lpips(device=device)[0], device=device,
                    state=(params, statics, cfg, i_iter, phase))
 
 
@@ -907,8 +954,13 @@ def gate_train_scene(device):
     from gomavatar_tpu_torch.scene import gate_scene
 
     params, statics, cfg, frame = gate_scene(device=device, seed=0)
+    randomize_faces(params, cfg.num_faces, device)
+    return params, statics, cfg, frame
+
+
+def randomize_faces(params, F: int, device):
+    """Per-face so3, scale and colors drawn from numpy seed 0, in place."""
     rng = np.random.default_rng(0)
-    F = cfg.num_faces
 
     def dev(a):
         return torch.as_tensor(np.asarray(a, np.float32), device=device)
@@ -916,7 +968,6 @@ def gate_train_scene(device):
     params["so3"] = dev(0.2 * rng.standard_normal((F, 3)))
     params["scale"] = dev(1.0 + 0.2 * rng.standard_normal((F, 3)))
     params["appearance"] = {"colors": dev(rng.uniform(0.05, 0.95, (F, 3)))}
-    return params, statics, cfg, frame
 
 
 def compare_gate_step(i_iter):
@@ -987,18 +1038,11 @@ def phase_kernels_b1(card):
 
 
 def phase_eval_path(trained, card):
-    from gomavatar_tpu_torch.ops import frame_render as FR
-
     params, statics, cfg, frame = trained
     print("[3] eval path: gom_forward(train=False) on the trained avatar at 512^2")
     frames = perturbed_frames(frame)
-    wrappers = {"B1a": FR.frame_partials, "B1b": FR.frame_merge}
-    torch.cuda.synchronize()
-    for w in wrappers.values():
-        w.launches = 0
-    outs = [forward(params, statics, cfg, f) for f in frames]
-    torch.cuda.synchronize()
-    launches = {k: w.launches for k, w in wrappers.items()}
+    outs, counts, _ = counted(lambda: [forward(params, statics, cfg, f) for f in frames])
+    launches = {k: counts[k] for k in ("B1a", "B1b")}
     W, H = cfg.img_size
     for i, (rgb, mask, aux) in enumerate(outs):
         tel = aux["binning"]
@@ -1011,7 +1055,7 @@ def phase_eval_path(trained, card):
         require(float(mask.mean()) > 0.01, f"frame {i}: empty render")
         require(dropped == 0 and overflow == 0, f"frame {i}: binning dropped entries")
     print(f"  B1 launches: {launches} for {len(frames)} frames")
-    for k in wrappers:
+    for k in launches:
         require(launches[k] == len(frames), f"the eval path did not launch {k} once per frame")
     launches["B1"] = launches["B1a"] + launches["B1b"]
 
@@ -1089,9 +1133,6 @@ def phase_train_path(trained, card):
     """Phases 4b-4d: the gate step card vs CPU, the main path with its
     launch counts, the train-step timings.  Returns (launches, timings)."""
     from gomavatar_tpu_torch.convert import trained_meta
-    from gomavatar_tpu_torch.ops import frame_render as FR
-    from gomavatar_tpu_torch.ops import mesh_raster_pallas as MK
-    from gomavatar_tpu_torch.ops.splat import pallas_kernel as SK
     from gomavatar_tpu_torch.optim import tree_leaves
 
     i_iter = int(trained_meta()["iter"])
@@ -1104,15 +1145,7 @@ def phase_train_path(trained, card):
     batches = [train_batch(params, statics, cfg, f, f) for f in frames]
     trainer = make_trainer(params, statics, cfg, i_iter, "cuda")
     before = [p.clone() for p in tree_leaves(trainer.params)]
-    wrappers = {"B1a": FR.frame_partials, "B1b": FR.frame_merge, "B2a": SK.splat_fwd_partials,
-                "B2b": SK.splat_fwd_merge, "B3a": SK.splat_bwd_partials, "B3b": SK.splat_bwd_grads,
-                "B4a": MK.mesh_fwd_partials, "B4b": MK.mesh_fwd_merge, "B5": MK.mesh_bwd}
-    torch.cuda.synchronize()
-    for w in wrappers.values():
-        w.launches = 0
-    steps = [trainer.step(batches[i % len(batches)]) for i in range(TRAIN_STEPS)]
-    torch.cuda.synchronize()
-    launches = {k: w.launches for k, w in wrappers.items()}
+    steps, launches, _ = counted(lambda: [trainer.step(batches[i % len(batches)]) for i in range(TRAIN_STEPS)])
     for i, (total, losses) in enumerate(steps):
         terms = {k: float(v) for k, v in losses.items()}
         print(f"  step {i}: total {float(total):.6g}, " + ", ".join(f"{k} {v:.5g}" for k, v in terms.items()))
@@ -1145,6 +1178,321 @@ def phase_train_path(trained, card):
     p90 = statistics.quantiles(per_step, n=10)[-1]
     print(f"  train step: median {med:.3f} ms, p90 {p90:.3f} ms ({1e3 / med:.3f} steps/s at the median) on {card}")
     return launches, {"median_ms": med, "p90_ms": p90, "steps_per_s": 1e3 / med, "steps": TRAIN_ITERS}
+
+
+# ---- phase 5: the drivers ------------------------------------------------------
+
+# the drivers' captures: DRIVER_IMG^2 targets decoded from (2 x DRIVER_IMG)^2
+# files, DRIVER_FRAMES train frames and DRIVER_TEST_FRAMES test frames; the
+# resume runs RESUME_STEPS steps from the trained avatar's iteration, with
+# one periodic eval and one save at the second
+DRIVER_IMG, DRIVER_FRAMES, DRIVER_TEST_FRAMES, RESUME_STEPS = 512, 6, 2, 3
+# the gate-scene phase change: PHASE_STEPS steps, subdividing at PHASE_AT
+PHASE_STEPS, PHASE_AT = 4, 2
+# the steady driver loop: LOOP_WINDOWS logged windows of LOOP_LOG steps after
+# a first window that the resume point cuts short; no eval, no save, no sync
+# but the log line's
+LOOP_LOG, LOOP_WINDOWS = 10, 2
+DRIVER_DIR = "build/smoke_drivers"  # under the checkout, gitignored
+
+
+def log_lines(path: str, *needles: str) -> list[str]:
+    with open(path) as f:
+        return [line.strip() for line in f if any(n in line for n in needles)]
+
+
+def write_driver_fixtures(root: str):
+    """Phase 5a: a DRIVER_IMG^2 train capture and a test capture written by
+    the port's fixture writer, each with the trained avatar's base body in
+    its canonical_joints.pkl, and the exp yaml: the trained avatar's model
+    and train configs with the dataset paths pointed at them.  Returns the
+    yaml's path."""
+    import pickle
+    import shutil
+
+    import yaml
+
+    from gomavatar_tpu_torch.convert import trained_meta
+    from gomavatar_tpu_torch.data.synthetic import write_synthetic_dataset
+    from gomavatar_tpu_torch.models.smpl import synthetic_body
+    from gomavatar_tpu_torch.scene import trained_train_cfg
+
+    shutil.rmtree(root, ignore_errors=True)
+    body = synthetic_body(**trained_meta()["body"])
+    dirs = {}
+    for split, n, seed in (("train", DRIVER_FRAMES, 0), ("test", DRIVER_TEST_FRAMES, 1)):
+        dirs[split] = write_synthetic_dataset(f"{root}/{split}", n_frames=n, img_hw=(DRIVER_IMG, DRIVER_IMG),
+                                              seed=seed)
+        with open(f"{dirs[split]}/canonical_joints.pkl", "wb") as f:
+            pickle.dump({"vertex": body["canonical_vertex"], "joints": body["canonical_joints"],
+                         "weights": body["canonical_lbs_weights"], "faces": body["faces"], "edges": None}, f)
+    base = trained_train_cfg()
+    model = dict(base["model"], img_size=[DRIVER_IMG, DRIVER_IMG])
+    train = dict(base["train"], log_freq=1, tb_freq=1000, save_freq=2, eval_freq=2)
+    cfg = {
+        "exp_name": "e2e", "log_dir": f"{root}/log", "random_bgcolor": True, "bgcolor": [0.0, 0.0, 0.0],
+        "img_size": [DRIVER_IMG, DRIVER_IMG],
+        "dataset": {
+            # the trained avatar's experiment asks for the native decoder;
+            # where its library cannot load, the driver takes the cv2 path
+            "train": {"dataset_path": dirs["train"], "use_native": True},
+            "test_view": {"name": "snapshot", "dataset_path": dirs["test"], "skip": 1},
+            "test_freeview": {"dataset_path": dirs["train"], "src_type": "zju_mocap"},
+        },
+        "model": model,
+        "train": train,
+    }
+    path = f"{root}/exp.yaml"
+    with open(path, "w") as f:
+        yaml.safe_dump(json.loads(json.dumps(cfg)), f)  # Config objects as plain dicts
+    return path
+
+
+def check_driver_eval(label, result, launches, seconds, n_faces, it):
+    """A cli.evaluate run: its iteration and face count, B1a and B1b once
+    per frame and nothing else, 0 dropped, finite metrics, PNGs that are
+    not black.  Returns {seconds, frames/s by the wall clock, launches,
+    metrics}."""
+    from PIL import Image
+
+    frames = result["frames"]
+    means = result["metrics"]
+    print(f"  {label}: iter {result['iter']}, {result['num_faces']} faces, {frames} frames in {seconds:.2f} s of wall "
+          f"time, dropped {result['dropped']}, launches {launches}, metrics {means}")
+    require(result["iter"] == it and result["num_faces"] == n_faces, f"{label}: wrong checkpoint or face count")
+    require(launches["B1a"] == launches["B1b"] == frames, f"{label}: B1a and B1b did not launch once per frame")
+    require(all(v == 0 for k, v in launches.items() if not k.startswith("B1")), f"{label}: a train kernel launched")
+    require(result["dropped"] == 0, f"{label}: the binning dropped entries")
+    require(means and all(np.isfinite(v) for v in means.values()), f"{label}: non-finite or missing metrics")
+    pngs = sorted(f for f in os.listdir(result["out_dir"]) if f.endswith(".png"))
+    require(len(pngs) == frames, f"{label}: {len(pngs)} PNGs for {frames} frames")
+    levels = [float(np.asarray(Image.open(f"{result['out_dir']}/{f}")).mean()) for f in pngs]
+    print(f"  {label}: PNG mean levels {', '.join(f'{v:.2f}' for v in levels)}")
+    require(min(levels) > 1.0, f"{label}: a black PNG")
+    return {"seconds": seconds, "frames_per_s": frames / seconds, "launches": launches, "metrics": means}
+
+
+def phase_driver_eval(cfg_path: str, trained, device="cuda"):
+    """Phase 5b: the trained avatar saved as a checkpoint of the port, then
+    cli.evaluate --type train (ZJU protocol, VGG-LPIPS) and --type view
+    (snapshot protocol, AlexNet-LPIPS) from it; the train eval's first PNG
+    against the same frame rendered from the avatar in memory."""
+    from PIL import Image
+
+    from gomavatar_tpu_torch.cli import evaluate
+    from gomavatar_tpu_torch.config import make_cfg
+    from gomavatar_tpu_torch.convert import trained_meta
+    from gomavatar_tpu_torch.data.dataset import TrainDataset, to_device
+    from gomavatar_tpu_torch.eval_lib import to_8b_image
+    from gomavatar_tpu_torch.losses import unpack
+    from gomavatar_tpu_torch.models.gom import gom_forward
+    from gomavatar_tpu_torch.trainer import Trainer
+
+    params, statics, cfg, _ = trained
+    meta = trained_meta()
+    it, phase = int(meta["iter"]), int(meta["phase"])
+    exp = make_cfg(cfg_path)
+    ckpt_dir = f"{exp['save_dir']}/checkpoints"
+    Trainer(exp, device=device, state=(params, statics, cfg, it, phase)).save(ckpt_dir)
+    print(f"  saved the trained avatar ({cfg.num_faces} faces, iteration {it}, phase {phase}) as {ckpt_dir}/iter_{it}")
+    out = {}
+    for t in ("train", "view"):
+        result, launches, seconds = counted(lambda: evaluate.main(["--cfg", cfg_path, "--type", t, "--device", device]))
+        out[t] = check_driver_eval(f"cli.evaluate --type {t}", result, launches, seconds, meta["num_faces"], it)
+        for line in log_lines(f"{exp['save_dir']}/log_eval_{t}.txt", "frames/s", "subdividing", "metrics:"):
+            print(f"    log: {line}")
+
+    item = TrainDataset(exp["dataset"]["train"]["dataset_path"], bgcolor=exp["bgcolor"],
+                        target_size=exp["img_size"])[0]
+    b = to_device(item, device)
+    with torch.no_grad():
+        rgb, mask, _ = gom_forward(params, statics, dataclasses.replace(cfg, img_size=tuple(exp["img_size"])),
+                                   b["K"], b["E"], b["cnl_gtfms"], b["dst_Rs"], b["dst_Ts"],
+                                   dst_posevec=b["dst_posevec"], i_iter=float(it), device=device)
+    want = to_8b_image(unpack(rgb, mask, torch.zeros(3, device=device), clamp=True).cpu().numpy()).astype(int)
+    got = np.asarray(Image.open(f"{exp['save_dir']}/eval/train/{item['frame_name']}.png")).astype(int)
+    d = np.abs(got - want)
+    frac = float((d == 0).mean())
+    print(f"  {item['frame_name']}.png of cli.evaluate --type train against the avatar rendered in memory: equal on "
+          f"{frac * 100:.4f} % of values, worst {int(d.max())} levels")
+    require(frac >= HIT_FRAC and int(d.max()) <= 1, "the evaluated checkpoint renders another image")
+    return out
+
+
+def phase_driver_train(cfg_path: str, device="cuda"):
+    """Phase 5c: cli.train --resume from the saved iteration for
+    RESUME_STEPS steps, with one periodic eval and one save; then the last
+    checkpoint restored into a fresh Trainer, bit-equal to the run's."""
+    from gomavatar_tpu_torch import trainer as T
+    from gomavatar_tpu_torch.cli import train as train_cli
+    from gomavatar_tpu_torch.config import make_cfg
+    from gomavatar_tpu_torch.convert import trained_meta
+    from gomavatar_tpu_torch.data.dataset import TrainDataset
+    from gomavatar_tpu_torch.optim import tree_leaves
+
+    meta = trained_meta()
+    start = int(meta["iter"])
+    stop = start + RESUME_STEPS
+    exp = make_cfg(cfg_path)
+    ckpt_dir = f"{exp['save_dir']}/checkpoints"
+    # every step reads its drop counters and fails on a drop (the opt-in
+    # check; one sync per step, as the log line at log_freq 1 takes anyway)
+    T._DEBUG_BINNING = True
+    try:
+        trainer, launches, seconds = counted(
+            lambda: train_cli.main(["--cfg", cfg_path, "--resume", "--max_iters", str(stop), "--device", device]))
+    finally:
+        T._DEBUG_BINNING = False
+    eval_frames = min(DRIVER_FRAMES, 4) + min(DRIVER_TEST_FRAMES, 8)
+    print(f"  cli.train --resume --max_iters {stop}: {seconds:.2f} s of wall time, iteration {trainer.i_iter}, phase "
+          f"{trainer.phase}, {trainer.gom_cfg.num_faces} faces, launches {launches}")
+    logged = log_lines(f"{exp['save_dir']}/log.txt", "it/s", "evaluate on", "resumed", "native", "subdividing")
+    for line in logged:
+        print(f"    log: {line}")
+    require(trainer.i_iter == stop and trainer.phase == int(meta["phase"]) and
+            trainer.gom_cfg.num_faces == meta["num_faces"], "the resumed run ended in the wrong state")
+    for k in ("B2a", "B2b", "B3a", "B3b", "B4a", "B4b", "B5"):
+        require(launches[k] == RESUME_STEPS, f"cli.train did not launch {k} once per step")
+    require(launches["B1a"] == launches["B1b"] == eval_frames, "the periodic eval did not launch B1 once per frame")
+    for i in (start + 2, stop):
+        require(os.path.isdir(f"{ckpt_dir}/iter_{i}"), f"iter_{i} was not written")
+
+    fresh = T.Trainer(exp, TrainDataset(exp["dataset"]["train"]["dataset_path"]).get_canonical_info(), device=device)
+    require(fresh.resume(ckpt_dir), "no checkpoint to resume from")
+    a, b = fresh.opt_state, trainer.opt_state
+    same = (fresh.i_iter == trainer.i_iter and fresh.phase == trainer.phase and a.count == b.count
+            and a.schedule_count == b.schedule_count
+            and all(torch.equal(x, y) for x, y in zip(tree_leaves(fresh.params), tree_leaves(trainer.params)))
+            and all(torch.equal(x, y) for x, y in zip(a.mu + a.nu, b.mu + b.nu)))
+    print(f"  iter_{stop} restored into a fresh Trainer: iteration {fresh.i_iter}, phase {fresh.phase}; params and "
+          f"Adam state bit-equal to the run's: {same}")
+    require(same, "the restored checkpoint differs from the run's state")
+    rates = [float(line.split("(")[1].split(" it/s")[0]) for line in logged if " it/s)" in line]
+    return {"seconds": seconds, "steps": RESUME_STEPS, "it_per_s_logged": rates, "launches": launches}
+
+
+def phase_driver_loop(cfg_path: str, device="cuda"):
+    """Phase 5c, timing: the host decode of one train item, then cli.train
+    --resume in a steady loop (log_freq LOOP_LOG, the eval, TB and save
+    cadences off); its steps/s as the log reports them, over the full
+    windows."""
+    import yaml
+
+    from gomavatar_tpu_torch.checkpoint import latest_checkpoint
+    from gomavatar_tpu_torch.cli import train as train_cli
+    from gomavatar_tpu_torch.config import make_cfg
+    from gomavatar_tpu_torch.data.dataset import TrainDataset
+
+    exp = make_cfg(cfg_path)
+    ds = TrainDataset(exp["dataset"]["train"]["dataset_path"], target_size=exp["img_size"],
+                      rng=np.random.default_rng(0))
+    t0 = time.perf_counter()
+    for i in range(len(ds)):
+        ds[i]
+    decode_ms = (time.perf_counter() - t0) * 1e3 / len(ds)
+    print(f"  host decode of one train item (two {2 * DRIVER_IMG}^2 PNGs, composite, Lanczos resize to "
+          f"{DRIVER_IMG}^2), serially: {decode_ms:.2f} ms")
+    with open(cfg_path) as f:
+        cfg = yaml.safe_load(f)
+    cfg["train"].update(log_freq=LOOP_LOG, tb_freq=10**9, save_freq=10**9, eval_freq=10**9)
+    loop_path = cfg_path.replace(".yaml", "_loop.yaml")
+    with open(loop_path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    start = latest_checkpoint(f"{exp['save_dir']}/checkpoints")[1]
+    stop = (start // LOOP_LOG + 1 + LOOP_WINDOWS) * LOOP_LOG
+    trainer, launches, seconds = counted(
+        lambda: train_cli.main(["--cfg", loop_path, "--resume", "--max_iters", str(stop), "--device", device]))
+    logged = [line for line in log_lines(f"{exp['save_dir']}/log.txt", " it/s)")
+              if int(line.split("iter ")[1].split(" ")[0]) > start]
+    rates = [float(line.split("(")[1].split(" it/s")[0]) for line in logged]
+    for line in logged:
+        print(f"    log: {line[:80]}")
+    steps = stop - start
+    print(f"  cli.train --resume --max_iters {stop}: {steps} steps in {seconds:.2f} s of wall time (resume included); "
+          f"steps/s over the {LOOP_WINDOWS} full windows of {LOOP_LOG}: {rates[1:]}")
+    require(trainer.i_iter == stop and len(rates) == LOOP_WINDOWS + 1, "the timed loop did not run its windows")
+    for k in ("B2a", "B2b", "B3a", "B3b", "B4a", "B4b", "B5"):
+        require(launches[k] == steps, f"the timed loop did not launch {k} once per step")
+    return {"decode_ms_per_item": decode_ms, "steps": steps, "it_per_s_logged": rates[1:], "seconds": seconds}
+
+
+def phase_change_on_card(device="cuda"):
+    """Phase 5d: a fresh gate-scene Trainer (its per-face so3, scale and
+    colors from numpy seed 0) with subdivide_iters [PHASE_AT], PHASE_STEPS
+    steps on the card and the same steps on the CPU: every loss term close
+    at every step, the faces x4 from step PHASE_AT on in both, every train
+    kernel launched once at every step on the card."""
+    from gomavatar_tpu_torch.models.lpips import load_lpips
+    from gomavatar_tpu_torch.models.smpl import synthetic_body
+    from gomavatar_tpu_torch.scene import gate_frame, gate_model_cfg, trained_train_cfg
+    from gomavatar_tpu_torch.trainer import Trainer
+
+    info = synthetic_body(n_rings=16, n_seg=18)
+    cfg = {"model": dict(gate_model_cfg(), subdivide_iters=[PHASE_AT]), "train": trained_train_cfg()["train"]}
+    def fresh(dev):
+        tr = Trainer(cfg, info, lpips_params=load_lpips(device=dev, quiet=True)[0], device=dev, seed=0)
+        randomize_faces(tr.params, tr.gom_cfg.num_faces, dev)
+        return tr
+
+    card, host = fresh(device), fresh("cpu")
+    faces0 = card.gom_cfg.num_faces
+    frame = gate_frame(info, device=device)
+    batch = train_batch(card.params, card.statics, card.gom_cfg, frame, perturbed_frames(frame)[1])
+    runs = []
+    for tr in (card, host):
+        b = {k: v.to(tr.device) for k, v in batch.items()}
+        steps = []
+        for i in range(PHASE_STEPS):
+            if tr is card:
+                (total, losses), launches, _ = counted(lambda: tr.step(b))
+                for k in ("B2a", "B2b", "B3a", "B3b", "B4a", "B4b", "B5"):
+                    require(launches[k] == 1, f"phase change, step {i}: {k} launched {launches[k]} times")
+            else:
+                total, losses = tr.step(b)
+            steps.append(({"total": float(total), **{k: float(v) for k, v in losses.items()}}, tr.gom_cfg.num_faces))
+        runs.append(steps)
+    for i, ((lc, fc), (lh, fh)) in enumerate(zip(*runs)):
+        want = faces0 * (4 if i >= PHASE_AT else 1)
+        print(f"  step {i}: {fc} faces on the card, {fh} on the CPU; " + ", ".join(
+            f"{k} {lc[k]:.6g}/{lh[k]:.6g}" for k in lc if not k.startswith("bin_drop")))
+        require(fc == fh == want, f"phase change, step {i}: {fc} and {fh} faces where {want} were expected")
+        require(set(lc) == set(lh), f"phase change, step {i}: the card and the CPU give different loss terms")
+        for k in lc:
+            rtol = STEP_LPIPS_RTOL if k in ("lpips", "total") else STEP_RTOL
+            require(abs(lc[k] - lh[k]) <= rtol * abs(lh[k]) + 1e-7,
+                    f"phase change, step {i}: {k} differs between the card and the CPU by more than rtol {rtol:g}")
+    print(f"  the phase change ran on the card at step {PHASE_AT}: {faces0} -> {4 * faces0} faces, each loss term "
+          f"within rtol {STEP_RTOL:g} (LPIPS and the total {STEP_LPIPS_RTOL:g}) of the CPU's at every step")
+    return {"faces": [faces0, 4 * faces0], "steps": PHASE_STEPS}
+
+
+def phase_drivers(device="cuda"):
+    """Phase 5: the drivers on the card (``device`` other than cuda: a
+    rehearsal of the phase's code, whose launch checks then fail)."""
+    from gomavatar_tpu_torch.convert import load_trained
+
+    out = {}
+    t0 = time.perf_counter()
+    print(f"[5a] fixtures: {DRIVER_FRAMES} train and {DRIVER_TEST_FRAMES} test frames at {DRIVER_IMG}^2, the trained "
+          f"avatar's base body")
+    cfg_path = write_driver_fixtures(DRIVER_DIR)
+    print(f"  phase 5a: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    print("[5b] cli.evaluate --type train and --type view from the trained avatar's checkpoint")
+    out["evaluate"] = phase_driver_eval(cfg_path, load_trained(device=device), device)
+    print(f"  phase 5b: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    print(f"[5c] cli.train --resume for {RESUME_STEPS} steps, then the checkpoint restored into a fresh Trainer")
+    out["train_resume"] = phase_driver_train(cfg_path, device)
+    print(f"  cli.train's steady loop, {LOOP_WINDOWS} windows of {LOOP_LOG} steps timed by its log")
+    out["train_loop"] = phase_driver_loop(cfg_path, device)
+    print(f"  phase 5c: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    print(f"[5d] the phase change on the card: the gate scene from init, subdivide_iters [{PHASE_AT}], {PHASE_STEPS} "
+          f"steps on the card and on the CPU")
+    out["phase_change"] = phase_change_on_card(device)
+    print(f"  phase 5d: {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 KERNELS = {
@@ -1201,6 +1549,9 @@ def main() -> int:
     t0 = time.perf_counter()
     train_launches, train = phase_train_path(trained, card)
     done("4b-4d", t0)
+    t0 = time.perf_counter()
+    drivers = phase_drivers()
+    done(5, t0)
 
     measured = {"B1": dict(b1, launches=b1_launches["B1"])}
     for k in ("B2", "B3", "B4", "B5"):
@@ -1223,6 +1574,7 @@ def main() -> int:
         if "parts" in m:
             entry["parts"] = m["parts"]
         result["kernels"].append(entry)
+    print(json.dumps({"drivers": drivers}))
     print(json.dumps({"forward": fwd}))
     print(json.dumps({"train_step": train, "seconds": time.perf_counter() - t_start}))
     print(json.dumps(result))

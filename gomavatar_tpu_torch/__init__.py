@@ -6,10 +6,12 @@ reference file at the same relative path and is tested against it on the
 same inputs (``tests/test_torch_*.py``).  This package imports ``torch`` and
 numpy only, never ``jax`` and nothing of ``gomavatar_tpu``.
 
-Entry points (``convert.load_trained``, ``scene.gate_scene``,
+Entry points (the drivers ``python -m gomavatar_tpu_torch.cli.train`` and
+``.cli.evaluate``, ``convert.load_trained``, ``scene.gate_scene``,
 ``models.gom.init_gom``, ``models.gom.gom_forward``) put their tensors on
-``device="cuda"`` unless the caller asks for another device; on a CPU
-tensor every hand-written kernel runs its plain PyTorch version instead.
+``device="cuda"`` unless the caller asks for another device (the drivers'
+``--device cpu``); on a CPU tensor every hand-written kernel runs its plain
+PyTorch version instead.
 """
 
 import torch

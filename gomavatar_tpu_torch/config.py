@@ -2,8 +2,8 @@
 overlay of an experiment file over the defaults (port of
 gomavatar_tpu/config.py).
 
-``yaml`` is imported only by :func:`make_cfg` when it reads a file, so the
-package imports without PyYAML.
+``yaml`` is imported only by :func:`make_cfg` when it reads a file and by
+``Config.dump``, so the package imports without PyYAML.
 """
 
 from __future__ import annotations
@@ -39,6 +39,15 @@ class Config(dict):
             else:
                 self[k] = Config.from_dict(v) if isinstance(v, dict) else v
         return self
+
+    def dump(self) -> str:
+        """The config as yaml text, keys in insertion order."""
+        import yaml
+
+        def plain(d):
+            return {k: plain(v) if isinstance(v, dict) else v for k, v in d.items()}
+
+        return yaml.safe_dump(plain(self), sort_keys=False)
 
 
 # The reference's default configuration (same keys, same defaults).

@@ -37,15 +37,17 @@ def params_from_jax(tree, device="cuda"):
 
 
 def lpips_from_jax(jax_params, device="cuda"):
-    """The JAX package's VGG LPIPS params (conv weights HWIO, heads (C, 1))
-    -> this package's (conv weights OIHW for ``F.conv2d``)."""
+    """The JAX package's LPIPS params, VGG or AlexNet (conv weights HWIO,
+    heads (C, 1), the ``"alex"`` key marking AlexNet) -> this package's
+    (conv weights OIHW for ``F.conv2d``)."""
     convs = [
         {"w": torch.tensor(np.asarray(c["w"], np.float32).transpose(3, 2, 0, 1).copy(), device=device),
          "b": torch.tensor(np.asarray(c["b"], np.float32), device=device)}
         for c in jax_params["convs"]
     ]
     heads = [torch.tensor(np.asarray(h, np.float32), device=device) for h in jax_params["heads"]]
-    return {"convs": convs, "heads": heads}
+    out = {"convs": convs, "heads": heads}
+    return {"alex": (), **out} if "alex" in jax_params else out
 
 
 def adam_state_from_optax(opt_state, device="cuda"):

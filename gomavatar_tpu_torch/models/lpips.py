@@ -1,31 +1,45 @@
-"""VGG16 LPIPS, the perceptual term of the training loss (port of the VGG
-path of gomavatar_tpu/models/lpips.py).
+"""LPIPS with a VGG16 or an AlexNet trunk (port of
+gomavatar_tpu/models/lpips.py).
 
-Scaling layer -> VGG16 trunk (relu1_2, relu2_2, relu3_3, relu4_3, relu5_3
-taps) -> unit-normalise each feature vector -> squared difference ->
-non-negative 1x1 linear head -> spatial mean -> sum over the five taps.
+Scaling layer -> trunk relu features (VGG16: relu1_2, relu2_2, relu3_3,
+relu4_3, relu5_3; AlexNet: relu1..5) -> unit-normalise each feature vector
+-> squared difference -> non-negative 1x1 linear head -> spatial mean -> sum
+over the five taps.  VGG16 is the training loss and the ZJU protocol's
+metric; AlexNet the PeopleSnapshot protocol's metric.
 
-Weights: the reference's five linear heads ship with this package
-(``weights/lpips_vgg_heads.npz``, 7 KB, a copy of the JAX package's).  The
-trunk is NOT pretrained: nothing is downloaded, so it is a random He-scaled
-trunk drawn from ``torch.Generator`` seed 1234.  Like the JAX package's own
-fixed-seed trunk it gives a perceptual-style training signal, but its values
-are uncalibrated and not comparable with published LPIPS numbers.  (The JAX
-trunk cannot be redrawn in torch; ``convert.lpips_from_jax`` carries it
-across for the parity tests.)
+Weights: :func:`load_lpips` picks the best available, in the JAX package's
+order, from ``WEIGHTS_DIR`` (this package's ``weights/``, or
+``GOMAVATAR_LPIPS_DIR`` when set):
+  * ``lpips_{vgg,alex}.npz``, a converted pretrained trunk with its heads in
+    the JAX package's format (``tools/calibrate_lpips.py`` writes it): the
+    values are CALIBRATED, comparable with published LPIPS numbers;
+  * vgg only: the reference's five linear heads (``lpips_vgg_heads.npz``,
+    7 KB, shipped with this package) on a random trunk;
+  * a random trunk with uniform heads.
+A random trunk is He-scaled and drawn from a ``torch.Generator`` with a
+fixed seed (VGG 1234, AlexNet 4321).  It gives a perceptual-style training
+signal, but its values are uncalibrated.  (The JAX package's random trunk
+cannot be redrawn in torch; ``convert.lpips_from_jax`` carries it across for
+the parity tests.)
 
 Convolutions run in bfloat16 by default, as in the reference.
 """
 
 from __future__ import annotations
 
+import logging
+import os
 from pathlib import Path
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+log = logging.getLogger(__name__)
+
 HEADS_PATH = Path(__file__).resolve().parent.parent / "weights" / "lpips_vgg_heads.npz"
+# where load_lpips looks for lpips_{vgg,alex}.npz and lpips_vgg_heads.npz
+WEIGHTS_DIR = os.environ.get("GOMAVATAR_LPIPS_DIR", str(HEADS_PATH.parent))
 
 # VGG16 feature config: conv widths, "M" = 2x2 max pool
 _VGG_CFG = [64, 64, "M", 128, 128, "M", 256, 256, 256, "M", 512, 512, 512, "M", 512, 512, 512]
@@ -35,6 +49,18 @@ _TAP_CHANNELS = (64, 128, 256, 512, 512)
 
 _SHIFT = (-0.030, -0.088, -0.188)
 _SCALE = (0.458, 0.448, 0.450)
+
+# AlexNet trunk (torchvision alexnet.features, the LPIPS slices):
+# (out_c, kernel, stride, pad, pool_before), pool_before = a 3x3/2 max pool
+# precedes the conv
+_ALEX_CONVS = [
+    (64, 11, 4, 2, False),
+    (192, 5, 1, 2, True),
+    (384, 3, 1, 1, True),
+    (256, 3, 1, 1, False),
+    (256, 3, 1, 1, False),
+]
+_ALEX_TAP_CHANNELS = (64, 192, 384, 256, 256)
 
 
 def init_lpips(heads=None, device="cuda"):
@@ -50,24 +76,86 @@ def init_lpips(heads=None, device="cuda"):
         w = torch.randn((c, c_in, 3, 3), generator=gen) * float(np.sqrt(2.0 / (c_in * 9)))
         convs.append({"w": w.to(device), "b": torch.zeros((c,), device=device)})
         c_in = c
+    return {"convs": convs, "heads": _heads(heads, _TAP_CHANNELS, device)}, False
+
+
+def _heads(heads, channels, device):
     if heads is None:
-        head_ws = [torch.full((c, 1), 1.0 / c, device=device) for c in _TAP_CHANNELS]
+        return [torch.full((c, 1), 1.0 / c, device=device) for c in channels]
+    return [torch.as_tensor(np.asarray(h, np.float32).reshape(-1, 1), device=device) for h in heads]
+
+
+def init_lpips_alex(heads=None, device="cuda"):
+    """Random He-scaled AlexNet trunk (conv weights OIHW) drawn from
+    ``torch.Generator`` seed 4321, with ``heads`` or uniform 1/C heads.
+    Returns (params, calibrated=False); the ``"alex"`` key marks the trunk."""
+    gen = torch.Generator().manual_seed(4321)
+    convs = []
+    c_in = 3
+    for c, ksz, _, _, _ in _ALEX_CONVS:
+        w = torch.randn((c, c_in, ksz, ksz), generator=gen) * float(np.sqrt(2.0 / (c_in * ksz * ksz)))
+        convs.append({"w": w.to(device), "b": torch.zeros((c,), device=device)})
+        c_in = c
+    return {"alex": (), "convs": convs, "heads": _heads(heads, _ALEX_TAP_CHANNELS, device)}, False
+
+
+def load_npz(path: str, device="cuda"):
+    """LPIPS params from a converted-trunk npz in the JAX package's format
+    (``conv_w_{i}`` HWIO, ``conv_b_{i}``, ``head_{i}`` (C, 1), an ``alex``
+    marker for the AlexNet trunk)."""
+    with np.load(path) as z:
+        n_convs = sum(1 for k in z.files if k.startswith("conv_w_"))
+        params = {
+            "convs": [
+                {"w": torch.as_tensor(z[f"conv_w_{i}"].transpose(3, 2, 0, 1).copy(), device=device),
+                 "b": torch.as_tensor(z[f"conv_b_{i}"], device=device)}
+                for i in range(n_convs)
+            ],
+            "heads": [torch.as_tensor(z[f"head_{i}"], device=device) for i in range(5)],
+        }
+        if "alex" in z.files:
+            params = {"alex": (), **params}
+    return params
+
+
+_STATUS_LOGGED: set[str] = set()
+
+
+def load_lpips(trunk: str = "vgg", weights_dir: str | None = None, quiet: bool = False, device="cuda"):
+    """Best-available LPIPS params for ``trunk`` ("vgg" | "alex"), in this
+    order of preference:
+      1. ``<weights_dir>/lpips_<trunk>.npz``: a converted pretrained trunk
+         and its heads, CALIBRATED;
+      2. vgg only: the reference's heads (``lpips_vgg_heads.npz``) on the
+         fixed-seed random trunk: real head weighting, values still not
+         comparable with published LPIPS numbers;
+      3. the fixed-seed random trunk with uniform heads.
+    Returns ``(params, calibrated, status)`` and logs the status line once
+    per trunk."""
+    wdir = weights_dir or WEIGHTS_DIR
+    full = os.path.join(wdir, f"lpips_{trunk}.npz")
+    heads_path = os.path.join(wdir, "lpips_vgg_heads.npz")
+    if os.path.exists(full):
+        out = load_npz(full, device), True, f"lpips[{trunk}]: CALIBRATED (converted trunk {full})"
+    elif trunk == "vgg" and os.path.exists(heads_path):
+        with np.load(heads_path) as z:
+            heads = [z[f"head_{i}"] for i in range(5)]
+        out = init_lpips(heads=heads, device=device)[0], False, (
+            "lpips[vgg]: UNCALIBRATED — reference linear heads "
+            "(utils/lpips/weights/v0.1/vgg.pth) on a fixed-seed random "
+            "trunk; run tools/calibrate_lpips.py for published-comparable "
+            "values"
+        )
     else:
-        head_ws = [torch.as_tensor(np.asarray(h, np.float32).reshape(-1, 1), device=device) for h in heads]
-    return {"convs": convs, "heads": head_ws}, False
-
-
-def load_lpips(device="cuda"):
-    """The packaged reference heads on the random trunk: (params, calibrated,
-    status).  ``calibrated`` is False: the trunk is not pretrained."""
-    with np.load(HEADS_PATH) as z:
-        heads = [z[f"head_{i}"] for i in range(5)]
-    params, calibrated = init_lpips(heads=heads, device=device)
-    status = (
-        "lpips[vgg]: UNCALIBRATED - reference linear heads on a random trunk "
-        "(torch.Generator seed 1234); values are not comparable with published LPIPS"
-    )
-    return params, calibrated, status
+        params, _ = init_lpips_alex(device=device) if trunk == "alex" else init_lpips(device=device)
+        out = params, False, (
+            f"lpips[{trunk}]: UNCALIBRATED — fixed-seed random trunk + "
+            "uniform heads; run tools/calibrate_lpips.py"
+        )
+    if not quiet and trunk not in _STATUS_LOGGED:
+        _STATUS_LOGGED.add(trunk)
+        (log.info if out[1] else log.warning)("%s", out[2])
+    return out
 
 
 def _vgg_features(params, x: torch.Tensor, bf16: bool):
@@ -93,10 +181,28 @@ def _vgg_features(params, x: torch.Tensor, bf16: bool):
     return feats
 
 
+def _alex_features(params, x: torch.Tensor, bf16: bool):
+    """x (H, W, 3) in [-1, 1] -> the five AlexNet relu taps, (1, C, h, w) f32."""
+    shift = torch.tensor(_SHIFT, dtype=x.dtype, device=x.device)
+    scale = torch.tensor(_SCALE, dtype=x.dtype, device=x.device)
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    h = ((x - shift) / scale).permute(2, 0, 1)[None].to(dtype)
+    feats = []
+    for conv, (_, _, stride, pad, pool_before) in zip(params["convs"], _ALEX_CONVS):
+        if pool_before:
+            h = F.max_pool2d(h, 3, 2)  # no padding, floor output size
+        h = F.conv2d(h, conv["w"].to(dtype), stride=stride, padding=pad)
+        h = torch.relu(h + conv["b"].to(dtype)[None, :, None, None])
+        feats.append(h.float())
+    return feats
+
+
 def lpips(params, pred: torch.Tensor, gt: torch.Tensor, bf16: bool = True) -> torch.Tensor:
-    """LPIPS distance between two (H, W, 3) images in [-1, 1]."""
-    f_p = _vgg_features(params, pred, bf16)
-    f_g = _vgg_features(params, gt, bf16)
+    """LPIPS distance between two (H, W, 3) images in [-1, 1]; the trunk is
+    AlexNet when ``params`` hold the ``"alex"`` key, else VGG16."""
+    features = _alex_features if "alex" in params else _vgg_features
+    f_p = features(params, pred, bf16)
+    f_g = features(params, gt, bf16)
     total = torch.zeros((), dtype=torch.float32, device=pred.device)
     for fp, fg, head in zip(f_p, f_g, params["heads"]):
         # x * rsqrt(sum x^2 + eps^2): x / (|x| + eps) has a 0/0 gradient at

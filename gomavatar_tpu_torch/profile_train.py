@@ -103,7 +103,7 @@ def main():
                                      frame["dst_Rs"], frame["dst_Ts"], dst_posevec=frame["dst_posevec"])
     bg = torch.zeros(3, device="cuda")
     batch = dict(frame, bgcolor=bg, target_rgbs=unpack(rgb, mask, bg, clamp=True), target_masks=mask)
-    trainer = Trainer(trained_train_cfg(), lpips_params=load_lpips("cuda")[0], device="cuda", state=state)
+    trainer = Trainer(trained_train_cfg(), lpips_params=load_lpips(device="cuda")[0], device="cuda", state=state)
 
     for _ in range(3):
         trainer.step(batch)

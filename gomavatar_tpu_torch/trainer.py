@@ -1,20 +1,28 @@
-"""The train step and the phase-managing trainer (port of the train-step half
-of gomavatar_tpu/trainer.py).
+"""The train step, the phase-managing trainer and its checkpoints (port of
+gomavatar_tpu/trainer.py).
 
 One step is ``gom_forward(train=True)`` -> ``unpack`` -> ``compute_loss`` ->
 the backward (kernels B3 and B5 on the card) -> one Adam update.  A
 subdivision milestone (``cfg["model"]["subdivide_iters"]``) changes the
 phase: the state is subdivided and the optimizer rebuilt, with its decay
 schedule fast-forwarded to the global iteration.  No step waits for the
-device: the losses and the binning telemetry come back as device tensors.
+device: the losses and the binning telemetry come back as device tensors
+(``GOMAVATAR_DEBUG_BINNING=1`` reads the drop counters after every step and
+fails on a drop, a sync per step).
+
+``Trainer.save`` writes the params, the Adam state, the iteration and the
+phase (``checkpoint.py``); ``resume`` and ``load_for_eval`` build the
+phase-0 model first, replay the stored number of subdivisions, then load.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 
 import torch
 
+from gomavatar_tpu_torch import checkpoint as ckpt_lib
 from gomavatar_tpu_torch.losses import compute_loss, unpack
 from gomavatar_tpu_torch.models.gom import GoMConfig, GoMStatics, gom_forward, init_gom, subdivide_gom
 from gomavatar_tpu_torch.optim import (
@@ -28,6 +36,10 @@ from gomavatar_tpu_torch.ops.splat.binning import CHUNK
 from gomavatar_tpu_torch.ops.splat.tiled_jnp import NCMAX
 
 log = logging.getLogger(__name__)
+
+# fail on any binning-budget overflow (reads the counters: a device sync per
+# step; debugging only)
+_DEBUG_BINNING = bool(int(os.environ.get("GOMAVATAR_DEBUG_BINNING", "0")))
 
 
 def train_loss(params: dict, statics: GoMStatics, gom_cfg: GoMConfig, loss_cfg: dict, lpips_params,
@@ -77,17 +89,22 @@ def make_train_step(gom_cfg: GoMConfig, loss_cfg: dict, tx):
 
 
 class Trainer:
-    """Owns params, statics and the optimizer across subdivision phases.
+    """Owns params, statics and the optimizer across subdivision phases, and
+    saves and loads them.
 
-    ``state`` = (params, statics, gom_cfg, i_iter, phase) starts from a loaded
-    model (e.g. ``convert.load_trained``) instead of ``init_gom``; the
-    optimizer is then new, with its schedule fast-forwarded to ``i_iter``."""
+    The model starts from ``init_gom`` on ``canonical_info`` (the phase-0
+    mesh, which ``resume`` and ``load_for_eval`` subdivide to a checkpoint's
+    phase), or from ``state`` = (params, statics, gom_cfg, i_iter, phase), a
+    loaded model (e.g. ``convert.load_trained``); the optimizer is then new,
+    with its schedule fast-forwarded to ``i_iter``.  ``lpips_calibrated``
+    says whether ``lpips_params`` hold a converted pretrained trunk."""
 
     def __init__(self, cfg, canonical_info: dict | None = None, lpips_params=None, seed: int = 0,
-                 device="cuda", state=None):
+                 device="cuda", state=None, lpips_calibrated: bool = False):
         self.cfg = cfg
         self.loss_cfg = cfg["train"]["losses"]
         self.lpips_params = lpips_params
+        self.lpips_calibrated = lpips_calibrated
         self.subdivide_iters = sorted(cfg["model"].get("subdivide_iters", []))
         self.device = torch.device(device)
         if state is None:
@@ -131,6 +148,13 @@ class Trainer:
         self.params, self.opt_state, total, losses = self._step_fn(
             self.params, self.opt_state, self.statics, self.lpips_params, batch, float(self.i_iter)
         )
+        if _DEBUG_BINNING:
+            dropped = sum(int(losses[k]) for k in ("bin_drop_budget", "bin_drop_buffer", "bin_drop_ncmax"))
+            if dropped:
+                raise RuntimeError(
+                    f"binning dropped {dropped} entries at iter {self.i_iter}: raise max_tiles_per_gaussian / "
+                    f"buffer_factor / the kernels' NCMAX (GOMAVATAR_DEBUG_BINNING=1 makes this fatal)"
+                )
         self.i_iter += 1
         return total, losses
 
@@ -141,3 +165,37 @@ class Trainer:
                 batch["dst_Rs"], batch["dst_Ts"], dst_posevec=batch.get("dst_posevec"), i_iter=float(self.i_iter),
                 global_R=batch.get("global_R"), global_T=batch.get("global_T"), train=train, device=self.device,
             )
+
+    # -- checkpointing -------------------------------------------------------
+
+    def save(self, ckpt_dir: str):
+        ckpt_lib.save_checkpoint(ckpt_dir, self.i_iter, self.params, self.opt_state, self.phase)
+
+    def _replay_and_restore(self, path: str):
+        """Subdivide to the checkpoint's phase (shapes change across
+        phases), then load params and Adam state into that shape."""
+        phase = ckpt_lib.read_phase(path)
+        while self.phase < phase:
+            self._subdivide()
+        return ckpt_lib.restore_checkpoint(path, self.params, self.opt_state)
+
+    def resume(self, ckpt_dir: str) -> bool:
+        """Restore the latest checkpoint of ``ckpt_dir``: params, Adam state
+        and iteration.  False when there is none."""
+        latest = ckpt_lib.latest_checkpoint(ckpt_dir)
+        if latest is None:
+            return False
+        path, _ = latest
+        self.params, self.opt_state, self.i_iter, phase = self._replay_and_restore(path)
+        log.info("resumed from %s (iter %d, phase %d)", path, self.i_iter, phase)
+        return True
+
+    def load_for_eval(self, ckpt_dir: str, it: int | None = None) -> int:
+        """Load the params of checkpoint ``iter_{it}`` (the latest when
+        ``it`` is None) for rendering; returns its iteration."""
+        latest = ckpt_lib.latest_checkpoint(ckpt_dir)
+        if latest is None:
+            raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
+        path = latest[0] if it is None else os.path.join(ckpt_dir, f"iter_{it}")
+        self.params, _, self.i_iter, _ = self._replay_and_restore(path)
+        return self.i_iter

@@ -33,6 +33,7 @@ from gomavatar_tpu_torch.ops.splat.projection import project_gaussians
 from gomavatar_tpu_torch.ops.splat.reference import ALPHA_MAX, ALPHA_MIN, T_EPS
 from gomavatar_tpu_torch.ops.splat.render import gaussian_entries
 from gomavatar_tpu_torch.ops.splat.tiled_jnp import NCMAX, P, composite_tiles_plain, tile_pixels
+from torch_threads import one_torch_thread  # noqa: F401
 
 # the tolerances of tests/test_torch_splat.py (splat gradients, atol 2e-4 +
 # rtol 1e-3) and tests/test_torch_mesh_raster.py (vertex and normal

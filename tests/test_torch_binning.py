@@ -14,6 +14,7 @@ import torch
 from gomavatar_tpu.ops.splat import binning as JB
 from gomavatar_tpu_torch.ops.splat import binning as TB
 from torch_port_scene import assert_bins_identical
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _random_boxes(seed, img, N=400, r_max=9.0):

@@ -32,6 +32,7 @@ from gomavatar_tpu_torch.ops.splat.binning import CHUNK
 from gomavatar_tpu_torch.ops.splat.tiled_jnp import NCMAX, P
 from gomavatar_tpu_torch.scene import gate_scene
 from torch_port_scene import assert_close_frac
+from torch_threads import one_torch_thread  # noqa: F401
 
 S_RTOL, SOFT_TOL = 1e-6, 1e-6
 HIT_FRAC, SEL_TOL = 0.999, 1e-4  # B1's selection: hit equal, normal and shading where the hits agree

@@ -7,6 +7,7 @@ import shutil
 import pytest
 
 from gomavatar_tpu_torch import cuda_build
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_every_local_include_is_a_csrc_header():

@@ -1,0 +1,293 @@
+"""gomavatar_tpu_torch's data layer against gomavatar_tpu's on the CPU: the
+fixture writers byte for byte, every dataset class item for item (arrays
+exact, the same rng seed), the native decode path, ``to_device``, the
+``Prefetcher``, the camera helpers, the frame sampling and the TB logger's
+cadence gate."""
+
+import filecmp
+import os
+import threading
+import time
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gomavatar_tpu.data import dataset as JD
+from gomavatar_tpu.data import synthetic as JS
+from gomavatar_tpu.ops import camera as JC
+from gomavatar_tpu.utils import sampling as JSamp
+from gomavatar_tpu_torch.data import dataset as TD
+from gomavatar_tpu_torch.data import native_loader as TN
+from gomavatar_tpu_torch.data import synthetic as TS
+from gomavatar_tpu_torch.ops import camera as TC
+from gomavatar_tpu_torch.utils import sampling as TSamp
+from torch_threads import one_torch_thread  # noqa: F401
+
+HW = (48, 48)
+
+
+@pytest.fixture(scope="module")
+def data_dir(tmp_path_factory):
+    return TS.write_synthetic_dataset(str(tmp_path_factory.mktemp("synth")), n_frames=5, img_hw=HW)
+
+
+@pytest.fixture(scope="module")
+def raw_dir(tmp_path_factory, data_dir):
+    return TS.write_synthetic_zju_raw(str(tmp_path_factory.mktemp("raw")), data_dir, n_views=3, img_hw=HW)
+
+
+def _tree_files(root):
+    return sorted(os.path.relpath(os.path.join(d, f), root) for d, _, fs in os.walk(root) for f in fs)
+
+
+@pytest.mark.parametrize("writer", ["dataset", "zju_raw", "mdm_poses"])
+def test_writer_is_byte_equal_to_jax(writer, tmp_path):
+    if writer == "dataset":
+        for pkg, d in ((JS, "j"), (TS, "t")):
+            pkg.write_synthetic_dataset(str(tmp_path / d), n_frames=3, img_hw=HW, seed=2)
+    elif writer == "zju_raw":
+        pre = JS.write_synthetic_dataset(str(tmp_path / "pre"), n_frames=3, img_hw=HW)
+        for pkg, d in ((JS, "j"), (TS, "t")):
+            pkg.write_synthetic_zju_raw(str(tmp_path / d), pre, n_views=2, img_hw=HW)
+    else:
+        for pkg, d in ((JS, "j"), (TS, "t")):
+            os.makedirs(tmp_path / d)
+            pkg.write_synthetic_mdm_poses(str(tmp_path / d / "mdm.npy"), n_frames=4)
+    files = _tree_files(tmp_path / "j")
+    assert files and files == _tree_files(tmp_path / "t")
+    for f in files:
+        assert filecmp.cmp(tmp_path / "j" / f, tmp_path / "t" / f, shallow=False), f
+
+
+def assert_items_equal(t, j):
+    assert set(t) == set(j)
+    for k in j:
+        if isinstance(j[k], str):
+            assert t[k] == j[k], k
+        else:
+            a, b = np.asarray(t[k]), np.asarray(j[k])
+            assert a.dtype == b.dtype and a.shape == b.shape, k
+            np.testing.assert_array_equal(a, b, err_msg=k)
+
+
+TRAIN_CASES = {
+    "fixed_bg": dict(bgcolor=[0, 0, 0]),
+    "random_bg": dict(bgcolor=None, seeded=True),
+    "crop": dict(bgcolor=[0, 0, 0], crop_size=(32, 32), seeded=True),
+    "target_size": dict(bgcolor=[10, 20, 30], target_size=(40, 40)),
+    "split_skip_max": dict(bgcolor=[0, 0, 0], split_for_pose=True, skip=1, maxframes=5),
+    "native": dict(bgcolor=None, seeded=True, use_native=True, target_size=(48, 48)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TRAIN_CASES))
+def test_train_dataset_items_match_jax(data_dir, case):
+    kw = dict(TRAIN_CASES[case])
+    if kw.get("use_native") and not TN.available():
+        pytest.skip("the native library cannot be built or loaded here")
+    seeded = kw.pop("seeded", False)
+    sets = []
+    for mod in (TD, JD):
+        extra = {"rng": np.random.default_rng(3)} if seeded else {}
+        sets.append(mod.TrainDataset(data_dir, **kw, **extra))
+    t, j = sets
+    assert len(t) == len(j) and t.framelist == j.framelist
+    for i in range(len(j)):
+        assert_items_equal(t[i], j[i])
+    info_t, info_j = t.get_canonical_info(), j.get_canonical_info()
+    for k in ("canonical_joints", "canonical_vertex", "canonical_lbs_weights", "faces"):
+        np.testing.assert_array_equal(info_t[k], info_j[k], err_msg=k)
+    for k in ("min_xyz", "max_xyz", "scale_xyz"):
+        np.testing.assert_array_equal(info_t["canonical_bbox"][k], info_j["canonical_bbox"][k])
+    np.testing.assert_array_equal(t.get_all_Es(), j.get_all_Es())
+
+
+@pytest.mark.parametrize("test_type", ["view", "pose"])
+def test_zju_test_dataset_items_match_jax(data_dir, raw_dir, test_type):
+    t = TD.ZJUTestDataset(raw_dir, data_dir, test_type=test_type, bgcolor=[0, 0, 0], skip=1, exclude_view=0)
+    j = JD.ZJUTestDataset(raw_dir, data_dir, test_type=test_type, bgcolor=[0, 0, 0], skip=1, exclude_view=0)
+    assert len(t) == len(j) > 0
+    for i in range(len(j)):
+        assert_items_equal(t[i], j[i])
+
+
+@pytest.mark.parametrize("src_type", ["zju_mocap", "wild"])
+def test_freeview_dataset_items_match_jax(data_dir, src_type):
+    kw = dict(frame_idx=1, total_frames=6, src_type=src_type, target_size=(48, 48))
+    t, j = TD.FreeviewDataset(data_dir, **kw), JD.FreeviewDataset(data_dir, **kw)
+    assert len(t) == len(j) == 6
+    for i in (0, 2, 5):
+        assert_items_equal(t[i], j[i])
+
+
+def test_newpose_dataset_items_match_jax(data_dir, tmp_path):
+    path = TS.write_synthetic_mdm_poses(str(tmp_path / "mdm.npy"), n_frames=3)
+    t, j = TD.NewPoseDataset(data_dir, path, img_size=(64, 64)), JD.NewPoseDataset(data_dir, path, img_size=(64, 64))
+    assert len(t) == len(j) == 3
+    for i in range(3):
+        assert_items_equal(t[i], j[i])
+
+
+def test_native_loader_matches_jax(data_dir):
+    if not TN.available():
+        pytest.skip("the native library cannot be built or loaded here")
+    from gomavatar_tpu.data import native_loader as JN
+
+    img = os.path.join(data_dir, "images", "frame_000001.png")
+    mask = os.path.join(data_dir, "masks", "frame_000001.png")
+    K = np.array([[80.0, 0, 48], [0, 80, 48], [0, 0, 1]])
+    D = np.array([0.01, -0.02, 0, 0, 0.0])
+    bg = np.array([10.0, 200.0, 30.0], np.float32)
+    assert TN.probe_image(img) == JN.probe_image(img) == (2 * HW[0], 2 * HW[1])
+    for a, b in zip(TN.load_frame(img, mask, K, D, bg, HW), JN.load_frame(img, mask, K, D, bg, HW)):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(TN.rodrigues(np.array([0.1, 0.2, 0.3])), JN.rodrigues(np.array([0.1, 0.2, 0.3])))
+
+
+def test_to_device_gives_float32_tensors_without_the_name_keys(data_dir):
+    item = TD.TrainDataset(data_dir, bgcolor=[0, 0, 0])[0]
+    item["img_width"], item["img_height"] = 96, 96
+    out = TD.to_device(item, "cpu")
+    assert set(out) == set(item) - set(TD.EXCLUDE_KEYS)
+    for k, v in out.items():
+        assert isinstance(v, torch.Tensor) and v.dtype == torch.float32 and v.device.type == "cpu", k
+        np.testing.assert_array_equal(v.numpy(), np.asarray(item[k], np.float32), err_msg=k)
+
+
+# ---- the Prefetcher (the cases of tests/test_datasets.py) ---------------------
+
+
+def test_prefetcher_yields_in_order(data_dir):
+    ds = TD.TrainDataset(data_dir, bgcolor=[0, 0, 0])
+    items = list(TD.Prefetcher(ds, order=[3, 0, 1, 2]))
+    assert [it["frame_name"] for it in items] == ["frame_000003", "frame_000000", "frame_000001", "frame_000002"]
+
+
+class _Boom:
+    def __init__(self, n, bad):
+        self.n, self.bad = n, bad
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        if i == self.bad:
+            raise ValueError("decode failed")
+        return {"i": i}
+
+
+@pytest.mark.parametrize("workers", [1, 4])
+def test_prefetcher_forwards_worker_errors(workers):
+    out = []
+    with pytest.raises(RuntimeError, match="Prefetcher worker failed"):
+        for item in TD.Prefetcher(_Boom(8, 5), workers=workers):
+            out.append(item["i"])
+    assert out == [0, 1, 2, 3, 4]
+
+
+def test_prefetcher_pool_keeps_order_under_backpressure():
+    class Slow:
+        def __len__(self):
+            return 12
+
+        def __getitem__(self, i):
+            time.sleep(0.02 if i % 3 == 0 else 0.001)
+            return {"i": i}
+
+    order = [7, 2, 9, 0, 5, 1, 11, 3]
+    assert [it["i"] for it in TD.Prefetcher(Slow(), order=order, workers=4, depth=3)] == order
+
+
+def test_threaded_getitem_keeps_the_random_stream_intact(data_dir):
+    ds = TD.TrainDataset(data_dir, bgcolor=None)
+    items = list(TD.Prefetcher(ds, order=list(range(4)) * 8, workers=8))
+    assert len(items) == 32
+    for it in items:
+        assert np.isfinite(it["bgcolor"]).all() and (it["bgcolor"] >= 0).all() and (it["bgcolor"] <= 1).all()
+
+
+def test_prefetcher_early_break_releases_workers():
+    class Slow:
+        def __len__(self):
+            return 50
+
+        def __getitem__(self, i):
+            time.sleep(0.002)
+            return {"i": i}
+
+    before = threading.active_count()
+    pf = TD.Prefetcher(Slow(), workers=4, depth=2)
+    for item in pf:
+        if item["i"] == 3:
+            break
+    for t in pf._threads:
+        t.join(timeout=5)
+    assert all(not t.is_alive() for t in pf._threads)
+    assert threading.active_count() <= before + 1
+
+
+# ---- camera helpers and sampling ------------------------------------------------
+
+
+def test_camera_helpers_match_jax():
+    rng = np.random.default_rng(0)
+    E = np.eye(4)
+    E[:3, :3] = TC._np_rodrigues(rng.normal(size=3))
+    E[:3, 3] = [0.1, -0.2, 3.0]
+    Rh, Th = rng.normal(size=3).astype(np.float32), rng.normal(size=3).astype(np.float32)
+    for a, b in zip(TC.apply_global_tfm_to_camera(E, Rh, Th, return_global_tfms=True),
+                    JC.apply_global_tfm_to_camera(E, Rh, Th, return_global_tfms=True)):
+        np.testing.assert_array_equal(a, b)
+    for axis, inv in (("y", False), ("z", True)):
+        for idx in (0, 7):
+            kw = dict(trans=np.array([0.0, 0.1, 0.2]), rotate_axis=axis, period=30, inv_angle=inv)
+            np.testing.assert_array_equal(TC.rotate_camera_by_frame_idx(E, idx, **kw),
+                                          JC.rotate_camera_by_frame_idx(E, idx, **kw))
+    np.testing.assert_array_equal(TC.get_camrot([1.0, 2.0, 3.0], inv_camera=True),
+                                  JC.get_camrot([1.0, 2.0, 3.0], inv_camera=True))
+    assert TC.focal2fov(500.0, 512) == JC.focal2fov(500.0, 512)
+
+
+def test_projections_match_jax():
+    rng = np.random.default_rng(1)
+    pts = rng.normal(size=(20, 3)).astype(np.float32) * 0.3
+    K = np.array([[500, 0, 256], [0, 480, 200], [0, 0, 1]], np.float32)
+    E = np.eye(4, dtype=np.float32)
+    E[:3, 3] = [0.05, 0.0, 3.0]
+    t = [torch.as_tensor(x) for x in (pts, K, E)]
+    j = [jnp.asarray(x) for x in (pts, K, E)]
+    np.testing.assert_allclose(TC.img_T_world(*t).numpy(), np.asarray(JC.img_T_world(*j)), rtol=1e-6, atol=1e-4)
+    for H, W in ((200, 300), (300, 200)):
+        np.testing.assert_allclose(TC.ndc_T_world(*t, H, W).numpy(), np.asarray(JC.ndc_T_world(*j, H, W)),
+                                   rtol=1e-6, atol=1e-6)
+
+
+def test_balanced_order_matches_jax(data_dir):
+    Es = TD.TrainDataset(data_dir, bgcolor=[0, 0, 0]).get_all_Es()
+    np.testing.assert_array_equal(TSamp.make_weights_for_pose_balance(Es), JSamp.make_weights_for_pose_balance(Es))
+    a = TSamp.balanced_order(Es, 11, np.random.default_rng(4))
+    b = JSamp.balanced_order(Es, 11, np.random.default_rng(4))
+    np.testing.assert_array_equal(a, b)
+
+
+def test_tb_reads_a_scalar_only_on_its_cadence(tmp_path):
+    """Off the cadence a scalar is not converted (a device tensor would make
+    the host wait); on it, it is written."""
+    from gomavatar_tpu_torch.utils.tb import TBLogger
+
+    class NoRead:
+        def __float__(self):
+            raise AssertionError("read off the cadence")
+
+    tb = TBLogger(str(tmp_path), freq=4)
+    tb.set_step(3)
+    tb.summ_scalar("x", NoRead())
+    tb.summ_image("img", np.zeros((4, 4, 3)))
+    tb.set_step(4)
+    tb.summ_scalar("x", torch.tensor(2.5))
+    tb.summ_feat("feat", np.random.default_rng(0).normal(size=(8, 6, 5)).astype(np.float32))
+    tb.summ_pointcloud2d("pts", np.array([[1.0, 2.0], [4.0, 3.0], [-5.0, 99.0]]), (8, 8))
+    tb.close()
+    assert any(f.startswith("events") for f in os.listdir(tmp_path))

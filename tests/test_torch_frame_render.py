@@ -19,6 +19,7 @@ from gomavatar_tpu.ops.splat import binning as JB
 from gomavatar_tpu_torch.ops import frame_render as TF
 from gomavatar_tpu_torch.ops.splat.binning import BinningTelemetry, SortedBinning
 from torch_port_scene import IMG, assert_close_frac, jax_gate_scene, jax_verts_obs
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _torch_bins(b) -> SortedBinning:

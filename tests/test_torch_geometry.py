@@ -11,6 +11,7 @@ import torch
 from gomavatar_tpu.ops.geometry import frame_geometry as jax_frame_geometry
 from gomavatar_tpu_torch.ops.geometry import NCH, frame_geometry
 from torch_port_scene import CHANNEL_TOL, IMG, jax_gate_scene, jax_verts_obs, torch_scene_from
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

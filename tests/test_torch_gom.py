@@ -19,6 +19,7 @@ from gomavatar_tpu_torch.scene import gate_scene
 from torch_port_scene import (
     IMG, assert_close_frac, jax_forward, jax_gate_scene, jax_verts_obs, torch_scene_from,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 # per-face shading: bf16 MLP on both sides, the tolerance of the JAX
 # package's bf16 shading check (tests/test_frame_render.py:206)
@@ -146,7 +147,7 @@ def test_gate_scene_is_seeded_and_renders():
     assert TF.frame_partials.launches == TF.frame_merge.launches == 0
 
 
-def test_train_path_is_not_ported(scenes):
+def test_train_path_matches_jax(scenes):
     """gom_forward(train=True) of the port against the JAX package's on the
     CPU (its jnp splat and mesh paths): the image, the mask, the albedo, the
     soft silhouette, the normal map and the binning telemetry."""

@@ -16,6 +16,7 @@ import torch
 from gomavatar_tpu_torch.ops import frame_render as TF
 from gomavatar_tpu_torch.ops import mesh_raster_pallas as MK
 from gomavatar_tpu_torch.ops.splat import pallas_kernel as SK
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "gomavatar_tpu_torch"

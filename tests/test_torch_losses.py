@@ -22,6 +22,7 @@ from gomavatar_tpu_torch.models import lpips as TL
 from gomavatar_tpu_torch.models.smpl import synthetic_body
 from gomavatar_tpu_torch.ops import mesh_ops as TM
 from gomavatar_tpu_torch.scene import E2E_TRAIN
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 RTOL = 1e-5  # each loss term and its gradients

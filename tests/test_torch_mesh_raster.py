@@ -16,6 +16,7 @@ from gomavatar_tpu.ops import mesh_raster as JR
 from gomavatar_tpu.ops import mesh_raster_pallas as JRP
 from gomavatar_tpu_torch.ops import mesh_raster as TR
 from gomavatar_tpu_torch.ops import mesh_raster_pallas as TRP
+from torch_threads import one_torch_thread  # noqa: F401
 
 # the JAX package's own kernel-vs-jnp tolerances
 # (tests/test_train_kernels_interpret.py:132-137), each held on > 99.9 % of
@@ -52,13 +53,17 @@ def _run(rings, w, h, impl, budgets, interpret=False):
                                 soft_mask=True, blur_sigma=1e-5, implementation=impl, **budgets)
         return out.normal, out.soft_mask
 
+    @jax.jit  # one compiled program: op-by-op dispatch took 3-4x as long
+    def reference(v, n, cot_n, cot_s):
+        outs, vjp = jax.vjp(jf, v, n)
+        return outs, vjp((cot_n, cot_s))
+
+    args = [jnp.asarray(a) for a in (verts, normals, g_n, g_s)]
     if interpret:
         with pltpu.force_tpu_interpret_mode():
-            (jn, js), vjp = jax.vjp(jf, jnp.asarray(verts), jnp.asarray(normals))
-            jdv, jdn = vjp((jnp.asarray(g_n), jnp.asarray(g_s)))
+            (jn, js), (jdv, jdn) = reference(*args)
     else:
-        (jn, js), vjp = jax.vjp(jf, jnp.asarray(verts), jnp.asarray(normals))
-        jdv, jdn = vjp((jnp.asarray(g_n), jnp.asarray(g_s)))
+        (jn, js), (jdv, jdn) = reference(*args)
 
     tv, tn = torch.tensor(verts, requires_grad=True), torch.tensor(normals, requires_grad=True)
     t_budgets = {k: v for k, v in budgets.items() if k != "max_chunks"}

@@ -15,6 +15,7 @@ from gomavatar_tpu_torch.convert import params_from_jax, trained_meta
 from gomavatar_tpu_torch.models import modules as TM
 from gomavatar_tpu_torch.ops import embedding as TE
 from torch_port_scene import trained_mlps
+from torch_threads import one_torch_thread  # noqa: F401
 
 ATOL = 1e-5
 # Shadow MLP: bfloat16 on both sides (the reference's dtype), so both round

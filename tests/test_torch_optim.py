@@ -15,6 +15,7 @@ from gomavatar_tpu import optim as JO
 from gomavatar_tpu_torch import optim as TO
 from gomavatar_tpu_torch.convert import adam_state_from_optax, params_from_jax
 from gomavatar_tpu_torch.scene import E2E_TRAIN
+from torch_threads import one_torch_thread  # noqa: F401
 
 RTOL = 1e-6
 STEPS = 5

@@ -10,6 +10,7 @@ from gomavatar_tpu.ops import skeleton as JS
 from gomavatar_tpu.ops import transforms as JT
 from gomavatar_tpu_torch.ops import skeleton as TS
 from gomavatar_tpu_torch.ops import transforms as TT
+from torch_threads import one_torch_thread  # noqa: F401
 
 ATOL = 1e-5
 

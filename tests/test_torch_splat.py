@@ -17,6 +17,7 @@ from gomavatar_tpu_torch.ops import steiner as TSt
 from gomavatar_tpu_torch.ops.splat import pallas_kernel as TK
 from gomavatar_tpu_torch.ops.splat.projection import project_gaussians as torch_project
 from gomavatar_tpu_torch.ops.splat.render import render_gaussians as torch_render
+from torch_threads import one_torch_thread  # noqa: F401
 
 # image and alpha: the JAX package's kernel-vs-jnp tolerance
 # (tests/test_train_kernels_interpret.py:80); gradients of colors and

@@ -35,6 +35,7 @@ from gomavatar_tpu_torch.scene import gate_scene
 from test_torch_backward_split import (GRAD_ATOL, GRAD_RTOL, _jax_splat_grads, _splat_scene, _stacked_splats,
                                        splat_bwd_split)
 from torch_port_scene import assert_close_frac
+from torch_threads import one_torch_thread  # noqa: F401
 
 STATE_TOL = 1e-4  # the chunk-start state against its log-space plain version
 

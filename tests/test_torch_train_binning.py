@@ -17,6 +17,7 @@ from gomavatar_tpu_torch.models import gom as TG
 from gomavatar_tpu_torch.ops import fused_render as TF
 from gomavatar_tpu_torch.ops.splat import binning as TB
 from gomavatar_tpu_torch.scene import gate_scene
+from torch_threads import one_torch_thread  # noqa: F401
 
 FIELDS = ("entry_gauss", "entry_valid", "entry_splat", "entry_mesh", "tile_start", "tile_count")
 

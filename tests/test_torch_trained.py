@@ -21,6 +21,7 @@ from gomavatar_tpu_torch.models import gom as TG
 from gomavatar_tpu_torch.ops import frame_render as TF
 from gomavatar_tpu_torch.ops.splat import binning as TB
 from torch_port_scene import CHANNEL_TOL, assert_bins_identical, jax_verts_obs
+from torch_threads import one_torch_thread  # noqa: F401
 
 ACTIVE_TILES, ENTRIES, MAX_TILE = 221, 163205, 1700
 

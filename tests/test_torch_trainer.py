@@ -35,6 +35,7 @@ from gomavatar_tpu_torch.models import lpips as TLpips
 from gomavatar_tpu_torch.models.lpips import HEADS_PATH
 from gomavatar_tpu_torch.optim import tree_leaves
 from gomavatar_tpu_torch.trainer import Trainer
+from torch_threads import one_torch_thread  # noqa: F401
 
 IMG = (48, 48)
 STEPS = 3
@@ -192,3 +193,25 @@ def test_phase_change_subdivides_and_keeps_the_schedule(info):
     # while Adam's own count restarts with the new moments
     assert tr.opt_state.schedule_count == STEPS and tr.opt_state.count == STEPS - 2
     assert np.isfinite(float(total))
+
+
+def test_debug_binning_fails_on_a_dropped_entry(info, monkeypatch):
+    """GOMAVATAR_DEBUG_BINNING (the opt-in sync): a step whose binning
+    dropped an entry raises; one that dropped none goes on."""
+    from gomavatar_tpu_torch import trainer as T
+
+    cfg = _configure(default_cfg())
+    cfg["train"]["losses"]["lpips"]["coeff"] = 0.0
+    tr = Trainer(cfg, info, device="cpu", seed=0)
+    batch = {k: torch.as_tensor(v) for k, v in _batch_np(info).items()}
+    monkeypatch.setattr(T, "_DEBUG_BINNING", True)
+    tr.step(batch)
+    real = tr._step_fn
+
+    def dropping(*args):
+        params, opt_state, total, losses = real(*args)
+        return params, opt_state, total, dict(losses, bin_drop_buffer=torch.tensor(3))
+
+    tr._step_fn = dropping
+    with pytest.raises(RuntimeError, match="binning dropped 3 entries at iter 1"):
+        tr.step(batch)
