@@ -65,13 +65,37 @@ Phases, each fatal on failure:
         subdivide_iters [2], 4 steps on the card and on the CPU, the loss
         terms close at every step, the faces x4 from step 2 on, every
         train kernel once per step.
+  6. pose refinement and animation, each run with every launch count set
+     to 0 just before and read just after:
+     a. the gate scene's pose loss (``cli.train_pose.frame_loss``: rgb and
+        mask L1, VGG-LPIPS) and its gradient in (Rh, Th, pose) at
+        Rh = Th = 0 and a pose perturbed by N(0, 0.03), card against CPU:
+        the loss within rtol 1e-2 (LPIPS on), each gradient within 5 % of
+        its norm, all finite;
+     b. 30 steps of ``make_pose_optimizer`` on the trained avatar at 512^2
+        from the packed frame's joint angles plus N(0, 0.03) (numpy seed
+        0) towards the port's render of the packed frame: B2a-B5 once per
+        step, 0 dropped entries, the best loss below the first; the first
+        and best loss, the joint-angle and posed-joint errors before and
+        after, the step's mean (one synchronize at the end) and median (20
+        synchronised one-step calls);
+     c. ``cli.train_pose --max_frames 2`` over the 5a test capture from
+        iter_6100 with 10 steps per frame, halving every 5: each train
+        kernel 20 times, B1a and B1b 6 times (raw, zeroed and refined
+        evaluations), pose.pkl, finite metrics, PNGs not black; then
+        ``cli.evaluate --type view --pose_path`` uses the refined poses;
+     d. ``cli.animate --cfgs`` with the trained avatar twice (freeview, 4
+        frames) and ``--synthetic 2 --type mdm`` (2 frames) at 512^2: B1a
+        and B1b once per scene and frame, each strip 1024 x 512 with both
+        halves not black, frames/s.
 Kernel times are CUDA events around back-to-back calls after a warm-up;
 each part of a two-launch kernel also prints its device time (the calls
 queued behind a device-side sleep) beside it, as a diagnostic.
-Each phase prints its seconds.  The last six lines are the drivers' numbers
-as JSON, the forward timings as JSON, the train-step timings as JSON, the
-kernels JSON line, the card line and the result JSON.  Without a CUDA card it exits non-zero and prints no
-result.
+Each phase prints its seconds.  The last seven lines are the pose and
+animation numbers as JSON, the drivers' numbers as JSON, the forward
+timings as JSON, the train-step timings as JSON, the kernels JSON line, the
+card line and the result JSON.  Without a CUDA card it exits non-zero and
+prints no result.
 """
 
 from __future__ import annotations
@@ -1495,6 +1519,323 @@ def phase_drivers(device="cuda"):
     return out
 
 
+# ---- phase 6: pose refinement and animation ------------------------------------
+
+# 6b: POSE_STEPS steps of the pose optimizer on the trained avatar from the
+# packed frame's joint angles plus N(0, POSE_NOISE) (numpy seed 0, the noise
+# of tools/make_e2e_data.py --pose_noise), then POSE_TIMED one-step calls,
+# each synchronised, for the step's median; the seconds of a test frame are
+# those of PROTOCOL_STEPS steps (configs/exps/snapshot_*.yaml, pose.iters)
+POSE_NOISE, POSE_STEPS, POSE_TIMED, PROTOCOL_STEPS = 0.03, 30, 20, 300
+# 6c: cli.train_pose over CLI_POSE_FRAMES test frames, CLI_POSE_ITERS steps
+# each, the step size halving every CLI_POSE_DECAY
+CLI_POSE_FRAMES, CLI_POSE_ITERS, CLI_POSE_DECAY = 2, 10, 5
+# 6d: cli.animate, two scenes over ANIM_FRAMES orbit frames and
+# ANIM_MDM_FRAMES motion frames
+ANIM_SCENES, ANIM_FRAMES, ANIM_MDM_FRAMES = 2, 4, 2
+TRAIN_KERNELS = ("B2a", "B2b", "B3a", "B3b", "B4a", "B4b", "B5")
+
+
+def so3_log_np(R: np.ndarray) -> np.ndarray:
+    """Axis-angle of a rotation matrix (principal branch, angle < pi)."""
+    R = np.asarray(R, np.float64)
+    angle = np.arccos(np.clip((np.trace(R) - 1.0) / 2.0, -1.0, 1.0))
+    if angle < 1e-8:
+        return np.zeros(3)
+    w = np.array([R[2, 1] - R[1, 2], R[0, 2] - R[2, 0], R[1, 0] - R[0, 1]])
+    return w * angle / (2.0 * np.sin(angle))
+
+
+def packed_pose(frame):
+    """The 72-d pose and the T-pose joints (24, 3) behind a frame's dst_Rs,
+    dst_Ts and dst_posevec: the root angle from dst_Rs[0], the joint angles
+    dst_posevec - 0.01, the joints summed down the chain from dst_Ts; checked
+    against the frame through body_pose_to_body_RTs."""
+    from gomavatar_tpu_torch.ops.skeleton import SMPL_PARENT, body_pose_to_body_RTs
+
+    Rs = frame["dst_Rs"].cpu().numpy()
+    Ts = frame["dst_Ts"].cpu().numpy().astype(np.float64)
+    pose = np.zeros(72, np.float32)
+    pose[:3] = so3_log_np(Rs[0])
+    pose[3:] = frame["dst_posevec"].cpu().numpy() - np.float32(1e-2)
+    joints = np.zeros((24, 3))
+    joints[0] = Ts[0]
+    for i in range(1, 24):
+        joints[i] = joints[SMPL_PARENT[i]] + Ts[i]
+    joints = joints.astype(np.float32)
+    dev = frame["dst_Rs"].device
+    R2, T2 = body_pose_to_body_RTs(torch.as_tensor(pose, device=dev), torch.as_tensor(joints, device=dev))
+    err = max(float((R2 - frame["dst_Rs"]).abs().max()), float((T2 - frame["dst_Ts"]).abs().max()))
+    print(f"  the packed frame's pose rebuilt: body_pose_to_body_RTs reproduces dst_Rs and dst_Ts within {err:.3g}")
+    require(err < 1e-5, "the packed frame's pose does not reproduce its bone transforms")
+    return pose, joints
+
+
+def pose_batch(params, statics, cfg, frame, joints, target_frame):
+    """The pose loss's batch: ``train_batch``'s (the port's eval render of
+    ``target_frame`` on black as the targets) with the T-pose joints."""
+    batch = train_batch(params, statics, cfg, frame, target_frame)
+    batch["dst_tpose_joints"] = torch.as_tensor(joints, device=frame["K"].device)
+    return batch
+
+
+def pose_loss_grads(params, statics, cfg, loss_cfg, lpips_params, batch, pose):
+    """(loss, {Rh, Th, poses: gradient}, dropped) of the pose loss at
+    (Rh = Th = 0, ``pose``)."""
+    from gomavatar_tpu_torch.cli.train_pose import POSE_KEYS, frame_loss
+
+    dev = batch["K"].device
+    v = {"Rh": torch.zeros(3, device=dev, requires_grad=True), "Th": torch.zeros(3, device=dev, requires_grad=True),
+         "poses": torch.as_tensor(pose, device=dev).requires_grad_(True)}
+    loss, dropped = frame_loss(v, params, statics, cfg, loss_cfg, lpips_params, batch)
+    grads = torch.autograd.grad(loss, [v[k] for k in POSE_KEYS])
+    return float(loss.detach()), {k: g.cpu() for k, g in zip(POSE_KEYS, grads)}, int(dropped)
+
+
+def pose_gradient_on_card(device="cuda"):
+    """Phase 6a: the gate scene's pose loss and its gradient in (Rh, Th,
+    pose) at Rh = Th = 0 and a perturbed pose, on ``device`` and on the
+    CPU."""
+    from gomavatar_tpu_torch.models.lpips import load_lpips
+    from gomavatar_tpu_torch.models.smpl import synthetic_body
+    from gomavatar_tpu_torch.scene import trained_train_cfg
+
+    loss_cfg = trained_train_cfg()["train"]["losses"]
+    joints = synthetic_body(n_rings=16, n_seg=18)["canonical_joints"]
+    pose = np.zeros(72, np.float32)
+    pose[12] = 0.3  # the gate frame's pose
+    rng = np.random.default_rng(0)
+    pose[3:] += rng.normal(size=69).astype(np.float32) * POSE_NOISE
+    g_params, g_statics, g_cfg, g_frame = gate_train_scene(device)
+    batch = pose_batch(g_params, g_statics, g_cfg, g_frame, joints, perturbed_frames(g_frame)[1])
+    out = {}
+    for dev in (device, "cpu"):
+        params, statics, cfg, _ = gate_train_scene(dev)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        out[dev] = pose_loss_grads(params, statics, cfg, loss_cfg, load_lpips(device=dev, quiet=True)[0], b, pose)
+    (lc, gc, dc), (lh, gh, dh) = out[device], out["cpu"]
+    print(f"  gate pose loss: card {lc:.7g}, CPU {lh:.7g}; dropped {dc} / {dh}")
+    require(np.isfinite(lc) and np.isfinite(lh) and dc == dh == 0, "gate pose loss: non-finite or dropped entries")
+    rtol = STEP_LPIPS_RTOL if loss_cfg["lpips"]["coeff"] > 0 else STEP_RTOL
+    require(abs(lc - lh) <= rtol * abs(lh), f"gate pose loss: the card and the CPU differ by more than rtol {rtol:g}")
+    rels = {}
+    for k in gc:
+        require(bool(torch.isfinite(gc[k]).all() and torch.isfinite(gh[k]).all()), f"gate pose: non-finite d{k}")
+        rels[k] = float(torch.linalg.norm(gc[k] - gh[k]) / torch.clamp_min(torch.linalg.norm(gh[k]), 1e-30))
+    print("  gate pose gradient, card against CPU, relative L2 difference: "
+          + ", ".join(f"{k} {r:.3g} (|g| {float(torch.linalg.norm(gh[k])):.3g})" for k, r in rels.items()))
+    require(all(r <= STEP_GRAD_REL for r in rels.values()), "gate pose gradient off by more than 5 % of its norm")
+    return {"loss": [lc, lh], "grad_rel_l2": rels}
+
+
+def pose_on_trained(trained, device="cuda"):
+    """Phase 6b: POSE_STEPS pose-optimizer steps on the trained avatar from
+    a perturbed pose towards the port's render of the packed frame, each
+    train kernel once per step, nothing dropped, the best loss below the
+    first; then the step timed."""
+    from gomavatar_tpu_torch.cli.train_pose import make_pose_optimizer
+    from gomavatar_tpu_torch.config import default_cfg
+    from gomavatar_tpu_torch.models.lpips import load_lpips
+    from gomavatar_tpu_torch.ops.skeleton import get_joints_from_pose
+    from gomavatar_tpu_torch.ops.transforms import so3_exp
+    from gomavatar_tpu_torch.scene import trained_train_cfg
+
+    params, statics, cfg, frame = trained
+    pose_true, joints = packed_pose(frame)
+    rng = np.random.default_rng(0)
+    pose0 = pose_true.copy()
+    pose0[3:] += rng.normal(size=69).astype(np.float32) * POSE_NOISE
+    batch = pose_batch(params, statics, cfg, frame, joints, frame)
+    loss_cfg = trained_train_cfg()["train"]["losses"]
+    pose_cfg = default_cfg()["pose"]
+    lpips_params = load_lpips(device=device, quiet=True)[0]
+    optimize = make_pose_optimizer(cfg, loss_cfg, pose_cfg, POSE_STEPS)
+    start = torch.as_tensor(pose0, device=device)
+    (best, best_loss, losses, dropped), launches, seconds = counted(
+        lambda: optimize(params, statics, lpips_params, batch, start))
+    losses, dropped = losses.cpu().numpy(), dropped.cpu().numpy()
+    best_pose = best["poses"].cpu().numpy()
+    err0 = float(np.abs(pose0[3:] - pose_true[3:]).mean())
+    err1 = float(np.abs(best_pose[3:] - pose_true[3:]).mean())
+    # the posed joints, the global transform applied, against the true pose's
+    tj = torch.as_tensor(joints, device=device)
+    true_j = get_joints_from_pose(torch.as_tensor(pose_true, device=device), tj)
+    start_j = get_joints_from_pose(start, tj)
+    best_j = get_joints_from_pose(best["poses"], tj) @ so3_exp(best["Rh"]).T + best["Th"]
+    jerr0 = float(torch.linalg.norm(start_j - true_j, dim=-1).mean())
+    jerr1 = float(torch.linalg.norm(best_j - true_j, dim=-1).mean())
+    first, best_loss = float(losses[0]), float(best_loss)
+    mean_ms = seconds * 1e3 / POSE_STEPS
+    print(f"  {POSE_STEPS} pose steps at lr {pose_cfg['lr']:g} (halving every {pose_cfg['decay']}): loss {first:.6g} -> "
+          f"best {best_loss:.6g} at step {int(np.argmin(losses))} (ratio {best_loss / first:.4f}); mean joint-angle "
+          f"error {err0:.5f} -> {err1:.5f} rad, mean posed-joint error {jerr0 * 1e3:.3f} -> {jerr1 * 1e3:.3f} mm; "
+          f"dropped {int(dropped.sum())}; launches {launches}")
+    require(np.isfinite(losses).all() and all(bool(torch.isfinite(v).all()) for v in best.values()),
+            "pose refinement: non-finite loss or pose")
+    require(int(dropped.sum()) == 0, "pose refinement: the binning dropped entries")
+    require(best_loss < first, "pose refinement: the best loss is not below the first")
+    for k in TRAIN_KERNELS:
+        require(launches[k] == POSE_STEPS, f"pose refinement did not launch {k} once per step")
+    require(launches["B1a"] == launches["B1b"] == 0, "pose refinement launched the eval kernel")
+
+    one_step = make_pose_optimizer(cfg, loss_cfg, pose_cfg, 1)
+    per_step = []
+    for _ in range(POSE_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one_step(params, statics, lpips_params, batch, start)
+        torch.cuda.synchronize()
+        per_step.append((time.perf_counter() - t0) * 1e3)
+    med = statistics.median(per_step)
+    print(f"  pose step: mean {mean_ms:.3f} ms over the {POSE_STEPS} steps (one synchronize at the end), median "
+          f"{med:.3f} ms of {POSE_TIMED} synchronised one-step calls; {mean_ms * PROTOCOL_STEPS / 1e3:.2f} s per test "
+          f"frame at {PROTOCOL_STEPS} steps")
+    return {"steps": POSE_STEPS, "first_loss": first, "best_loss": best_loss, "ratio": best_loss / first,
+            "joint_err_rad": [err0, err1], "posed_joint_err_m": [jerr0, jerr1], "step_mean_ms": mean_ms, "step_median_ms": med,
+            "seconds_per_frame_300": mean_ms * PROTOCOL_STEPS / 1e3, "launches": launches}
+
+
+def pose_yaml(cfg_path: str, it: int) -> str:
+    """A copy of the drivers' exp yaml under its own experiment name, with
+    CLI_POSE_ITERS pose steps at its pose.lr halving every CLI_POSE_DECAY,
+    and checkpoint iter_{it} of the drivers' experiment copied into its
+    checkpoints."""
+    import shutil
+
+    import yaml
+
+    from gomavatar_tpu_torch.config import make_cfg
+
+    with open(cfg_path) as f:
+        cfg = yaml.safe_load(f)
+    cfg["exp_name"] = "pose"
+    cfg["pose"] = {"lr": float(make_cfg(cfg_path)["pose"]["lr"]), "decay": CLI_POSE_DECAY, "iters": CLI_POSE_ITERS}
+    path = cfg_path.replace(".yaml", "_pose.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    src, dst = make_cfg(cfg_path)["save_dir"], make_cfg(path)["save_dir"]
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(f"{src}/checkpoints/iter_{it}", f"{dst}/checkpoints/iter_{it}")
+    return path
+
+
+def png_levels(paths, halves: int = 1):
+    """Mean 8-bit level of each PNG (of each of its ``halves`` side by side)
+    and the shapes."""
+    from PIL import Image
+
+    levels, shapes = [], []
+    for p in paths:
+        a = np.asarray(Image.open(p))
+        shapes.append(a.shape)
+        w = a.shape[1] // halves
+        levels.append([float(a[:, i * w:(i + 1) * w].mean()) for i in range(halves)])
+    return levels, shapes
+
+
+def cli_pose(path: str, device="cuda"):
+    """Phase 6c: cli.train_pose over the test capture from iter_6100, then
+    cli.evaluate --type view with its refined poses."""
+    from gomavatar_tpu_torch.cli import evaluate
+    from gomavatar_tpu_torch.cli import train_pose
+    from gomavatar_tpu_torch.config import make_cfg
+
+    exp = make_cfg(path)
+    result, launches, seconds = counted(lambda: train_pose.main(
+        ["--cfg", path, "--max_frames", str(CLI_POSE_FRAMES), "--device", device]))
+    n, iters = result["frames"], result["iters"]
+    print(f"  cli.train_pose: {n} frames x {iters} steps in {seconds:.2f} s of wall time ({result['seconds']:.2f} s "
+          f"refining); launches {launches}")
+    for line in log_lines(f"{exp['save_dir']}/log_pose.txt", "frame ", "eval [", "saved refined"):
+        print(f"    log: {line}")
+    require(n == CLI_POSE_FRAMES and iters == CLI_POSE_ITERS, "cli.train_pose ran the wrong frames or steps")
+    for k in TRAIN_KERNELS:
+        require(launches[k] == n * iters, f"cli.train_pose did not launch {k} once per step")
+    require(launches["B1a"] == launches["B1b"] == 3 * n, "cli.train_pose did not launch B1 once per evaluated frame")
+    require(result["dropped"] == [0] * n, "cli.train_pose: the binning dropped entries")
+    require(all(b < f for f, b in zip(result["first_loss"], result["best_loss"])),
+            "cli.train_pose: a frame's best loss is not below its first")
+    for tag, means in result["metrics"].items():
+        require(means and all(np.isfinite(v) for v in means.values()), f"cli.train_pose: non-finite {tag} metrics")
+    require(os.path.isfile(result["pose_path"]), "cli.train_pose wrote no pose.pkl")
+    pngs = sorted(f for f in os.listdir(result["out_dir"]) if f.endswith(".png"))
+    levels, _ = png_levels([f"{result['out_dir']}/{f}" for f in pngs])
+    print(f"  cli.train_pose: {len(pngs)} PNGs, mean levels {', '.join(f'{v[0]:.2f}' for v in levels)}")
+    require(len(pngs) == 3 * n and min(v[0] for v in levels) > 1.0, "cli.train_pose: missing or black PNGs")
+
+    res, ev_launches, _ = counted(lambda: evaluate.main(
+        ["--cfg", path, "--type", "view", "--pose_path", result["pose_path"], "--device", device]))
+    used = log_lines(f"{exp['save_dir']}/log_eval_view.txt", "using refined poses")
+    print(f"  cli.evaluate --type view --pose_path: {res['frames']} frames, metrics {res['metrics']}, launches "
+          f"{ev_launches}; log: {used[-1] if used else 'no refined poses'}")
+    require(used and res["dropped"] == 0, "cli.evaluate did not use the refined poses")
+    require(ev_launches["B1a"] == ev_launches["B1b"] == res["frames"], "cli.evaluate did not launch B1 once per frame")
+    return {"frames": n, "iters": iters, "seconds": seconds, "refine_seconds": result["seconds"],
+            "first_loss": result["first_loss"], "best_loss": result["best_loss"], "metrics": result["metrics"],
+            "launches": launches}
+
+
+def cli_animate(path: str, device="cuda"):
+    """Phase 6d: cli.animate over the trained avatar twice (freeview) and
+    over two synthetic avatars (MDM motion), at DRIVER_IMG^2: B1a and B1b
+    once per scene and frame, strips 2 x W wide with both halves not
+    black."""
+    from gomavatar_tpu_torch.cli import animate
+
+    out = {}
+    for kind, args, frames in (
+        ("freeview", ["--cfgs"] + [path] * ANIM_SCENES + ["--type", "freeview"], ANIM_FRAMES),
+        ("mdm", ["--synthetic", str(ANIM_SCENES), "--type", "mdm"], ANIM_MDM_FRAMES),
+    ):
+        out_dir = f"{DRIVER_DIR}/animate_{kind}"
+        result, launches, seconds = counted(lambda: animate.main(
+            args + ["--n_frames", str(frames), "--img", str(DRIVER_IMG), str(DRIVER_IMG), "--out", out_dir,
+                    "--device", device]))
+        pngs = sorted(f for f in os.listdir(out_dir) if f.endswith(".png"))
+        levels, shapes = png_levels([f"{out_dir}/{f}" for f in pngs], halves=ANIM_SCENES)
+        fps = result["frames"] / result["seconds"]
+        print(f"  cli.animate --type {kind}: {result['frames']} frames x {result['scenes']} scenes, {fps:.2f} frames/s "
+              f"(the render loop with its PNG writes, {result['seconds']:.3f} s; {seconds:.2f} s with the set-up); "
+              f"launches {launches}; PNG {shapes[0] if shapes else None}, half levels "
+              + "; ".join(", ".join(f"{x:.2f}" for x in v) for v in levels))
+        require(result["frames"] == frames and result["scenes"] == ANIM_SCENES, f"cli.animate {kind}: wrong run")
+        require(launches["B1a"] == launches["B1b"] == ANIM_SCENES * frames,
+                f"cli.animate {kind}: B1 did not launch once per scene and frame")
+        require(all(launches[k] == 0 for k in TRAIN_KERNELS), f"cli.animate {kind}: a train kernel launched")
+        require(len(pngs) == frames and all(s == (DRIVER_IMG, ANIM_SCENES * DRIVER_IMG, 3) for s in shapes),
+                f"cli.animate {kind}: the strips are not {ANIM_SCENES} x {DRIVER_IMG} wide")
+        require(min(min(v) for v in levels) > 1.0, f"cli.animate {kind}: a black scene in a strip")
+        out[kind] = {"frames": frames, "scenes": ANIM_SCENES, "frames_per_s": fps, "seconds": seconds}
+    return out
+
+
+def phase_pose_animate(cfg_path: str, trained, device="cuda"):
+    """Phase 6: pose refinement and animation on the card."""
+    from gomavatar_tpu_torch.convert import trained_meta
+
+    out = {}
+    t0 = time.perf_counter()
+    print("[6a] the gate scene's pose loss and its gradient in (Rh, Th, pose), card vs CPU")
+    out["gate"] = pose_gradient_on_card(device)
+    print(f"  phase 6a: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    print(f"[6b] {POSE_STEPS} pose-refinement steps on the trained avatar at 512^2 from a pose perturbed by "
+          f"N(0, {POSE_NOISE}) rad")
+    out["trained"] = pose_on_trained(trained, device)
+    print(f"  phase 6b: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    print(f"[6c] cli.train_pose: {CLI_POSE_FRAMES} test frames x {CLI_POSE_ITERS} steps from iter_"
+          f"{trained_meta()['iter']}, then cli.evaluate --pose_path")
+    path = pose_yaml(cfg_path, int(trained_meta()["iter"]))
+    out["cli"] = cli_pose(path, device)
+    print(f"  phase 6c: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    print(f"[6d] cli.animate at {DRIVER_IMG}^2: the trained avatar twice (freeview) and two synthetic avatars (mdm)")
+    animate = cli_animate(path, device)
+    print(f"  phase 6d: {time.perf_counter() - t0:.1f} s")
+    return out, animate
+
+
 KERNELS = {
     "B1": ("B1 frame_render (B1a partials + B1b merge)", "gomavatar_tpu_torch/csrc/frame_render.cu",
            "gomavatar_tpu/ops/frame_render.py:74"),
@@ -1552,6 +1893,9 @@ def main() -> int:
     t0 = time.perf_counter()
     drivers = phase_drivers()
     done(5, t0)
+    t0 = time.perf_counter()
+    pose, animate = phase_pose_animate(f"{DRIVER_DIR}/exp.yaml", trained)
+    done(6, t0)
 
     measured = {"B1": dict(b1, launches=b1_launches["B1"])}
     for k in ("B2", "B3", "B4", "B5"):
@@ -1574,6 +1918,7 @@ def main() -> int:
         if "parts" in m:
             entry["parts"] = m["parts"]
         result["kernels"].append(entry)
+    print(json.dumps({"pose": pose, "animate": animate}))
     print(json.dumps({"drivers": drivers}))
     print(json.dumps({"forward": fwd}))
     print(json.dumps({"train_step": train, "seconds": time.perf_counter() - t_start}))

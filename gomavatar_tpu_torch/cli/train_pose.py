@@ -1,0 +1,228 @@
+"""Test-time pose refinement (port of gomavatar_tpu/cli/train_pose.py), the
+PeopleSnapshot protocol.
+
+    python -m gomavatar_tpu_torch.cli.train_pose --cfg configs/exps/snapshot_f3c.yaml \
+        [--max_frames N] [--dataset_path DIR] [--device cpu]
+
+Per test frame, Adam optimizes (Rh, Th, the 72-d pose) against rgb L1 +
+mask L1 + VGG-LPIPS with the model frozen, for ``pose.iters`` steps at
+``pose.lr`` halved every ``pose.decay`` steps, and keeps the pose of the best
+loss.  Each step is one ``gom_forward(train=True)`` (kernels B2 and B4) and
+its backward (B3 and B5) differentiated into the pose only.  No step waits
+for the device: the losses and the best pose stay there, and the host reads
+them once per frame.  The frames are then evaluated with the dataset's poses
+(``raw``), the refined body pose without the global transform (``zeroed``)
+and with it (``refined``), by ``gom_forward(train=False)`` (kernel B1) and
+the Anim-NeRF evaluator; the refined poses go to ``checkpoints/pose.pkl``.
+It runs on the card unless ``--device cpu``; ``main`` returns a summary.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+import pickle
+import time
+
+import numpy as np
+import torch
+from PIL import Image
+
+from gomavatar_tpu_torch.cli.train import check_device, setup_logging
+from gomavatar_tpu_torch.config import make_cfg
+from gomavatar_tpu_torch.data.dataset import TrainDataset, to_device
+from gomavatar_tpu_torch.eval_lib import EvaluatorSnapshot, to_8b_image
+from gomavatar_tpu_torch.losses import unpack
+from gomavatar_tpu_torch.models import lpips as lpips_lib
+from gomavatar_tpu_torch.models.gom import gom_forward
+from gomavatar_tpu_torch.ops.mesh_ops import abs_l1
+from gomavatar_tpu_torch.ops.skeleton import body_pose_to_body_RTs
+from gomavatar_tpu_torch.ops.splat.binning import CHUNK
+from gomavatar_tpu_torch.ops.splat.tiled_jnp import NCMAX
+from gomavatar_tpu_torch.optim import AdamState, adam_directions, tree_leaves, tree_unflatten
+from gomavatar_tpu_torch.trainer import Trainer
+
+POSE_KEYS = ("Rh", "Th", "poses")
+
+
+def frame_loss(pose_vars: dict, params: dict, statics, gom_cfg, loss_cfg: dict, lpips_params, batch: dict):
+    """(loss, dropped) of one frame at the pose (Rh, Th, poses), through
+    the train renderer: rgb L1 + mask L1 + VGG-LPIPS, each times its
+    coefficient, with the L1 terms through ``abs_l1`` (background pixels
+    match their target exactly).  ``dropped``: the entries the binning
+    dropped or the train kernels' chunk cap cut, a device scalar."""
+    Rh, Th, poses = (pose_vars[k] for k in POSE_KEYS)
+    dst_Rs, dst_Ts = body_pose_to_body_RTs(poses, batch["dst_tpose_joints"])
+    rgb, mask, aux = gom_forward(
+        params, statics, gom_cfg, batch["K"], batch["E"], batch["cnl_gtfms"], dst_Rs, dst_Ts,
+        dst_posevec=poses[3:] + 1e-2, i_iter=1e7, global_R=Rh, global_T=Th, train=True, device=poses.device,
+    )
+    rgb_u = unpack(rgb, mask, batch["bgcolor"])
+    loss = torch.mean(abs_l1(rgb_u - batch["target_rgbs"])) * loss_cfg["rgb"]["coeff"]
+    loss = loss + torch.mean(abs_l1(mask - batch["target_masks"])) * loss_cfg["mask"]["coeff"]
+    if lpips_params is not None and loss_cfg["lpips"]["coeff"] > 0:
+        loss = loss + loss_cfg["lpips"]["coeff"] * lpips_lib.lpips(
+            lpips_params, 2 * rgb_u - 1, 2 * batch["target_rgbs"] - 1
+        )
+    tel = aux["binning"]
+    dropped = tel.total_dropped() + torch.clamp_min(tel.max_tile_entries - NCMAX * CHUNK, 0)
+    return loss, dropped
+
+
+class PoseAdam:
+    """``optax.adam`` under the step schedule ``lr * 0.5 ** (t // decay)``,
+    where t counts the updates before this one: Adam(0.9, 0.999, 1e-8) with
+    eps outside the square root, the step size a float32 product as optax
+    forms it."""
+
+    def __init__(self, pose_cfg: dict):
+        self.lr = np.float32(pose_cfg["lr"])
+        self.decay = int(pose_cfg["decay"])
+
+    def init(self, leaves: list) -> AdamState:
+        return AdamState(0, [torch.zeros_like(p) for p in leaves], [torch.zeros_like(p) for p in leaves], 0)
+
+    def step_size(self, t: int) -> float:
+        return float(-(self.lr * np.float32(0.5) ** (t // self.decay)))
+
+    def update(self, grads: list, state: AdamState):
+        """(updates, new state) for the leaves' gradients."""
+        directions, count, mu, nu = adam_directions(grads, state)
+        return torch._foreach_mul(directions, self.step_size(state.count)), AdamState(count, mu, nu, count)
+
+
+def make_pose_optimizer(gom_cfg, loss_cfg: dict, pose_cfg: dict, n_iters: int):
+    """``optimize(params, statics, lpips_params, batch, init_poses)`` ->
+    (best {Rh, Th, poses}, best loss, the loss of every step, the dropped
+    entries of every step), all on the device of ``init_poses``: n_iters
+    Adam steps from Rh = Th = 0, keeping the variables at which the loss was
+    lowest (replaced only on a strict decrease).  The model and the LPIPS
+    trunk are frozen: the gradient is taken in the pose only."""
+    tx = PoseAdam(pose_cfg)
+
+    def optimize(params, statics, lpips_params, batch, init_poses):
+        params = tree_unflatten(params, [p.detach() for p in tree_leaves(params)])
+        if lpips_params is not None:
+            lpips_params = tree_unflatten(lpips_params, [p.detach() for p in tree_leaves(lpips_params)])
+        zeros = torch.zeros(3, dtype=torch.float32, device=init_poses.device)
+        leaves = [zeros, zeros.clone(), init_poses.detach().to(torch.float32)]
+        state = tx.init(leaves)
+        best_loss = torch.full((), float("inf"), dtype=torch.float32, device=init_poses.device)
+        best = list(leaves)
+        losses, dropped = [], []
+        for _ in range(n_iters):
+            cur = [v.detach().requires_grad_(True) for v in leaves]
+            loss, drop = frame_loss(dict(zip(POSE_KEYS, cur)), params, statics, gom_cfg, loss_cfg, lpips_params,
+                                    batch)
+            grads = torch.autograd.grad(loss, cur)
+            updates, state = tx.update(list(grads), state)
+            with torch.no_grad():
+                loss = loss.detach()
+                improved = loss < best_loss
+                best_loss = torch.where(improved, loss, best_loss)
+                best = [torch.where(improved, c.detach(), b) for c, b in zip(cur, best)]
+                leaves = torch._foreach_add([c.detach() for c in cur], updates)
+            losses.append(loss)
+            dropped.append(drop)
+        return dict(zip(POSE_KEYS, best)), best_loss, torch.stack(losses), torch.stack(dropped)
+
+    return optimize
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description="Refine the test poses of a trained avatar (gomavatar_tpu_torch).")
+    ap.add_argument("--cfg", required=True)
+    ap.add_argument("--max_frames", type=int, default=None)
+    ap.add_argument(
+        "--dataset_path", default=None,
+        help="override the test split directory, e.g. with a split whose poses carry noise "
+        "(tools/make_e2e_data.py --pose_noise), so that refinement has inaccurate poses to recover",
+    )
+    ap.add_argument("--device", default="cuda", help="torch device: cuda (the default) or cpu")
+    args = ap.parse_args(argv)
+    device = check_device(args.device)
+
+    cfg = make_cfg(args.cfg)
+    setup_logging(cfg["save_dir"], "log_pose.txt")
+    d = cfg["dataset"]["test_view"]
+    dataset = TrainDataset(
+        args.dataset_path or d["dataset_path"], bgcolor=cfg["bgcolor"], skip=d.get("skip", 1),
+        target_size=cfg["img_size"],
+    )
+    trainer = Trainer(cfg, dataset.get_canonical_info(), device=device)
+    trainer.load_for_eval(os.path.join(cfg["save_dir"], "checkpoints"))
+
+    lpips_params = None
+    if cfg["train"]["losses"]["lpips"]["coeff"] > 0:
+        lpips_params = lpips_lib.load_lpips("vgg", device=device)[0]
+
+    n_pose_iters = int(cfg["pose"]["iters"])
+    optimize = make_pose_optimizer(trainer.gom_cfg, cfg["train"]["losses"], cfg["pose"], n_pose_iters)
+
+    n = len(dataset) if args.max_frames is None else min(len(dataset), args.max_frames)
+    bg = torch.as_tensor(np.asarray(cfg["bgcolor"], np.float32) / 255.0, device=device)
+    out_dir = os.path.join(cfg["save_dir"], "eval", "test_refine")
+    os.makedirs(out_dir, exist_ok=True)
+
+    def evaluate(tag, Rhs, Ths, poses_all):
+        evaluator = EvaluatorSnapshot(device=device)
+        for i in range(n):
+            item = dataset[i]
+            batch = to_device(item, device)
+            dst_Rs, dst_Ts = body_pose_to_body_RTs(torch.as_tensor(poses_all[i], device=device),
+                                                   batch["dst_tpose_joints"])
+            with torch.no_grad():
+                rgb, mask, _ = gom_forward(
+                    trainer.params, trainer.statics, trainer.gom_cfg, batch["K"], batch["E"], batch["cnl_gtfms"],
+                    dst_Rs, dst_Ts, dst_posevec=poses_all[i][3:] + 1e-2, i_iter=1e7,
+                    global_R=Rhs[i], global_T=Ths[i], device=device,
+                )
+            pred = unpack(rgb, mask, bg, clamp=True).cpu().numpy()
+            evaluator.evaluate(pred, np.asarray(item["target_rgbs"]))
+            Image.fromarray(to_8b_image(pred)).save(os.path.join(out_dir, item["frame_name"] + f"_{tag}.png"))
+        means = evaluator.summarize()
+        logging.info("eval [%s]: %s", tag, {k: round(v, 4) for k, v in means.items()})
+        return means
+
+    metrics = {}
+    raw_poses = np.stack([np.asarray(dataset[i]["dst_poses"], np.float32) for i in range(n)])
+    zeros3 = np.zeros((n, 3), np.float32)
+    metrics["raw"] = evaluate("raw", zeros3, zeros3, raw_poses)
+
+    Rhs = np.zeros((n, 3), np.float32)
+    Ths = np.zeros((n, 3), np.float32)
+    best_poses = raw_poses.copy()
+    first_losses, best_losses, dropped = [], [], []
+    t0 = time.perf_counter()
+    for i in range(n):
+        batch = to_device(dataset[i], device)
+        best_vars, best_loss, losses, drops = optimize(
+            trainer.params, trainer.statics, lpips_params, batch, torch.as_tensor(raw_poses[i], device=device)
+        )
+        # the one read of the frame
+        read = torch.cat([losses[:1], best_loss[None], drops.sum()[None].float(),
+                          best_vars["Rh"], best_vars["Th"], best_vars["poses"]]).cpu().numpy()
+        first, best, drop = float(read[0]), float(read[1]), int(read[2])
+        Rhs[i], Ths[i], best_poses[i] = read[3:6], read[6:9], read[9:]
+        first_losses.append(first)
+        best_losses.append(best)
+        dropped.append(drop)
+        logging.info("frame %d: loss %.4f -> best %.4f", i, first, best)
+        if drop:
+            logging.warning("frame %d: the binning dropped %d entries over the refinement", i, drop)
+    seconds = time.perf_counter() - t0
+
+    metrics["zeroed"] = evaluate("zeroed", zeros3, zeros3, best_poses)
+    metrics["refined"] = evaluate("refined", Rhs, Ths, best_poses)
+
+    ckpt_path = os.path.join(cfg["save_dir"], "checkpoints", "pose.pkl")
+    with open(ckpt_path, "wb") as f:
+        pickle.dump({"Rhs": Rhs, "Ths": Ths, "dst_poses": best_poses}, f)
+    logging.info("saved refined poses to %s", ckpt_path)
+    return {"frames": n, "iters": n_pose_iters, "first_loss": first_losses, "best_loss": best_losses,
+            "dropped": dropped, "seconds": seconds, "metrics": metrics, "pose_path": ckpt_path, "out_dir": out_dir}
+
+
+if __name__ == "__main__":
+    main()

@@ -40,7 +40,7 @@ from gomavatar_tpu_torch.ops.mesh_raster import np_log_blur, rasterize_mesh
 from gomavatar_tpu_torch.ops.skeleton import apply_lbs, get_global_RTs
 from gomavatar_tpu_torch.ops.splat.binning import CHUNK, bin_sorted, compact_tiles
 from gomavatar_tpu_torch.ops.splat.render import render_gaussians
-from gomavatar_tpu_torch.ops.steiner import face_covariances_tri
+from gomavatar_tpu_torch.ops.steiner import face_covariances, face_covariances_tri
 from gomavatar_tpu_torch.ops.transforms import mm, so3_exp
 
 
@@ -455,6 +455,44 @@ def gom_forward(
         return render_frame_train(params, statics, cfg, verts_obs, K, E)
     colors = M.appearance_apply(params["appearance"])
     return render_frame_eval(params, statics, cfg, verts_obs, colors, K, E)
+
+
+def _splat_export(params: dict, statics: GoMStatics, cfg: GoMConfig, verts: torch.Tensor) -> dict:
+    faces = statics.faces
+    return {
+        "xyz": gather_rows(verts, faces).mean(dim=1),
+        "vertices": verts,
+        "opacity": torch.ones((cfg.num_faces,), dtype=torch.float32, device=verts.device),
+        "colors": M.appearance_apply(params["appearance"]),
+        "cov": face_covariances(verts, faces, params["so3"], params["scale"], cfg.sigma),
+    }
+
+
+def export_canonical_pointcloud(params: dict, statics: GoMStatics, cfg: GoMConfig) -> dict:
+    """The splats in canonical space, for external 3DGS viewers: per-face
+    centroids ``xyz``, the mesh ``vertices``, ``opacity`` (all 1),
+    ``colors`` and covariances ``cov``."""
+    return _splat_export(params, statics, cfg, params["vertices"])
+
+
+def export_warped_pointcloud(
+    params: dict,
+    statics: GoMStatics,
+    cfg: GoMConfig,
+    cnl_gtfms: torch.Tensor,
+    dst_Rs: torch.Tensor,
+    dst_Ts: torch.Tensor,
+    dst_posevec: torch.Tensor | None = None,
+    i_iter=1e7,
+) -> dict:
+    """The splats in observation space for one pose, with the keys of
+    :func:`export_canonical_pointcloud`.  The pose-refinement and non-rigid
+    modules take part only with a ``dst_posevec``, each from its kick-in
+    iteration."""
+    if dst_posevec is None:
+        cfg = dataclasses.replace(cfg, pose_refinement=None, non_rigid=None)
+    verts_obs = posed_vertices(params, statics, cfg, cnl_gtfms, dst_Rs, dst_Ts, dst_posevec, i_iter)
+    return _splat_export(params, statics, cfg, verts_obs)
 
 
 def subdivide_gom(params: dict, statics: GoMStatics, cfg: GoMConfig):

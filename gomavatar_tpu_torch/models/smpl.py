@@ -1,15 +1,80 @@
-"""Procedural SMPL-shaped body and camera in numpy (port of
-``synthetic_body`` / ``synthetic_camera`` of gomavatar_tpu/models/smpl.py).
+"""The SMPL body model in numpy and a procedural stand-in (port of
+gomavatar_tpu/models/smpl.py).
 
-The licensed SMPL asset is not shipped; this tube body with a 24-joint chain
-and distance-softmax skinning stands in for it.  The trained avatar
-(``artifacts/e2e_trained.npz``) was trained on this mesh, so it must stay
+``SMPL`` loads a standard SMPL v1.0 pkl and runs its LBS forward; the data
+preparation scripts use it offline.  The licensed asset is not shipped, so
+``synthetic_body``, a tube body with a 24-joint chain and distance-softmax
+skinning, stands in for it.  The trained avatar
+(``artifacts/e2e_trained.npz``) was trained on that mesh, so it must stay
 bit-for-bit the reference's.
 """
 
 from __future__ import annotations
 
+import pickle
+
 import numpy as np
+
+from gomavatar_tpu_torch.ops.skeleton import SMPL_PARENT
+
+
+class SMPL:
+    """SMPL v1.0 pkl loader and full LBS forward (numpy, float64): shape
+    and pose blendshapes, the kinematic chain, skinning."""
+
+    def __init__(self, pkl_path: str):
+        with open(pkl_path, "rb") as f:
+            data = pickle.load(f, encoding="latin1")
+        self.v_template = np.asarray(data["v_template"], np.float64)  # (N, 3)
+        self.shapedirs = np.asarray(data["shapedirs"], np.float64)  # (N, 3, 10)
+        self.posedirs = np.asarray(data["posedirs"], np.float64)  # (N, 3, 207)
+        jr = data["J_regressor"]
+        self.J_regressor = np.asarray(jr.todense() if hasattr(jr, "todense") else jr, np.float64)  # (24, N)
+        self.weights = np.asarray(data["weights"], np.float64)  # (N, 24)
+        self.faces = np.asarray(data["f"], np.int64)  # (F, 3)
+        self.parent = SMPL_PARENT
+
+    @staticmethod
+    def _rodrigues(r):
+        theta = np.linalg.norm(r)
+        if theta < 1e-12:
+            return np.eye(3)
+        k = r / theta
+        K = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+        return np.eye(3) + np.sin(theta) * K + (1 - np.cos(theta)) * (K @ K)
+
+    def __call__(self, pose: np.ndarray, beta: np.ndarray, return_weights: bool = False):
+        """pose (72,), beta (10,) -> (verts (N, 3), joints (24, 3)[, weights])."""
+        pose = np.asarray(pose, np.float64).reshape(-1, 3)
+        beta = np.asarray(beta, np.float64)
+        v_shaped = self.v_template + self.shapedirs @ beta
+        J = self.J_regressor @ v_shaped  # (24, 3)
+
+        Rs = np.stack([self._rodrigues(pose[i]) for i in range(pose.shape[0])])
+        # pose blendshapes from the non-root rotations
+        pose_feature = (Rs[1:] - np.eye(3)).reshape(-1)  # (207,)
+        v_posed = v_shaped + self.posedirs @ pose_feature
+
+        G = np.zeros((24, 4, 4))
+        G[0, :3, :3] = Rs[0]
+        G[0, :3, 3] = J[0]
+        G[0, 3, 3] = 1.0
+        for i in range(1, 24):
+            L = np.eye(4)
+            L[:3, :3] = Rs[i]
+            L[:3, 3] = J[i] - J[self.parent[i]]
+            G[i] = G[self.parent[i]] @ L
+        joints = G[:, :3, 3].copy()
+        # remove the rest-pose joint offsets (SMPL's "A" subtraction)
+        for i in range(24):
+            G[i, :3, 3] -= G[i, :3, :3] @ J[i]
+
+        T = np.einsum("nj,jab->nab", self.weights, G)
+        v_h = np.concatenate([v_posed, np.ones((len(v_posed), 1))], axis=1)
+        verts = np.einsum("nab,nb->na", T, v_h)[:, :3]
+        if return_weights:
+            return verts, joints, self.weights
+        return verts, joints
 
 
 def synthetic_body(

@@ -6,6 +6,8 @@ Points are row-major ``(N, 3)`` and skinning weights ``(N, J)``.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -37,18 +39,25 @@ def _parent_table(use_smplx: bool) -> np.ndarray:
     return SMPLX_PARENT if use_smplx else SMPL_PARENT
 
 
+@functools.lru_cache(maxsize=None)
+def _parent_index(use_smplx: bool, J: int, device: torch.device) -> torch.Tensor:
+    """The parent table's first ``J`` entries on ``device``, copied there
+    once: a copy from pageable host memory waits for the device's queue,
+    and the pose-refinement loop calls :func:`body_pose_to_body_RTs` every
+    step."""
+    return torch.as_tensor(_parent_table(use_smplx)[:J], dtype=torch.long, device=device)
+
+
 def body_pose_to_body_RTs(
     jangles: torch.Tensor, tpose_joints: torch.Tensor, use_smplx: bool = False
 ):
     """(J*3,) or (J, 3) axis-angle pose + (J, 3) T-pose joints -> local
     rotations (J, 3, 3) and translations (J, 3); the root keeps its absolute
     position, children are offsets from their parent."""
-    parent = _parent_table(use_smplx)
     jangles = jangles.reshape(-1, 3)
     J = jangles.shape[0]
     Rs = so3_exp(jangles)
-    parent_idx = torch.as_tensor(parent[:J], dtype=torch.long, device=tpose_joints.device)
-    Ts = tpose_joints - tpose_joints[parent_idx]
+    Ts = tpose_joints - tpose_joints[_parent_index(use_smplx, J, tpose_joints.device)]
     Ts[0] = tpose_joints[0]
     return Rs, Ts
 
@@ -99,3 +108,11 @@ def apply_lbs(
     R_blend = mm(lbs_weights, global_Rs.reshape(global_Rs.shape[0], 9)).reshape(-1, 3, 3)
     T_blend = mm(lbs_weights, global_Ts)
     return einsum_hi("nij,nj->ni", R_blend, xyzs) + T_blend
+
+
+def get_joints_from_pose(dst_poses: torch.Tensor, tpose_joints: torch.Tensor, use_smplx: bool = False) -> torch.Tensor:
+    """Posed joint positions (J, 3) of a 72-d pose: FK of the pose's bone
+    transforms, read off the translation column."""
+    Rs, Ts = body_pose_to_body_RTs(dst_poses, tpose_joints, use_smplx=use_smplx)
+    Gs = fk_chain(construct_G(Rs, Ts), use_smplx=use_smplx)
+    return Gs[..., :3, 3]

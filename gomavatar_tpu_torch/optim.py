@@ -65,6 +65,21 @@ class AdamState(NamedTuple):
     schedule_count: int  # the decay schedule's step
 
 
+def adam_directions(grads: list, state: AdamState):
+    """optax's ``scale_by_adam(0.9, 0.999, 1e-8)`` over the leaves:
+    (m_hat / (sqrt(v_hat) + eps) per leaf, the new count, mu, nu)."""
+    mu = torch._foreach_add(torch._foreach_mul(grads, 1.0 - B1), torch._foreach_mul(state.mu, B1))
+    nu = torch._foreach_add(
+        torch._foreach_mul(torch._foreach_mul(grads, grads), 1.0 - B2), torch._foreach_mul(state.nu, B2)
+    )
+    count = state.count + 1
+    f32 = dict(dtype=torch.float32)
+    bc1 = float(1.0 - torch.tensor(B1, **f32) ** count)
+    bc2 = float(1.0 - torch.tensor(B2, **f32) ** count)
+    denom = torch._foreach_add(torch._foreach_sqrt(torch._foreach_div(nu, bc2)), EPS)
+    return torch._foreach_div(torch._foreach_div(mu, bc1), denom), count, mu, nu
+
+
 class Optimizer:
     """Adam(0.9, 0.999, 1e-8) with a learning rate per param group and the
     decay 0.1^(t / lr_decay_steps) when ``lr_update_exp``."""
@@ -82,22 +97,14 @@ class Optimizer:
     def update(self, grads: list, state: AdamState):
         """(updates, new state) for the leaves' gradients, as the optax chain
         computes them."""
-        mu = torch._foreach_add(torch._foreach_mul(grads, 1.0 - B1), torch._foreach_mul(state.mu, B1))
-        nu = torch._foreach_add(
-            torch._foreach_mul(torch._foreach_mul(grads, grads), 1.0 - B2), torch._foreach_mul(state.nu, B2)
-        )
-        count = state.count + 1
-        f32 = dict(dtype=torch.float32)
-        bc1 = float(1.0 - torch.tensor(B1, **f32) ** count)
-        bc2 = float(1.0 - torch.tensor(B2, **f32) ** count)
-        denom = torch._foreach_add(torch._foreach_sqrt(torch._foreach_div(nu, bc2)), EPS)
-        updates = torch._foreach_div(torch._foreach_div(mu, bc1), denom)
+        directions, count, mu, nu = adam_directions(grads, state)
         scale = 1.0
         if self.use_decay:
+            f32 = dict(dtype=torch.float32)
             t = torch.tensor(float(state.schedule_count), **f32)
             scale = float(torch.tensor(0.1, **f32) ** (t / self.decay_steps))
         # the per-group -lr, then the schedule, each a rounded float32 product
-        updates = [torch.mul(torch.mul(u, -lr), scale) for u, lr in zip(updates, self.lrs)]
+        updates = [torch.mul(torch.mul(u, -lr), scale) for u, lr in zip(directions, self.lrs)]
         return updates, AdamState(count, mu, nu, state.schedule_count + 1)
 
 

@@ -12,8 +12,10 @@ import torch
 import yaml
 from PIL import Image
 
+from gomavatar_tpu_torch.cli import animate as animate_cli
 from gomavatar_tpu_torch.cli import evaluate as eval_cli
 from gomavatar_tpu_torch.cli import train as train_cli
+from gomavatar_tpu_torch.cli import train_pose as pose_cli
 from gomavatar_tpu_torch.data.synthetic import (
     write_synthetic_dataset,
     write_synthetic_mdm_poses,
@@ -221,9 +223,10 @@ def test_train_fails_fast_on_a_non_finite_loss(workspace, tmp_path, monkeypatch)
     assert os.listdir(tmp_path / "cli_smoke" / "checkpoints") == ["iter_0"]  # the last good checkpoint stays
 
 
-@pytest.mark.parametrize("driver", [train_cli, eval_cli])
+@pytest.mark.parametrize("driver", [train_cli, eval_cli, pose_cli, animate_cli])
 def test_drivers_run_on_the_card_unless_asked_for_the_cpu(workspace, driver):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is there")
+    args = ["--synthetic", "1"] if driver is animate_cli else ["--cfg", workspace["cfg_path"]]
     with pytest.raises(SystemExit, match="no CUDA device"):
-        driver.main(["--cfg", workspace["cfg_path"]])
+        driver.main(args)
