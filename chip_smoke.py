@@ -88,18 +88,47 @@ Phases, each fatal on failure:
         frames) and ``--synthetic 2 --type mdm`` (2 frames) at 512^2: B1a
         and B1b once per scene and frame, each strip 1024 x 512 with both
         halves not black, frames/s.
+  7. the multi-rank layer (``gomavatar_tpu_torch.parallel``), each path's
+     launches counted on each rank (set to 0 just before it, read just
+     after); the train step's bit-equality checks run under torch's
+     deterministic algorithms (a probe shows that two runs of one step
+     differ in the last bits otherwise: the gathers' backward adds with
+     atomics), and every phase under one cuBLAS workspace config
+     (``CUBLAS_WORKSPACE_CONFIG=:4096:8``, which they need):
+     a. the data-parallel step at world 1 over NCCL: 5 steps on the trained
+        avatar, the params bit-equal to ``Trainer.step``'s after each, B2a-B5
+        once per step and one all-reduce per step; then timed in turns with
+        ``Trainer.step``, and the reducer alone;
+     b. world 2 on the one card over gloo: 3 steps on frame pairs, both
+        replicas bit-equal after each and rank 0 bit-equal to the one-process
+        mean-gradient step, (g_a + g_b) / 2 before Adam; each rank's step
+        median and the two ranks' frames/s against 7a's;
+     c. the tile-parallel render: B1 on 2, 4 and 8 shares of the slots in one
+        process, concatenated bit-equal to the one-call sweep below n_active,
+        each share against the plain version and timed; then worlds 1 (NCCL),
+        2 and 4 (gloo on the one card), rgb and alpha bit-equal to
+        ``render_frame_eval``, n_active and each rank's n_local, 0 dropped, B1a
+        and B1b once per rank;
+     d. the multi-scene render of the trained avatar and a recoloured copy at
+        worlds 1 (NCCL) and 2 (gloo): each scene, in order, bit-equal to its
+        own ``gom_forward(train=False)``, B1 once per scene on its rank;
+     e. with 2 cards or more: 7b-7d over 2 cards with NCCL and ``cli.train
+        --data_parallel 2`` for 2 steps over the 5a capture; with one card a
+        line says it did not run.
 Kernel times are CUDA events around back-to-back calls after a warm-up;
 each part of a two-launch kernel also prints its device time (the calls
 queued behind a device-side sleep) beside it, as a diagnostic.
-Each phase prints its seconds.  The last seven lines are the pose and
-animation numbers as JSON, the drivers' numbers as JSON, the forward
-timings as JSON, the train-step timings as JSON, the kernels JSON line, the
-card line and the result JSON.  Without a CUDA card it exits non-zero and
-prints no result.
+Each phase prints its seconds.  The last eight lines are phase 7's numbers
+as JSON, the pose and animation numbers as JSON, the drivers' numbers as
+JSON, the forward timings as JSON, the train-step timings as JSON, the
+kernels JSON line (each kernel's launches on phase 7's paths under
+``parallel_launches``), the card line and the result JSON.  Without a CUDA
+card it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -951,9 +980,10 @@ def train_batch(params, statics, cfg, frame, target_frame):
     return dict(frame, bgcolor=bg, target_rgbs=unpack(rgb, mask, bg, clamp=True), target_masks=mask)
 
 
-def make_trainer(params, statics, cfg, i_iter, device):
+def make_trainer(params, statics, cfg, i_iter, device, group=None):
     """A Trainer of the trained avatar's train config, started from
-    (params, statics, cfg) at ``i_iter`` with no subdivision left to do."""
+    (params, statics, cfg) at ``i_iter`` with no subdivision left to do; a
+    rank of a data-parallel run under ``group``."""
     from gomavatar_tpu_torch.models.lpips import load_lpips
     from gomavatar_tpu_torch.scene import trained_train_cfg
     from gomavatar_tpu_torch.trainer import Trainer
@@ -961,7 +991,7 @@ def make_trainer(params, statics, cfg, i_iter, device):
     train_cfg = trained_train_cfg()
     phase = len(train_cfg["model"]["subdivide_iters"])
     return Trainer(train_cfg, lpips_params=load_lpips(device=device)[0], device=device,
-                   state=(params, statics, cfg, i_iter, phase))
+                   state=(params, statics, cfg, i_iter, phase), group=group)
 
 
 def step_gradients(trainer):
@@ -1836,6 +1866,495 @@ def phase_pose_animate(cfg_path: str, trained, device="cuda"):
     return out, animate
 
 
+# ---- phase 7: the multi-rank layer ---------------------------------------------
+
+# 7a: DP_STEPS data-parallel steps at world 1 (NCCL) against Trainer.step,
+# then DP_TIMED synchronised steps of each in turns after TRAIN_WARMUP; 7b: DP2_STEPS steps at world 2 on frame pairs against
+# the one-process mean-gradient step, then DP2_TIMED synchronised steps on
+# each rank after TRAIN_WARMUP; 7c: B1's shard splits in one process and
+# the tile-parallel render's worlds; 7d: the multi-scene render's worlds
+DP_STEPS, DP_TIMED, DP2_STEPS, DP2_TIMED = 5, 10, 3, 10
+SHARD_SPLITS, TILE_WORLDS, SCENE_WORLDS = (2, 4, 8), (1, 2, 4), (1, 2)
+
+
+@contextlib.contextmanager
+def deterministic():
+    """torch's deterministic algorithms, for the train step's bit-equality
+    checks: the backward of the train path's gathers is an ``index_add``,
+    whose CUDA atomics add each row's terms in no fixed order, so two runs
+    of one step may differ in the last bits unless torch takes its sorted
+    path (7a's probe measures it).  cuBLAS then needs the fixed workspace
+    config that ``main`` sets for the whole run."""
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def leaves_equal(a, b) -> bool:
+    return len(a) == len(b) and all(torch.equal(x.cpu(), y.cpu()) for x, y in zip(a, b))
+
+
+def dp_batches(trained):
+    """4c's batches: the three frames, each with the port's own render as
+    its target."""
+    params, statics, cfg, frame = trained
+    return [train_batch(params, statics, cfg, f, f) for f in perturbed_frames(frame)]
+
+
+def dp_pairs(steps: int):
+    """The frames (batch indices) of each 2-rank step: rank r takes pair[r]."""
+    return [(s % 3, (s + 1) % 3) for s in range(steps)]
+
+
+def timed_steps(trainer, batch_of, iters: int):
+    """(ms of each synchronised step, wall seconds of all) over ``iters``
+    steps after TRAIN_WARMUP warm-up steps."""
+    for i in range(TRAIN_WARMUP):
+        trainer.step(batch_of(i))
+    torch.cuda.synchronize()
+    per_step, t_all = [], time.perf_counter()
+    for i in range(iters):
+        t0 = time.perf_counter()
+        trainer.step(batch_of(i))
+        torch.cuda.synchronize()
+        per_step.append((time.perf_counter() - t0) * 1e3)
+    return per_step, time.perf_counter() - t_all
+
+
+def check_dp_losses(label, steps):
+    for i, (total, losses) in enumerate(steps):
+        terms = {k: float(v) for k, v in losses.items()}
+        require(np.isfinite(float(total)) and all(np.isfinite(v) for v in terms.values()),
+                f"{label} step {i}: non-finite loss")
+        require(terms["bin_drop_budget"] + terms["bin_drop_buffer"] + terms["bin_drop_ncmax"] == 0,
+                f"{label} step {i}: the binning dropped entries")
+
+
+def dp_world1(trained, group, batches, i_iter, train_median):
+    """Phase 7a: the data-parallel step at world 1 over NCCL against
+    Trainer.step, bit for bit after every step, with its launches and
+    all-reduces counted; then timed."""
+    from gomavatar_tpu_torch.optim import tree_leaves
+    from gomavatar_tpu_torch.parallel import all_reduce_sum
+
+    params, statics, cfg, _ = trained
+    # the probe: the plain step twice from one state, torch's default algorithms
+    a, b = (make_trainer(params, statics, cfg, i_iter, "cuda") for _ in range(2))
+    a.step(batches[0])
+    b.step(batches[0])
+    diffs = [(x - y).abs() for x, y in zip(tree_leaves(a.params), tree_leaves(b.params))]
+    probe = {"leaves_differing": sum(bool((d > 0).any()) for d in diffs),
+             "values_differing": sum(int((d > 0).sum()) for d in diffs), "max_abs": max(float(d.max()) for d in diffs)}
+    print(f"  probe: one Trainer.step run twice from one state with torch's default algorithms: "
+          f"{probe['values_differing']} values in {probe['leaves_differing']} of {len(diffs)} leaves differ, "
+          f"worst {probe['max_abs']:.3g}")
+
+    ref = make_trainer(params, statics, cfg, i_iter, "cuda")
+    dp = make_trainer(params, statics, cfg, i_iter, "cuda", group)
+    snaps = []
+
+    def run():
+        out = []
+        for i in range(DP_STEPS):
+            out.append(dp.step(batches[i % 3]))
+            snaps.append([p.clone() for p in tree_leaves(dp.params)])
+        return out
+
+    with deterministic():
+        calls = all_reduce_sum.calls
+        steps, launches, _ = counted(run)
+        reduces = all_reduce_sum.calls - calls
+        for i in range(DP_STEPS):
+            ref.step(batches[i % 3])
+            require(leaves_equal(tree_leaves(ref.params), snaps[i]),
+                    f"7a step {i}: the world-1 data-parallel step differs from Trainer.step")
+    check_dp_losses("7a", steps)
+    print(f"  {DP_STEPS} steps (deterministic algorithms): params bit-equal to Trainer.step after every step; "
+          f"launches {launches}; {reduces} all-reduces")
+    for k in TRAIN_KERNELS:
+        require(launches[k] == DP_STEPS, f"7a: {k} did not launch once per step")
+    require(launches["B1a"] == launches["B1b"] == 0, "7a: the train step launched the eval kernel")
+    require(reduces == DP_STEPS, "7a: not one all-reduce per step")
+    # timed in turns with Trainer.step, each step synchronised, so that both
+    # see the same host; then the reducer alone on the last step's terms
+    for i in range(TRAIN_WARMUP):
+        ref.step(batches[i % 3])
+        dp.step(batches[i % 3])
+    torch.cuda.synchronize()
+    per_step = {"dp": [], "plain": []}
+    for i in range(DP_TIMED):
+        for name, tr in (("plain", ref), ("dp", dp)):
+            t0 = time.perf_counter()
+            tr.step(batches[i % 3])
+            torch.cuda.synchronize()
+            per_step[name].append((time.perf_counter() - t0) * 1e3)
+    med = {k: statistics.median(v) for k, v in per_step.items()}
+    reduce_ms = reducer_ms(group, dp, batches[0], i_iter)
+    print(f"  data-parallel step at world 1: median {med['dp']:.3f} ms over {DP_TIMED} steps, Trainer.step "
+          f"{med['plain']:.3f} ms in turns with it ({med['dp'] - med['plain']:+.3f} ms), 4d's median {train_median:.3f} "
+          f"ms; the pack, all-reduce, divide and unpack alone {reduce_ms:.3f} ms")
+    return {"steps": DP_STEPS, "bit_equal": True, "launches": launches, "all_reduces": reduces,
+            "median_ms": med["dp"], "plain_median_ms": med["plain"], "reducer_ms": reduce_ms,
+            "train_4d_median_ms": train_median, "frames_per_s": 1e3 / med["dp"], "probe_default_algorithms": probe}
+
+
+def reducer_ms(group, trainer, batch, i_iter) -> float:
+    """The median host time of the data-parallel step's reducer (pack,
+    all-reduce, divide, unpack) on one step's gradients and losses, each
+    call synchronised."""
+    from gomavatar_tpu_torch.parallel.step import mean_over_ranks
+    from gomavatar_tpu_torch.trainer import loss_and_grads
+
+    terms = loss_and_grads(trainer.params, trainer.statics, trainer.gom_cfg, trainer.loss_cfg, trainer.lpips_params,
+                           batch, float(i_iter))
+    reduce = mean_over_ranks(group)
+    per_call = []
+    for _ in range(DP_TIMED + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reduce(*terms)
+        torch.cuda.synchronize()
+        per_call.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(per_call[1:])
+
+
+def rank_dp(group, trained, batches, i_iter):
+    """One rank of 7b: DP2_STEPS data-parallel steps on its frame of each
+    pair (deterministic algorithms), each step's params copied to the CPU;
+    then DP2_TIMED timed steps."""
+    from gomavatar_tpu_torch.optim import tree_leaves
+    from gomavatar_tpu_torch.parallel import all_reduce_sum
+
+    params, statics, cfg, _ = trained
+    trainer = make_trainer(params, statics, cfg, i_iter, group.device, group)
+    pairs = dp_pairs(DP2_STEPS)
+    snaps = []
+
+    def run():
+        out = []
+        for pair in pairs:
+            out.append(trainer.step(batches[pair[group.rank]]))
+            snaps.append([p.detach().cpu() for p in tree_leaves(trainer.params)])
+        return out
+
+    with deterministic():
+        calls = all_reduce_sum.calls
+        steps, launches, _ = counted(run)
+        reduces = all_reduce_sum.calls - calls
+    check_dp_losses(f"7b rank {group.rank}", steps)
+    timed = dp_pairs(DP2_TIMED + TRAIN_WARMUP)
+    per_step, wall = timed_steps(trainer, lambda i: batches[timed[i][group.rank]], DP2_TIMED)
+    return {"params": snaps, "launches": launches, "all_reduces": reduces,
+            "totals": [float(t) for t, _ in steps], "median_ms": statistics.median(per_step), "wall_s": wall}
+
+
+def dp_reference(trained, batches, i_iter):
+    """7b's one-process reference on the card: the mean-gradient step over
+    each pair (deterministic algorithms); the params after each step."""
+    from gomavatar_tpu_torch.optim import tree_leaves
+    from gomavatar_tpu_torch.parallel import make_mean_gradient_step
+
+    params, statics, cfg, _ = trained
+    ref = make_trainer(params, statics, cfg, i_iter, "cuda")
+    step = make_mean_gradient_step(ref.gom_cfg, ref.loss_cfg, ref.tx)
+    p, o, out = ref.params, ref.opt_state, []
+    with deterministic():
+        for s, pair in enumerate(dp_pairs(DP2_STEPS)):
+            p, o, _, _ = step(p, o, ref.statics, ref.lpips_params, [batches[j] for j in pair], float(i_iter + s))
+            out.append([x.cpu() for x in tree_leaves(p)])
+    return out
+
+
+def check_dp_ranks(label, ranks, reference, world1):
+    """7b's checks on the ranks' results; returns its JSON record."""
+    for s in range(DP2_STEPS):
+        require(leaves_equal(ranks[0]["params"][s], ranks[1]["params"][s]), f"{label} step {s}: the replicas differ")
+        require(leaves_equal(ranks[0]["params"][s], reference[s]),
+                f"{label} step {s}: rank 0 differs from the one-process mean-gradient step")
+    for r, res in enumerate(ranks):
+        for k in TRAIN_KERNELS:
+            require(res["launches"][k] == DP2_STEPS, f"{label} rank {r}: {k} did not launch once per step")
+        require(res["all_reduces"] == DP2_STEPS, f"{label} rank {r}: not one all-reduce per step")
+    fps = 2 * DP2_TIMED / max(r["wall_s"] for r in ranks)
+    launches = [{k: r["launches"][k] for k in TRAIN_KERNELS} for r in ranks]
+    reduces = [r["all_reduces"] for r in ranks]
+    medians = [r["median_ms"] for r in ranks]
+    print(f"  {DP2_STEPS} steps on frame pairs (deterministic algorithms): both replicas bit-equal after every step, "
+          f"rank 0 bit-equal to the one-process (g_a + g_b) / 2 step; launches per rank {launches}; all-reduces "
+          f"{reduces}")
+    print(f"  step median per rank {', '.join('%.3f' % m for m in medians)} ms; the two ranks {fps:.3f} frames/s "
+          f"over {DP2_TIMED} steps against 7a's {world1['frames_per_s']:.3f} ({fps / world1['frames_per_s']:.2f}x)")
+    return {"steps": DP2_STEPS, "bit_equal": True, "median_ms": medians, "frames_per_s": fps,
+            "vs_world1": fps / world1["frames_per_s"], "launches": launches, "all_reduces": reduces}
+
+
+def eval_inputs(trained):
+    from gomavatar_tpu_torch.models import modules as M
+    from gomavatar_tpu_torch.models.gom import posed_vertices
+
+    params, statics, cfg, frame = trained
+    verts_obs = posed_vertices(params, statics, cfg, frame["cnl_gtfms"], frame["dst_Rs"], frame["dst_Ts"],
+                               frame["dst_posevec"])
+    return verts_obs, M.appearance_apply(params["appearance"])
+
+
+def b1_shards(trained):
+    """Phase 7c in one process: B1 on each rank's share of the slots for
+    SHARD_SPLITS ranks, concatenated in rank order, bit-equal to the one-call
+    sweep on every slot below n_active; each share against the plain
+    version; each share timed."""
+    from gomavatar_tpu_torch.ops import frame_render as FR
+    from gomavatar_tpu_torch.parallel import shard_slots
+
+    params, statics, cfg, frame = trained
+    table, bins, _ = frame_inputs(params, statics, cfg, frame)
+    entries = FR.gather_entries(table, bins)
+    TX = bins.num_tiles_x
+    whole = FR.frame_sweep(entries, bins.active_id, bins.seg_start, bins.seg_count, bins.n_active, TX)
+    n = int(bins.n_active)
+    out = {"n_active": n, "whole_ms": cuda_ms(lambda: FR.frame_sweep(entries, bins.active_id, bins.seg_start,
+                                                                      bins.seg_count, bins.n_active, TX),
+                                               KERNEL_ITERS)}
+    for w in SHARD_SPLITS:
+        shares = [shard_slots(bins, r, w) for r in range(w)]
+        got = [FR.frame_sweep(entries, *sh, TX) for sh in shares]
+        for i, name in enumerate(("rgb", "alpha", "sel")):
+            require(torch.equal(torch.cat([g[i] for g in got])[:n], whole[i][:n]),
+                    f"7c: the {w} shares' {name} differ from the one-call sweep")
+        n_local = [int(sh[3]) for sh in shares]
+        for r, (sh, g) in enumerate(zip(shares, got)):
+            if n_local[r] == 0:
+                continue
+            p = FR.frame_sweep_plain(entries, *sh, TX)
+            m = n_local[r]
+            check_close(f"7c {w} shares, share {r} rgb vs plain", g[0][:m], p[0][:m])
+            check_close(f"7c {w} shares, share {r} alpha vs plain", g[1][:m], p[1][:m])
+            check_sel(f"7c {w} shares, share {r} sel vs plain", g[2][:m].permute(0, 2, 1), p[2][:m].permute(0, 2, 1))
+        ms = [cuda_ms(lambda sh=sh: FR.frame_sweep(entries, *sh, TX), KERNEL_ITERS) for sh in shares]
+        print(f"  {w} shares of {bins.active_id.shape[0]} slots, n_local {n_local} of n_active {n}: concatenated "
+              f"bit-equal to the one-call sweep; B1 per share {', '.join(f'{x:.4f}' for x in ms)} ms against "
+              f"{out['whole_ms']:.4f} ms for the whole")
+        out[str(w)] = {"n_local": n_local, "ms": ms}
+    return out
+
+
+def rank_tile(group, trained):
+    """One rank of 7c: the tile-parallel render of the trained frame, its
+    launches counted, against render_frame_eval in the same process."""
+    from gomavatar_tpu_torch.models.gom import frame_table_and_bins, render_frame_eval
+    from gomavatar_tpu_torch.parallel import make_tile_parallel_render, shard_slots
+
+    params, statics, cfg, frame = trained
+    verts_obs, colors = eval_inputs(trained)
+    render = make_tile_parallel_render(group, cfg, statics)
+    (rgb, alpha, aux), launches, _ = counted(lambda: render(params, verts_obs, colors, frame["K"], frame["E"]))
+    want_rgb, want_alpha, _ = render_frame_eval(params, statics, cfg, verts_obs, colors, frame["K"], frame["E"])
+    _, bins, _ = frame_table_and_bins(params, statics, cfg, verts_obs, colors, frame["K"], frame["E"])
+    tel = aux["binning"]
+    return {"rgb": rgb.cpu() if group.rank == 0 else None, "alpha": alpha.cpu() if group.rank == 0 else None,
+            "equal": bool(torch.equal(rgb, want_rgb) and torch.equal(alpha, want_alpha)),
+            "n_active": int(bins.n_active), "n_local": int(shard_slots(bins, group.rank, group.world)[3]),
+            "dropped": int(tel.total_dropped()), "tile_overflow": int(aux["tile_overflow"]),
+            "launches": {k: launches[k] for k in ("B1a", "B1b")}}
+
+
+def check_tile(label, world, ranks, want):
+    """7c's checks on one world's ranks against the parent's
+    render_frame_eval (``want`` = (rgb, alpha))."""
+    require(bool(torch.equal(ranks[0]["rgb"], want[0].cpu()) and torch.equal(ranks[0]["alpha"], want[1].cpu())),
+            f"{label}: rank 0's frame differs from render_frame_eval")
+    for r, res in enumerate(ranks):
+        require(res["equal"], f"{label} rank {r}: the frame differs from render_frame_eval")
+        require(res["dropped"] == 0 and res["tile_overflow"] == 0, f"{label} rank {r}: dropped entries")
+        require(res["launches"]["B1a"] == res["launches"]["B1b"] == 1, f"{label} rank {r}: B1 not once per frame")
+    n_local = [r["n_local"] for r in ranks]
+    empty = [r for r, x in enumerate(n_local) if x == 0]
+    idle = f"ranks {empty} hold no active slot" if empty else "every rank holds active slots"
+    print(f"  world {world}: rgb and alpha bit-equal to render_frame_eval on every rank; n_active "
+          f"{ranks[0]['n_active']}, n_local {n_local} ({idle}); 0 dropped, 0 tile_overflow; B1a and B1b once per "
+          f"rank")
+    return {"n_active": ranks[0]["n_active"], "n_local": n_local, "bit_equal": True,
+            "launches": [r["launches"] for r in ranks]}
+
+
+def two_scenes(trained):
+    """(packs, items) of 7d: the trained avatar and a copy with its per-face
+    colours' channels reversed, both at the trained frame."""
+    from gomavatar_tpu_torch.convert import FRAME_KEYS
+
+    params, statics, cfg, frame = trained
+    other = dict(params, appearance={"colors": params["appearance"]["colors"].flip(-1).contiguous()})
+    item = {k: frame[k].cpu().numpy() for k in FRAME_KEYS}
+    return [(params, statics, cfg), (other, statics, cfg)], [item, item]
+
+
+def rank_scenes(group, trained):
+    """One rank of 7d: the multi-scene render of the two scenes, launches
+    counted; the gathered frames on rank 0."""
+    from gomavatar_tpu_torch.parallel import make_multi_scene_render
+
+    packs, items = two_scenes(trained)
+    render = make_multi_scene_render(group)
+    (rgb, _), launches, _ = counted(lambda: render(packs, items))
+    return {"rgb": rgb.cpu() if group.rank == 0 else None, "launches": {k: launches[k] for k in ("B1a", "B1b")}}
+
+
+def check_scenes(label, world, ranks, want):
+    """7d's checks: every scene, in order, bit-equal to its own gom_forward."""
+    rgb = ranks[0]["rgb"]
+    require(rgb.shape[0] == len(want), f"{label}: {rgb.shape[0]} scenes gathered, {len(want)} expected")
+    for s, w in enumerate(want):
+        require(bool(torch.equal(rgb[s], w.cpu())), f"{label}: scene {s} differs from its own gom_forward")
+    per = len(want) // world
+    for r, res in enumerate(ranks):
+        require(res["launches"]["B1a"] == res["launches"]["B1b"] == per, f"{label} rank {r}: B1 not once per scene")
+    print(f"  world {world}: {len(want)} scenes gathered in order, each bit-equal to its own gom_forward(train=False); "
+          f"B1a and B1b {per} per rank")
+    return {"scenes": len(want), "bit_equal": True, "launches": [r["launches"] for r in ranks]}
+
+
+def parallel_rank(group, jobs):
+    """A rank of phase 7's spawned worlds on the card: the trained avatar
+    loaded on its device, then each of ``jobs`` ("dp", "tile", "scenes")."""
+    from gomavatar_tpu_torch.convert import load_trained, trained_meta
+
+    trained = load_trained(device=group.device)
+    out = {}
+    if "dp" in jobs:
+        out["dp"] = rank_dp(group, trained, dp_batches(trained), int(trained_meta()["iter"]))
+    if "tile" in jobs:
+        out["tile"] = rank_tile(group, trained)
+    if "scenes" in jobs:
+        out["scenes"] = rank_scenes(group, trained)
+    return out
+
+
+def dp_cli_yaml(cfg_path: str, it: int) -> str:
+    """A copy of the drivers' exp yaml under its own experiment name, with
+    checkpoint iter_{it} of the drivers' experiment copied into its
+    checkpoints."""
+    import shutil
+
+    import yaml
+
+    from gomavatar_tpu_torch.config import make_cfg
+
+    with open(cfg_path) as f:
+        cfg = yaml.safe_load(f)
+    cfg["exp_name"] = "data_parallel"
+    path = cfg_path.replace(".yaml", "_dp.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    src, dst = make_cfg(cfg_path)["save_dir"], make_cfg(path)["save_dir"]
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(f"{src}/checkpoints/iter_{it}", f"{dst}/checkpoints/iter_{it}")
+    return path
+
+
+def phase_parallel(trained, train_median, cfg_path: str):
+    """Phase 7: the multi-rank layer on the card."""
+    import tempfile
+
+    from gomavatar_tpu_torch.convert import trained_meta
+    from gomavatar_tpu_torch.models.gom import render_frame_eval
+    from gomavatar_tpu_torch.parallel import close_group, init_group, spawn
+
+    params, statics, cfg, frame = trained
+    i_iter = int(trained_meta()["iter"])
+    batches = dp_batches(trained)
+    verts_obs, colors = eval_inputs(trained)
+    want_frame = render_frame_eval(params, statics, cfg, verts_obs, colors, frame["K"], frame["E"])[:2]
+    packs, _ = two_scenes(trained)
+    want_scenes = [forward(p, s, c, frame)[0] for p, s, c in packs]
+    require(float((want_scenes[0] - want_scenes[1]).abs().max()) > 0.1, "7d: the two scenes render alike")
+    out = {}
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        group = init_group(0, 1, f"{tmp}/store", "cuda:0", "nccl")
+        print(f"[7a] the data-parallel step at world 1 over {group.backend}: {DP_STEPS} steps on the trained avatar "
+              f"against Trainer.step")
+        out["7a"] = dp_world1(trained, group, batches, i_iter, train_median)
+        print(f"  phase 7a: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        print("[7c] the tile-parallel render: B1 on shares of the slots, then worlds "
+              f"{list(TILE_WORLDS)} (world 1 over nccl, the others over gloo on the one card)")
+        out["7c"] = {"shares": b1_shards(trained)}
+        out["7c"]["1"] = check_tile("7c world 1", 1, [rank_tile(group, trained)], want_frame)
+        print("[7d] the multi-scene render: the trained avatar and a recoloured copy, worlds "
+              f"{list(SCENE_WORLDS)} (world 1 over nccl)")
+        out["7d"] = {"1": check_scenes("7d world 1", 1, [rank_scenes(group, trained)], want_scenes)}
+        close_group(group)
+    print(f"  phases 7c-7d at world 1: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    print("[7b-7d] world 2 on the one card over gloo: the data-parallel step, the tile-parallel render, the "
+          "multi-scene render")
+    two = spawn(parallel_rank, ["cuda:0"] * 2, ("dp", "tile", "scenes"), backend="gloo")
+    reference = dp_reference(trained, batches, i_iter)
+    out["7b"] = check_dp_ranks("7b", [r["dp"] for r in two], reference, out["7a"])
+    out["7c"]["2"] = check_tile("7c world 2", 2, [r["tile"] for r in two], want_frame)
+    out["7d"]["2"] = check_scenes("7d world 2", 2, [r["scenes"] for r in two], want_scenes)
+    print(f"  world 2: {time.perf_counter() - t0:.1f} s with the ranks' start")
+    t0 = time.perf_counter()
+    print("[7c] world 4 on the one card over gloo: the tile-parallel render")
+    four = spawn(parallel_rank, ["cuda:0"] * 4, ("tile",), backend="gloo")
+    out["7c"]["4"] = check_tile("7c world 4", 4, [r["tile"] for r in four], want_frame)
+    print(f"  world 4: {time.perf_counter() - t0:.1f} s with the ranks' start")
+
+    t0 = time.perf_counter()
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        print(f"[7e] not run: {cards} card (7a-7d over 2 cards with NCCL and cli.train --data_parallel 2 need 2)")
+        out["7e"] = {"ran": False, "cards": cards}
+    else:
+        from gomavatar_tpu_torch.cli import train as train_cli
+
+        print("[7e] 2 cards over nccl: the data-parallel step, the tile-parallel render, the multi-scene render, "
+              "cli.train --data_parallel 2")
+        devices = [torch.device("cuda", i) for i in range(2)]
+        two_cards = spawn(parallel_rank, devices, ("dp", "tile", "scenes"))
+        e = {"ran": True, "cards": cards}
+        e["dp"] = check_dp_ranks("7e", [r["dp"] for r in two_cards], reference, out["7a"])
+        e["tile"] = check_tile("7e tile", 2, [r["tile"] for r in two_cards], want_frame)
+        e["scenes"] = check_scenes("7e scenes", 2, [r["scenes"] for r in two_cards], want_scenes)
+        path = dp_cli_yaml(cfg_path, i_iter)
+        ranks = train_cli.main(["--cfg", path, "--resume", "--max_iters", str(i_iter + 2), "--data_parallel", "2"])
+        require([r["i_iter"] for r in ranks] == [i_iter + 2] * 2, "7e: cli.train --data_parallel 2 ended elsewhere")
+        from gomavatar_tpu_torch.config import make_cfg
+
+        require(os.path.isdir(f"{make_cfg(path)['save_dir']}/checkpoints/iter_{i_iter + 2}"),
+                "7e: cli.train --data_parallel 2 wrote no checkpoint")
+        print(f"  cli.train --data_parallel 2: 2 steps from iter_{i_iter} on 2 cards, iter_{i_iter + 2} written")
+        out["7e"] = e
+    print(f"  phase 7e: {time.perf_counter() - t0:.1f} s")
+
+    # B1's and B2-B5's launches on phase 7's paths, per rank
+    out["launches"] = {
+        "7a": {k: out["7a"]["launches"][k] for k in TRAIN_KERNELS},
+        "7b": out["7b"]["launches"],
+        "7c": {w: out["7c"][w]["launches"] for w in ("1", "2", "4")},
+        "7d": {w: out["7d"][w]["launches"] for w in ("1", "2")},
+    }
+    return out
+
+
+def parallel_launches(k: str, launches: dict) -> dict:
+    """Kernel ``k``'s launches on phase 7's paths (its parts' sum), per rank
+    where a path runs on several."""
+    parts = [k] if k == "B5" else [f"{k}a", f"{k}b"]
+
+    def total(counts):
+        return sum(counts.get(p, 0) for p in parts)
+
+    if k == "B1":
+        return {f"{path} world {w}": [total(c) for c in launches[path][w]] for path in ("7c", "7d")
+                for w in launches[path]}
+    return {"7a world 1": total(launches["7a"]), "7b world 2": [total(c) for c in launches["7b"]]}
+
+
 KERNELS = {
     "B1": ("B1 frame_render (B1a partials + B1b merge)", "gomavatar_tpu_torch/csrc/frame_render.cu",
            "gomavatar_tpu/ops/frame_render.py:74"),
@@ -1856,6 +2375,10 @@ def main() -> int:
         return 1
     from gomavatar_tpu_torch import cuda_build
 
+    # one cuBLAS workspace config for every phase and every spawned rank,
+    # set before cuBLAS starts: phase 7's bit checks need it for torch's
+    # deterministic algorithms, and 4d's and 7a's timed steps run under it alike
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     t_start = time.perf_counter()
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -1896,6 +2419,9 @@ def main() -> int:
     t0 = time.perf_counter()
     pose, animate = phase_pose_animate(f"{DRIVER_DIR}/exp.yaml", trained)
     done(6, t0)
+    t0 = time.perf_counter()
+    parallel = phase_parallel(trained, train["median_ms"], f"{DRIVER_DIR}/exp.yaml")
+    done(7, t0)
 
     measured = {"B1": dict(b1, launches=b1_launches["B1"])}
     for k in ("B2", "B3", "B4", "B5"):
@@ -1917,7 +2443,9 @@ def main() -> int:
         }
         if "parts" in m:
             entry["parts"] = m["parts"]
+        entry["parallel_launches"] = parallel_launches(k, parallel["launches"])
         result["kernels"].append(entry)
+    print(json.dumps({"parallel": parallel}))
     print(json.dumps({"pose": pose, "animate": animate}))
     print(json.dumps({"drivers": drivers}))
     print(json.dumps({"forward": fwd}))

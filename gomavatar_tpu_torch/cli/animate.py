@@ -10,15 +10,22 @@ side by side per frame.
 
 On one card the scenes are rendered in turn, each frame of each scene by
 ``gom_forward(train=False)`` (kernel B1), so every scene lands in the strip,
-which is n x W wide for n scenes.  With ``--cfgs`` the camera intrinsics
-come from ``--img`` and the render size from each checkpoint's config.  It
-runs on the card unless ``--device cpu``; ``main`` returns a summary.
+which is n x W wide for n scenes.  Where several CUDA cards are visible,
+k rank processes (``parallel.spawn``, NCCL) render the scenes through
+``parallel.make_multi_scene_render``, k the largest divisor of n that is at
+most the number of cards (JAX asserts that n divides onto its devices; the
+port takes fewer ranks instead, and one card where k is 1): rank r renders
+every scene of its block of n / k, the frames are gathered in scene order
+and rank 0 writes the strips.  With ``--cfgs`` the camera intrinsics come
+from ``--img`` and the render size from each checkpoint's config.  It runs on the card unless ``--device
+cpu``; ``main`` returns a summary.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import sys
 import time
 
 import numpy as np
@@ -26,9 +33,8 @@ import torch
 from PIL import Image
 
 from gomavatar_tpu_torch.cli.train import check_device
-from gomavatar_tpu_torch.data.dataset import to_device
 from gomavatar_tpu_torch.eval_lib import to_8b_image
-from gomavatar_tpu_torch.models.gom import gom_forward
+from gomavatar_tpu_torch.parallel import barrier, make_multi_scene_render, render_scenes, spawn
 
 
 def _synthetic_scenes(n: int, img_size, device):
@@ -143,22 +149,7 @@ def check_homogeneous_scenes(packs):
     return gom_cfg
 
 
-def render_scenes(packs, items, device) -> list[torch.Tensor]:
-    """The rgb (H, W, 3) of every scene for one frame, the scenes in turn
-    through the eval forward."""
-    out = []
-    for (params, statics, gom_cfg), item in zip(packs, items):
-        batch = to_device(item, device)
-        with torch.no_grad():
-            rgb, _, _ = gom_forward(
-                params, statics, gom_cfg, batch["K"], batch["E"], batch["cnl_gtfms"], batch["dst_Rs"],
-                batch["dst_Ts"], dst_posevec=batch["dst_posevec"], i_iter=1e7, device=device,
-            )
-        out.append(rgb)
-    return out
-
-
-def main(argv=None) -> dict:
+def parse_args(argv=None):
     ap = argparse.ArgumentParser(description="Animate several avatars side by side (gomavatar_tpu_torch).")
     ap.add_argument("--cfgs", nargs="*", default=None, help="per-scene experiment configs")
     ap.add_argument("--synthetic", type=int, default=0, help="render N synthetic avatars instead")
@@ -169,14 +160,41 @@ def main(argv=None) -> dict:
     ap.add_argument("--out", default="log/animate")
     ap.add_argument("--device", default="cuda", help="torch device: cuda (the default) or cpu")
     args = ap.parse_args(argv)
-    device = check_device(args.device)
+    if not args.synthetic and not args.cfgs:
+        raise SystemExit("--cfgs or --synthetic required")
+    return args
 
+
+def main(argv=None) -> dict:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = parse_args(argv)
+    device = check_device(args.device)
+    ranks = scene_ranks(args.synthetic or len(args.cfgs), device)
+    if ranks > 1:
+        return spawn(animate_rank, [torch.device("cuda", i) for i in range(ranks)], argv)[0]
+    return animate(args, device)
+
+
+def scene_ranks(n: int, device) -> int:
+    """How many ranks render n scenes: on CUDA the largest divisor of n that
+    is at most the number of cards (1 keeps the one-card loop), else 1."""
+    cards = torch.cuda.device_count() if device.type == "cuda" else 1
+    return max(k for k in range(1, min(n, cards) + 1) if n % k == 0)
+
+
+def animate_rank(group, argv) -> dict | None:
+    """One rank of the multi-scene animation: the summary on rank 0."""
+    return animate(parse_args(argv), group.device, group)
+
+
+def animate(args, device, group=None) -> dict | None:
+    """Load the scenes, render every frame's strip (in turn, or through the
+    multi-scene render under ``group``) and write the PNGs (rank 0)."""
+    lead = group is None or group.rank == 0
     img_size = tuple(args.img)
     if args.synthetic:
         packs, infos = _synthetic_scenes(args.synthetic, img_size, device)
     else:
-        if not args.cfgs:
-            raise SystemExit("--cfgs or --synthetic required")
         from gomavatar_tpu_torch.config import make_cfg
         from gomavatar_tpu_torch.data.dataset import TrainDataset
         from gomavatar_tpu_torch.trainer import Trainer
@@ -192,6 +210,7 @@ def main(argv=None) -> dict:
 
     n = len(packs)
     check_homogeneous_scenes(packs)
+    render = make_multi_scene_render(group) if group is not None else None
 
     os.makedirs(args.out, exist_ok=True)
     if args.type == "mdm":
@@ -200,16 +219,24 @@ def main(argv=None) -> dict:
             from gomavatar_tpu_torch.data.synthetic import write_synthetic_mdm_poses
 
             pose_path = os.path.join(args.out, "_demo_motion.npy")
-            write_synthetic_mdm_poses(pose_path, n_frames=args.n_frames)
+            if lead:
+                write_synthetic_mdm_poses(pose_path, n_frames=args.n_frames)
+            if group is not None:
+                barrier(group)  # the motion file is written before any rank reads it
         frames = _mdm_items(infos, pose_path, args.n_frames, img_size)
     else:
         frames = _orbit_items(infos, 0, args.n_frames, img_size)
     t0 = time.perf_counter()
     for t, items in enumerate(frames):
-        strip = torch.cat(render_scenes(packs, items, device), dim=1).cpu().numpy()
+        rgb, _ = render_scenes(packs, items, device) if render is None else render(packs, items)
+        if not lead:
+            continue
+        strip = torch.cat(list(rgb), dim=1).cpu().numpy()
         Image.fromarray(to_8b_image(strip)).save(os.path.join(args.out, f"frame_{t:04d}.png"))
         print(f"frame {t + 1}/{len(frames)}", flush=True)
     seconds = time.perf_counter() - t0
+    if not lead:
+        return None
     print(f"wrote {len(frames)} frames x {n} scenes to {args.out} in {seconds:.3f} s "
           f"({len(frames) / max(seconds, 1e-9):.2f} frames/s, PNG writes included)")
     return {"frames": len(frames), "scenes": n, "seconds": seconds, "out": args.out}

@@ -1,7 +1,7 @@
 """Training driver (port of gomavatar_tpu/cli/train.py).
 
     python -m gomavatar_tpu_torch.cli.train --cfg configs/exps/zju-mocap_377.yaml \
-        [--resume] [--max_iters N] [--device cpu]
+        [--resume] [--max_iters N] [--device cpu] [--data_parallel N]
 
 The loop: the iter-0 checkpoint, a frame order per epoch (pose-balanced
 under ``train.pose_balanced_sampling``), the thread ``Prefetcher``, one
@@ -10,6 +10,18 @@ a checkpoint and the periodic eval; then a final checkpoint.  The host reads
 the loss only at ``log_freq`` and the TB scalars only at ``tb_freq``, so no
 other step waits for the device.  It runs on the card unless ``--device
 cpu``; ``main`` returns the ``Trainer``.
+
+``--data_parallel N`` (N > 1) trains on N frames per optimizer step: N rank
+processes (``parallel.spawn``; on CUDA one card each, ``cuda:0`` ..
+``cuda:N-1``, so N cards are needed; on the CPU gloo ranks), each stepping
+on its own frame with the gradients averaged by one all-reduce per step.
+Every rank draws the same epoch order and takes its items by
+``parallel.rank_items`` (item g * N + r of step g; an epoch's leftover
+items dropped), as JAX's driver groups them.  Every rank checks the
+averaged loss for non-finite values at ``log_freq``; rank 0 alone logs,
+writes TensorBoard (on its own frame), saves and runs the periodic eval
+while the others wait in the next all-reduce.  ``main`` then returns each
+rank's {"i_iter", "phase"}.
 """
 
 from __future__ import annotations
@@ -17,6 +29,7 @@ from __future__ import annotations
 import argparse
 import logging
 import os
+import sys
 import time
 
 import numpy as np
@@ -27,6 +40,7 @@ from gomavatar_tpu_torch.data.dataset import Prefetcher, TrainDataset, ZJUTestDa
 from gomavatar_tpu_torch.eval_lib import Evaluator, EvaluatorSnapshot
 from gomavatar_tpu_torch.losses import unpack
 from gomavatar_tpu_torch.models import lpips as lpips_lib
+from gomavatar_tpu_torch.parallel import barrier, rank_items, spawn
 from gomavatar_tpu_torch.trainer import Trainer
 from gomavatar_tpu_torch.utils.sampling import balanced_order
 from gomavatar_tpu_torch.utils.tb import TBLogger
@@ -149,23 +163,9 @@ def evaluate_test_split(trainer: Trainer, cfg, tb):
     return evaluate_on(trainer, ds, tb, "test", cfg["random_bgcolor"], max_items=8, protocol=protocol)
 
 
-def main(argv=None) -> Trainer:
-    ap = argparse.ArgumentParser(description="Train an avatar (gomavatar_tpu_torch).")
-    ap.add_argument("--cfg", required=True)
-    ap.add_argument("--resume", action="store_true")
-    ap.add_argument("--max_iters", type=int, default=None, help="override total_iters")
-    ap.add_argument("--device", default="cuda", help="torch device: cuda (the default) or cpu")
-    args = ap.parse_args(argv)
-    device = check_device(args.device)
-
-    cfg = make_cfg(args.cfg)
-    setup_logging(cfg["save_dir"])
-    with open(os.path.join(cfg["save_dir"], "config.yaml"), "w") as f:
-        f.write(cfg.dump())
-    ckpt_dir = os.path.join(cfg["save_dir"], "checkpoints")
-    os.makedirs(ckpt_dir, exist_ok=True)
-
-    tcfg = cfg["train"]
+def train_dataset(cfg) -> TrainDataset:
+    """The train split of the exp config, native decode when asked for and
+    available."""
     dcfg = cfg["dataset"]["train"]
     use_native = bool(dcfg.get("use_native", False))
     if use_native:
@@ -177,7 +177,7 @@ def main(argv=None) -> Trainer:
                 "cv2 path"
             )
             use_native = False
-    dataset = TrainDataset(
+    return TrainDataset(
         dcfg["dataset_path"],
         maxframes=dcfg["maxframes"],
         bgcolor=None if cfg["random_bgcolor"] else cfg["bgcolor"],
@@ -188,7 +188,66 @@ def main(argv=None) -> Trainer:
         split_for_pose=dcfg["split_for_pose"],
         use_native=use_native,
     )
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser(description="Train an avatar (gomavatar_tpu_torch).")
+    ap.add_argument("--cfg", required=True)
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--max_iters", type=int, default=None, help="override total_iters")
+    ap.add_argument("--device", default="cuda", help="torch device: cuda (the default) or cpu")
+    ap.add_argument("--data_parallel", type=int, default=1,
+                    help="frames per optimizer step, one rank process each (on CUDA one card each)")
+    return ap.parse_args(argv)
+
+
+def rank_devices(device: torch.device, n: int) -> list[torch.device]:
+    """The devices of n ranks: cuda:0 .. cuda:n-1 (an error when fewer cards
+    are visible), or the CPU n times."""
+    if device.type != "cuda":
+        return [device] * n
+    have = torch.cuda.device_count()
+    if n > have:
+        raise SystemExit(f"--data_parallel {n} needs {n} CUDA devices, {have} found")
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = parse_args(argv)
+    device = check_device(args.device)
+    if args.data_parallel > 1:
+        return spawn(_train_rank, rank_devices(device, args.data_parallel), argv)
+    return train(args, device)
+
+
+def _train_rank(group, argv):
+    trainer = train(parse_args(argv), group.device, group)
+    return {"i_iter": trainer.i_iter, "phase": trainer.phase}
+
+
+def train(args, device: torch.device, group=None) -> Trainer:
+    """The training loop on ``device``; under ``group``, one rank of a
+    data-parallel run."""
+    rank, world = (group.rank, group.world) if group is not None else (0, 1)
+    lead = rank == 0
+    cfg = make_cfg(args.cfg)
+    ckpt_dir = os.path.join(cfg["save_dir"], "checkpoints")
+    os.makedirs(ckpt_dir, exist_ok=True)
+    if lead:
+        setup_logging(cfg["save_dir"])
+        with open(os.path.join(cfg["save_dir"], "config.yaml"), "w") as f:
+            f.write(cfg.dump())
+    else:
+        logging.basicConfig(level=logging.WARNING, force=True)
+
+    tcfg = cfg["train"]
+    dataset = train_dataset(cfg)
     logging.info("train frames: %d", len(dataset))
+    if len(dataset) < world:
+        raise SystemExit(f"--data_parallel {world} needs at least {world} train frames, found {len(dataset)}")
+    if group is not None:
+        logging.info("data-parallel over %d ranks (%s), one frame per rank per step", world, group.backend)
 
     lpips_params, calibrated = None, False
     if tcfg["losses"]["lpips"]["coeff"] > 0:
@@ -196,11 +255,13 @@ def main(argv=None) -> Trainer:
         lpips_params, calibrated, _ = lpips_lib.load_lpips("vgg", device=device)
 
     trainer = Trainer(cfg, dataset.get_canonical_info(), lpips_params=lpips_params, device=device,
-                      lpips_calibrated=calibrated)
+                      lpips_calibrated=calibrated, group=group)
     if args.resume:
         trainer.resume(ckpt_dir)
+    if group is not None:
+        barrier(group)  # every rank has read the checkpoints before rank 0 writes one
 
-    tb = TBLogger(os.path.join(cfg["save_dir"], "tb"), freq=tcfg["tb_freq"])
+    tb = TBLogger(os.path.join(cfg["save_dir"], "tb"), freq=tcfg["tb_freq"]) if lead else None
     total_iters = args.max_iters or tcfg["total_iters"]
 
     if trainer.i_iter == 0:
@@ -217,13 +278,12 @@ def main(argv=None) -> Trainer:
             order = balanced_order(balanced_Es, len(dataset), rng)
         else:
             order = rng.permutation(len(dataset))
-        for item in Prefetcher(dataset, order=order):
+        for item in Prefetcher(dataset, order=rank_items(order, world, rank)):
             if trainer.i_iter >= total_iters:
                 break
             batch = to_device(item, device)
             total, losses = trainer.step(batch)
             it = trainer.i_iter
-            tb.set_step(it)
 
             if it % tcfg["log_freq"] == 0:
                 dt = time.perf_counter() - t_last
@@ -235,8 +295,12 @@ def main(argv=None) -> Trainer:
                              loss_str)
                 if not np.isfinite(total_f):
                     # fail fast: going on would poison every parameter and
-                    # the next checkpoint; the last good one stays usable
+                    # the next checkpoint; the last good one stays usable.
+                    # Every rank reads the same averaged loss, so all raise.
                     raise RuntimeError(f"non-finite training loss at iter {it}: {loss_str}")
+            if not lead:
+                continue
+            tb.set_step(it)
             # device scalars pass through: TBLogger reads them after its
             # cadence gate, so an off-cadence step does not wait
             tb.summ_scalar("train/total_loss", total)
@@ -252,7 +316,8 @@ def main(argv=None) -> Trainer:
                 evaluate_test_split(trainer, cfg, tb)
 
     trainer.save(ckpt_dir)
-    tb.close()
+    if lead:
+        tb.close()
     logging.info("training done at iter %d", trainer.i_iter)
     return trainer
 

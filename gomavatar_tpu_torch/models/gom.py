@@ -275,14 +275,18 @@ def render_frame_eval(
         params, statics, cfg, verts_obs, colors, K, E, blur_margin_px
     )
     outs = render_frame_sorted(table, bins, cfg.img_size, shading0=shading0, with_normal=with_normal)
-    # tile_overflow: entries beyond what B1 ingests per tile (NCMAX chunks
-    # from the aligned-down start; worst-case head alignment wastes CHUNK-1)
+    return outs + (eval_aux(bins),)
+
+
+def eval_aux(bins) -> dict:
+    """The eval frame's aux: {"binning": telemetry, "tile_overflow": entries
+    beyond what B1 ingests per tile (NCMAX chunks from the aligned-down
+    start; worst-case head alignment wastes CHUNK-1)}."""
     tel = bins.telemetry
-    aux = {
+    return {
         "binning": tel,
         "tile_overflow": torch.clamp_min(tel.max_tile_entries - (NCMAX * CHUNK - (CHUNK - 1)), 0),
     }
-    return outs + (aux,)
 
 
 def posed_vertices(

@@ -442,19 +442,25 @@ def render_frame_sorted(
     ``with_normal``, also (normal (H,W,3), hard mask (H,W)).  ``table``
     channel 22 must hold the per-face shading (x2 applied) when ``shading0``
     is given."""
-    with_shadow = shading0 is not None
-    with_mesh = with_shadow or with_normal
     entries = gather_entries(table, bins)
-    rgb_c, alpha_c, sel_c = frame_sweep(
+    compact = frame_sweep(
         entries, bins.active_id, bins.seg_start, bins.seg_count, bins.n_active,
-        bins.num_tiles_x, ncmax=ncmax, with_mesh=with_mesh,
+        bins.num_tiles_x, ncmax=ncmax, with_mesh=shading0 is not None or with_normal,
     )
+    return compose_frame(compact, bins, img_size, shading0, with_normal)
+
+
+def compose_frame(compact, bins: SortedBinning, img_size: tuple[int, int], shading0=None, with_normal: bool = False):
+    """B1's compact per-slot outputs (rgb, alpha, sel or None) untiled into
+    the frame, the shading applied: the outputs of
+    :func:`render_frame_sorted`."""
+    rgb_c, alpha_c, sel_c = compact
     rgb = untile(rgb_c, bins, img_size)
     alpha = untile(alpha_c, bins, img_size)[..., 0]
-    if with_mesh:
+    if sel_c is not None:
         sel = untile(sel_c, bins, img_size)
         hit = sel[..., 4]
-        if with_shadow:
+        if shading0 is not None:
             shading = torch.where(hit > 0, sel[..., 3], shading0)
             rgb = rgb * shading[..., None]
     if with_normal:

@@ -13,6 +13,11 @@ fails on a drop, a sync per step).
 ``Trainer.save`` writes the params, the Adam state, the iteration and the
 phase (``checkpoint.py``); ``resume`` and ``load_for_eval`` build the
 phase-0 model first, replay the stored number of subdivisions, then load.
+
+Under a rank group (``parallel/``) each rank steps on its own frame and the
+gradients and loss terms are averaged over the ranks between the backward
+and Adam (``parallel.step.make_data_parallel_train_step``); only rank 0
+saves.
 """
 
 from __future__ import annotations
@@ -69,21 +74,31 @@ def train_loss(params: dict, statics: GoMStatics, gom_cfg: GoMConfig, loss_cfg: 
     return total, losses
 
 
-def make_train_step(gom_cfg: GoMConfig, loss_cfg: dict, tx):
+def loss_and_grads(params: dict, statics: GoMStatics, gom_cfg: GoMConfig, loss_cfg: dict, lpips_params,
+                   batch: dict, i_iter):
+    """(gradient of every leaf in ``tree_leaves`` order, total, losses) of
+    one frame, detached."""
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    total, losses = train_loss(tree_unflatten(params, leaves), statics, gom_cfg, loss_cfg, lpips_params, batch, i_iter)
+    grads = torch.autograd.grad(total, leaves, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+    return grads, total.detach(), {k: v.detach() for k, v in losses.items()}
+
+
+def make_train_step(gom_cfg: GoMConfig, loss_cfg: dict, tx, reduce=None):
     """The train step of one phase: (params, opt_state, statics, lpips_params,
-    batch, i_iter) -> (params, opt_state, total, losses)."""
+    batch, i_iter) -> (params, opt_state, total, losses).  ``reduce``, when
+    given, maps the frame's (grads, total, losses) to the ones Adam takes
+    (the mean over the ranks: ``parallel.step``)."""
 
     def step(params, opt_state, statics, lpips_params, batch, i_iter):
-        leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
-        total, losses = train_loss(
-            tree_unflatten(params, leaves), statics, gom_cfg, loss_cfg, lpips_params, batch, i_iter
-        )
-        grads = torch.autograd.grad(total, leaves, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+        grads, total, losses = loss_and_grads(params, statics, gom_cfg, loss_cfg, lpips_params, batch, i_iter)
+        if reduce is not None:
+            grads, total, losses = reduce(grads, total, losses)
         updates, opt_state = tx.update(grads, opt_state)
         with torch.no_grad():
-            params = apply_updates(tree_unflatten(params, [p.detach() for p in leaves]), updates)
-        return params, opt_state, total.detach(), {k: v.detach() for k, v in losses.items()}
+            params = apply_updates(params, updates)
+        return params, opt_state, total, losses
 
     return step
 
@@ -97,11 +112,16 @@ class Trainer:
     phase), or from ``state`` = (params, statics, gom_cfg, i_iter, phase), a
     loaded model (e.g. ``convert.load_trained``); the optimizer is then new,
     with its schedule fast-forwarded to ``i_iter``.  ``lpips_calibrated``
-    says whether ``lpips_params`` hold a converted pretrained trunk."""
+    says whether ``lpips_params`` hold a converted pretrained trunk.
+
+    With ``group`` (a ``parallel.RankGroup``) the trainer is one rank of a
+    data-parallel run: every rank holds the same state, ``step`` takes this
+    rank's frame, and ``save`` writes on rank 0 only."""
 
     def __init__(self, cfg, canonical_info: dict | None = None, lpips_params=None, seed: int = 0,
-                 device="cuda", state=None, lpips_calibrated: bool = False):
+                 device="cuda", state=None, lpips_calibrated: bool = False, group=None):
         self.cfg = cfg
+        self.group = group
         self.loss_cfg = cfg["train"]["losses"]
         self.lpips_params = lpips_params
         self.lpips_calibrated = lpips_calibrated
@@ -123,7 +143,12 @@ class Trainer:
         if self.i_iter:
             # keep the lr decay continuous across the phase change
             self.opt_state = fast_forward_schedule(self.opt_state, self.i_iter)
-        self._step_fn = make_train_step(self.gom_cfg, self.loss_cfg, self.tx)
+        if self.group is None:
+            self._step_fn = make_train_step(self.gom_cfg, self.loss_cfg, self.tx)
+        else:
+            from gomavatar_tpu_torch.parallel.step import make_data_parallel_train_step
+
+            self._step_fn = make_data_parallel_train_step(self.group, self.gom_cfg, self.loss_cfg, self.tx)
 
     def _subdivide(self):
         log.info("subdividing at iter %d: %d -> %d faces", self.i_iter, self.gom_cfg.num_faces,
@@ -143,16 +168,19 @@ class Trainer:
 
     def step(self, batch: dict):
         """One optimizer step on one frame; returns (total, losses) as device
-        tensors."""
+        tensors.  Under a rank group ``batch`` is this rank's frame and the
+        step's gradients and losses are the ranks' means: the rank-per-process
+        form of JAX's ``step`` over a list of ``data_parallel`` frames."""
         self.maybe_subdivide()
         self.params, self.opt_state, total, losses = self._step_fn(
             self.params, self.opt_state, self.statics, self.lpips_params, batch, float(self.i_iter)
         )
         if _DEBUG_BINNING:
-            dropped = sum(int(losses[k]) for k in ("bin_drop_budget", "bin_drop_buffer", "bin_drop_ncmax"))
+            # float: under a rank group the counters are means over the ranks
+            dropped = sum(float(losses[k]) for k in ("bin_drop_budget", "bin_drop_buffer", "bin_drop_ncmax"))
             if dropped:
                 raise RuntimeError(
-                    f"binning dropped {dropped} entries at iter {self.i_iter}: raise max_tiles_per_gaussian / "
+                    f"binning dropped {dropped:g} entries at iter {self.i_iter}: raise max_tiles_per_gaussian / "
                     f"buffer_factor / the kernels' NCMAX (GOMAVATAR_DEBUG_BINNING=1 makes this fatal)"
                 )
         self.i_iter += 1
@@ -169,6 +197,9 @@ class Trainer:
     # -- checkpointing -------------------------------------------------------
 
     def save(self, ckpt_dir: str):
+        """Write a checkpoint (on rank 0 only under a rank group)."""
+        if self.group is not None and self.group.rank != 0:
+            return
         ckpt_lib.save_checkpoint(ckpt_dir, self.i_iter, self.params, self.opt_state, self.phase)
 
     def _replay_and_restore(self, path: str):
