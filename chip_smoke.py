@@ -115,15 +115,36 @@ Phases, each fatal on failure:
      e. with 2 cards or more: 7b-7d over 2 cards with NCCL and ``cli.train
         --data_parallel 2`` for 2 steps over the 5a capture; with one card a
         line says it did not run.
+  8. the end-to-end demonstration chain (``gomavatar_tpu_torch.tools``),
+     each run with every launch count set to 0 just before and read just
+     after:
+     a. ``overfit_check`` at its defaults (two frames at 128^2, 400 steps):
+        more than +5 dB of train-view PSNR, B2a-B5 once per step;
+     b. ``run_e2e`` at 512^2 at full width on a short schedule (its first
+        line lists the cuts): the teacher capture (B1 once per frame, four
+        544^2 windows per raw frame), train through the subdivision, resume,
+        the five evaluations, the noisy chain, export, the report; every
+        stage ends, 0 dropped in the teacher renders, every logged step and
+        every evaluation, the faces x4 at the split, B2a-B5 once per train
+        and pose step and B1 once per render, and the exported avatar
+        reloaded by ``convert.load_trained`` renders evaluate's frame;
+     c. B1 at the raw capture's 544^2 windows (1,156 tiles, x4 budgets, one
+        binning band): the teacher's first raw frame from novel view 1 over
+        8b's capture, its four windows through ``gom_forward(train=False)``
+        (B1a and B1b once per window, 0 dropped, finite), then the busiest
+        window with an active tile id past 1,023 (else the busiest) through
+        B1 and its plain version on the same entries, held to B1's criteria
+        as in phase 2.
 Kernel times are CUDA events around back-to-back calls after a warm-up;
 each part of a two-launch kernel also prints its device time (the calls
 queued behind a device-side sleep) beside it, as a diagnostic.
-Each phase prints its seconds.  The last eight lines are phase 7's numbers
-as JSON, the pose and animation numbers as JSON, the drivers' numbers as
-JSON, the forward timings as JSON, the train-step timings as JSON, the
-kernels JSON line (each kernel's launches on phase 7's paths under
-``parallel_launches``), the card line and the result JSON.  Without a CUDA
-card it exits non-zero and prints no result.
+Each phase prints its seconds.  The last nine lines are phase 8's numbers
+as JSON, phase 7's numbers as JSON, the pose and animation numbers as
+JSON, the drivers' numbers as JSON, the forward timings as JSON, the
+train-step timings as JSON, the kernels JSON line (each kernel's launches
+on phase 7's paths under ``parallel_launches``, on phase 8's under
+``e2e_launches``), the card line and the result JSON.  Without a CUDA card
+it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -2355,6 +2376,245 @@ def parallel_launches(k: str, launches: dict) -> dict:
     return {"7a world 1": total(launches["7a"]), "7b world 2": [total(c) for c in launches["7b"]]}
 
 
+# ---- phase 8: the end-to-end demonstration chain -------------------------------
+
+# 8b: run_e2e at 512^2 at full width (the capture's 14,400-face body, 57,600
+# faces after the split) on a short schedule: E2E_FRAMES train and
+# E2E_TEST_FRAMES test frames, E2E_ITERS iterations with the subdivision at
+# E2E_SUBDIV, both kick-ins at E2E_KICK and the non-rigid full band at
+# E2E_BAND, the resume E2E_RESUME more, a periodic eval every E2E_EVAL_FREQ,
+# the yaml's test-split skip of 4 (one frame of E2E_TEST_FRAMES), the raw
+# capture's frame from both novel views, freeview and MDM on E2E_CLIP
+# frames, train_pose on E2E_POSE_FRAMES frame of E2E_POSE_ITERS steps, the
+# control off
+E2E_FRAMES, E2E_TEST_FRAMES, E2E_ITERS, E2E_SUBDIV, E2E_KICK, E2E_BAND = 6, 4, 40, 21, 25, 35
+E2E_RESUME, E2E_EVAL_FREQ, E2E_CLIP, E2E_POSE_FRAMES, E2E_POSE_ITERS = 5, 20, 2, 1, 10
+# the capture's body (make_e2e_data's default)
+E2E_BODY = (144, 48)
+E2E_CUTS = (f"cut from configs/exps/e2e_synthetic.yaml: {E2E_FRAMES} train / {E2E_TEST_FRAMES} test frames (of 100 / "
+            f"24), {E2E_ITERS} iterations (of 6,000), the subdivision at {E2E_SUBDIV} (1,001), the kick-ins at "
+            f"{E2E_KICK} and the full band at {E2E_BAND} (2,000, 3,000 / 4,000), the resume +{E2E_RESUME} (+100), a "
+            f"periodic eval every {E2E_EVAL_FREQ} (1,000), freeview and MDM on {E2E_CLIP} frames (30, 6), train_pose "
+            f"{E2E_POSE_FRAMES} frame x {E2E_POSE_ITERS} steps (6 x 300), the control off; widths, faces and 512^2 "
+            f"kept")
+E2E_DIR = "build/smoke_e2e"  # under the checkout, gitignored
+# the exported avatar's render against evaluate's PNG of the same frame:
+# equal 8-bit levels on >= 99.9 % of values, none more than 1 apart
+E2E_PNG_FRAC = 0.999
+
+
+def e2e_yaml(root: str) -> str:
+    """configs/exps/e2e_synthetic.yaml with E2E_CUTS applied, its capture
+    and logs under ``root``; returns its path."""
+    import shutil
+
+    import yaml
+
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    with open("configs/exps/e2e_synthetic.yaml") as f:
+        cfg = yaml.safe_load(f)
+    cfg["log_dir"] = f"{root}/log"
+    for d in cfg["dataset"].values():
+        for k in ("dataset_path", "raw_dataset_path", "pose_path"):
+            if k in d:
+                d[k] = d[k].replace("data/e2e", f"{root}/data", 1)
+    cfg["dataset"]["test_pose"]["skip"] = 1
+    m = cfg["model"]
+    m["subdivide_iters"] = [E2E_SUBDIV]
+    m["pose_refinement"]["kick_in_iter"] = E2E_KICK
+    m["non_rigid"]["kick_in_iter"] = E2E_KICK
+    m["non_rigid"]["full_band_iter"] = E2E_BAND
+    cfg["pose"]["iters"] = E2E_POSE_ITERS
+    cfg["pose"]["decay"] = E2E_POSE_ITERS // 2
+    cfg["train"].update(total_iters=E2E_ITERS, log_freq=1, eval_freq=E2E_EVAL_FREQ, save_freq=E2E_EVAL_FREQ)
+    path = f"{root}/e2e_smoke.yaml"
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return path
+
+
+def e2e_export_render(art: str, save_dir: str, bgcolor, device="cuda"):
+    """Phase 8b: the exported avatar read back by ``convert.load_trained``
+    and its packed frame rendered, against the PNG ``cli.evaluate --type
+    train`` wrote for the same frame."""
+    from PIL import Image
+
+    from gomavatar_tpu_torch.convert import load_trained, trained_meta
+    from gomavatar_tpu_torch.eval_lib import to_8b_image
+    from gomavatar_tpu_torch.losses import unpack
+    from gomavatar_tpu_torch.models.gom import gom_forward
+
+    meta = trained_meta(art)
+    params, statics, cfg, frame = load_trained(art, device)
+    with torch.no_grad():
+        rgb, mask, aux = gom_forward(params, statics, cfg, frame["K"], frame["E"], frame["cnl_gtfms"], frame["dst_Rs"],
+                                     frame["dst_Ts"], dst_posevec=frame["dst_posevec"], i_iter=float(meta["iter"]),
+                                     device=device)
+    bg = torch.as_tensor(np.asarray(bgcolor, np.float32) / 255.0, device=device)
+    got = to_8b_image(unpack(rgb, mask, bg, clamp=True).cpu().numpy()).astype(np.int32)
+    want = np.asarray(Image.open(f"{save_dir}/eval/train/frame_000000.png")).astype(np.int32)
+    d = np.abs(got - want)
+    same = float((d == 0).mean())
+    print(f"  export: {art} (iter {meta['iter']}, phase {meta['phase']}, {cfg.num_faces} faces) reloaded by "
+          f"load_trained; its frame against evaluate's frame_000000.png: {same * 100:.4f} % of values equal, worst "
+          f"{int(d.max())} levels")
+    require(int(aux["binning"].total_dropped()) + int(aux["tile_overflow"]) == 0, "export: the render dropped entries")
+    require(same >= E2E_PNG_FRAC and int(d.max()) <= 1, "export: the reloaded avatar renders another frame")
+    return {"equal_frac": same, "worst": int(d.max())}
+
+
+def e2e_window_b1(data_dir: str, img, device="cuda"):
+    """Phase 8c: B1 at the 544^2 windows of the raw capture's 2x frames,
+    the teacher's first raw frame from novel view 1 as ``make_e2e_data``
+    renders it, its four windows through the eval forward (launches
+    counted), then the busiest window's entries through B1 and its plain
+    version (``compare_b1``)."""
+    import pickle
+
+    from gomavatar_tpu_torch.data.dataset import get_canonical_global_tfms_np
+    from gomavatar_tpu_torch.models.smpl import synthetic_body
+    from gomavatar_tpu_torch.tools import make_e2e_data as D
+
+    params, statics, gom_cfg = D.teacher_model(synthetic_body(*E2E_BODY), img=img, device=device)
+    with open(f"{data_dir}/train/mesh_infos.pkl", "rb") as f:
+        mesh_infos = pickle.load(f)
+    names = D.raw_pose_names(mesh_infos)
+    mi = mesh_infos[names[0]]
+    K, Es, frame_hw = D.raw_cameras(img)
+    E, Rs, Ts, posevec = D.raw_frame_inputs(mi, Es[1])
+    cnl = get_canonical_global_tfms_np(np.asarray(mesh_infos[names[0]]["tpose_joints"], np.float32))
+    window, quads = D.quadrant_windows(K, frame_hw)
+    cfg2 = D.window_cfg(gom_cfg, window)
+
+    def on_card(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+    frames = [{"K": on_card(Kq), "E": on_card(E), "cnl_gtfms": on_card(cnl), "dst_Rs": on_card(Rs),
+               "dst_Ts": on_card(Ts), "dst_posevec": on_card(posevec)} for Kq, *_ in quads]
+    outs, launches, seconds = counted(lambda: [forward(params, statics, cfg2, f, device) for f in frames])
+    W, H = cfg2.img_size
+    for (_, origin, _), (rgb, mask, aux) in zip(quads, outs):
+        dropped = int(aux["binning"].total_dropped()) + int(aux["tile_overflow"])
+        print(f"  window at {origin}: rgb {tuple(rgb.shape)} mean {float(rgb.mean()):.4f}, mask mean "
+              f"{float(mask.mean()):.4f}, dropped {dropped}")
+        require(rgb.shape == (H, W, 3) and mask.shape == (H, W), "8c: wrong window shape")
+        require(bool(torch.isfinite(rgb).all() and torch.isfinite(mask).all()), "8c: non-finite window")
+        require(dropped == 0, "8c: a window dropped entries")
+    print(f"  the four windows: {seconds:.2f} s; launches {launches}")
+    require(launches["B1a"] == launches["B1b"] == len(quads), "8c: B1 not launched once per window")
+
+    with torch.no_grad():
+        inputs = [frame_inputs(params, statics, cfg2, f)[:2] for f in frames]
+    # the highest active tile id of each window: ids from 1,024 on set the
+    # sign bit of the sort key's tile field (ROADMAP C)
+    top = [int(b.active_id[:int(b.n_active)].max()) if int(b.n_active) else -1 for _, b in inputs]
+    for (_, origin, _), (_, b), t in zip(quads, inputs, top):
+        print(f"  window at {origin}: {int(b.n_active)} active tiles, the highest id {t}")
+    # the busiest window among those with a tile id past 1,023
+    i = max(range(len(inputs)), key=lambda j: (top[j] >= 1024, int(inputs[j][1].n_active)))
+    table, bins = inputs[i]
+    tiles = bins.num_tiles_x * bins.num_tiles_y
+    print(f"  window at {quads[i][1]}: {tiles} tiles, {int(bins.n_active)} active of the cap {cfg2.active_tile_cap}, "
+          f"budget {cfg2.max_tiles_per_gaussian} tiles a splat, band0 {cfg2.binning_band0}")
+    require(tiles == 34 * 34, "8c: the window is not 1,156 tiles")
+    worst, timed = compare_b1(f"raw window {W}x{H}", table, bins, cfg2.img_size)
+    return {"window": [W, H], "tiles": tiles, "n_active": int(bins.n_active), "top_tile": top[i],
+            "max_abs_err": worst, "ms": timed["ms"], "plain_ms": timed["plain_ms"], "seconds": seconds,
+            "launches": launches}
+
+
+def phase_e2e(device="cuda"):
+    """Phase 8: the end-to-end demonstration chain on the card: 8a the
+    learning check at its defaults, 8b ``run_e2e`` on a short schedule."""
+    from gomavatar_tpu_torch.config import make_cfg
+    from gomavatar_tpu_torch.models.smpl import synthetic_body
+    from gomavatar_tpu_torch.tools import make_e2e_report, overfit_check, run_e2e
+
+    out = {}
+    t0 = time.perf_counter()
+    print("[8a] overfit_check at its defaults (128^2, 400 steps), +5 dB required")
+    r, launches, seconds = counted(lambda: overfit_check.main(["--device", device]))
+    print(f"  overfit_check: PSNR {r['psnr_before']:.4f} -> {r['psnr_after']:.4f} dB after {r['iters']} steps "
+          f"({r['it_per_s']:.2f} it/s), {seconds:.2f} s; launches {launches}")
+    require(r["psnr_after"] > r["psnr_before"] + 5.0, "overfit_check: less than +5 dB")
+    for k in TRAIN_KERNELS:
+        require(launches[k] == r["iters"], f"overfit_check did not launch {k} once per step")
+    # the two targets' masks and the PSNR before and after, per frame
+    require(launches["B1a"] == launches["B1b"] == 6, "overfit_check did not launch B1 once per render")
+    out["8a"] = dict(r, seconds=seconds, launches=launches)
+    print(f"  phase 8a: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    print(f"[8b] {E2E_CUTS}")
+    print("  run_e2e at 512^2: datagen, train, resume, the five evaluations, the noisy chain, export, report")
+    cfg_path = e2e_yaml(E2E_DIR)
+    art = f"{E2E_DIR}/e2e_trained.npz"
+    res, launches, seconds = counted(lambda: run_e2e.main([
+        "--cfg", cfg_path, "--data", f"{E2E_DIR}/data", "--art", art, "--resume_iters", str(E2E_ITERS + E2E_RESUME),
+        "--freeview_frames", str(E2E_CLIP), "--pose_frames", str(E2E_POSE_FRAMES), "--control", "0",
+        "--datagen_args", f"--frames {E2E_FRAMES} --test_frames {E2E_TEST_FRAMES} --mdm_frames {E2E_CLIP} "
+        f"--rings {E2E_BODY[0]} --segs {E2E_BODY[1]}",
+        "--device", device]))
+    cfg = make_cfg(cfg_path)
+    gen, rep = res["datagen"], res["report"]
+    print(f"  run_e2e: {seconds:.2f} s of wall time; launches {launches}")
+    print("  stages (s): " + ", ".join(f"{k} {v:.2f}" for k, v in res["seconds"].items()))
+    print(f"  datagen: {gen['train']} train, {gen['test']} test, {gen['zju_raw']} raw frames (four 544^2 windows "
+          f"each), none dropped (it raises on a drop); decode of the train split {res['decode']['items_per_s']:.2f} items/s "
+          f"({res['decode']['path']})")
+    print(f"  train: {res['train']}; resume: {res['resume']}; events "
+          f"{[(k, it, info) for k, it, info in rep['events']]}; drops over {rep['iters']} logged steps {rep['drops']}")
+    for tag, r in res["evals"].items():
+        print(f"  evaluate {tag}: {r['frames']} frames, dropped {r['dropped']}, metrics "
+              f"{ {k: round(v, 4) for k, v in r['metrics'].items()} }")
+    print(f"  train_pose: {res['pose']['frames']} frame x {res['pose']['iters']} steps, dropped "
+          f"{res['pose']['dropped']}, metrics {res['pose']['metrics']}")
+
+    base = len(synthetic_body(*E2E_BODY)["faces"])  # 14,400
+    require(rep["drops"] == 0, "run_e2e: the binning dropped entries in a train step")
+    require(rep["iters"] == E2E_ITERS + E2E_RESUME, "run_e2e: not every step was logged")
+    require(("subdivide", E2E_SUBDIV, f"{base} -> {4 * base} faces") in rep["events"],
+            "run_e2e: the faces did not go x4 at the split")
+    require(res["train"] == {"i_iter": E2E_ITERS, "phase": 1, "num_faces": 4 * base}
+            and res["resume"] == {"i_iter": E2E_ITERS + E2E_RESUME, "phase": 1, "num_faces": 4 * base},
+            "run_e2e: wrong iteration, phase or face count after train or resume")
+    for tag, r in res["evals"].items():
+        require(r["dropped"] == 0 and r["num_faces"] == 4 * base, f"run_e2e: evaluate {tag} dropped or lost faces")
+        if tag not in ("freeview", "pose_mdm"):
+            require(r["metrics"] and all(np.isfinite(v) for v in r["metrics"].values()),
+                    f"run_e2e: non-finite {tag} metrics")
+    require(res["pose"]["dropped"] == [0] * E2E_POSE_FRAMES, "run_e2e: train_pose dropped entries")
+
+    steps = E2E_ITERS + E2E_RESUME + E2E_POSE_FRAMES * E2E_POSE_ITERS
+    _, events = make_e2e_report.parse_train_log(f"{cfg['save_dir']}/log.txt")
+    periodic = sum(kind == "eval:test_on_train" for kind, *_ in events)
+    require(periodic == E2E_ITERS // E2E_EVAL_FREQ, f"run_e2e: {periodic} periodic evals")
+    train_items = E2E_FRAMES - E2E_FRAMES // 5
+    b1 = (gen["train"] + gen["test"] + 4 * gen["zju_raw"]
+          + periodic * (min(4, train_items) + min(8, -(-E2E_TEST_FRAMES // cfg["dataset"]["test_view"]["skip"])))
+          + sum(r["frames"] for r in res["evals"].values()) + 3 * E2E_POSE_FRAMES)
+    for k in TRAIN_KERNELS:
+        require(launches[k] == steps, f"run_e2e: {k} launched {launches[k]} times for {steps} train and pose steps")
+    require(launches["B1a"] == launches["B1b"] == b1, f"run_e2e: B1 launched {launches['B1a']} times for {b1} renders")
+    out["8b"] = {"seconds": seconds, "stages": res["seconds"], "decode": res["decode"], "launches": launches,
+                 "metrics": {tag: r["metrics"] for tag, r in res["evals"].items()}, "pose": res["pose"]["metrics"],
+                 "export": e2e_export_render(art, cfg["save_dir"], cfg["bgcolor"], device)}
+    print(f"  phase 8b: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    print("[8c] B1 at the raw capture's 544^2 windows: the teacher's raw frame, B1 vs its plain version")
+    out["8c"] = e2e_window_b1(f"{E2E_DIR}/data", tuple(cfg["img_size"]), device)
+    print(f"  phase 8c: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def e2e_launches(k: str, e2e: dict) -> dict:
+    """Kernel ``k``'s launches (its parts' sum) in 8a, 8b and 8c."""
+    parts = [k] if k == "B5" else [f"{k}a", f"{k}b"]
+    return {p: sum(e2e[p]["launches"][q] for q in parts) for p in ("8a", "8b", "8c")}
+
+
 KERNELS = {
     "B1": ("B1 frame_render (B1a partials + B1b merge)", "gomavatar_tpu_torch/csrc/frame_render.cu",
            "gomavatar_tpu/ops/frame_render.py:74"),
@@ -2422,6 +2682,9 @@ def main() -> int:
     t0 = time.perf_counter()
     parallel = phase_parallel(trained, train["median_ms"], f"{DRIVER_DIR}/exp.yaml")
     done(7, t0)
+    t0 = time.perf_counter()
+    e2e = phase_e2e()
+    done(8, t0)
 
     measured = {"B1": dict(b1, launches=b1_launches["B1"])}
     for k in ("B2", "B3", "B4", "B5"):
@@ -2444,7 +2707,9 @@ def main() -> int:
         if "parts" in m:
             entry["parts"] = m["parts"]
         entry["parallel_launches"] = parallel_launches(k, parallel["launches"])
+        entry["e2e_launches"] = e2e_launches(k, e2e)
         result["kernels"].append(entry)
+    print(json.dumps({"e2e": e2e}))
     print(json.dumps({"parallel": parallel}))
     print(json.dumps({"pose": pose, "animate": animate}))
     print(json.dumps({"drivers": drivers}))

@@ -137,7 +137,8 @@ def main(argv=None) -> dict:
     ap.add_argument(
         "--dataset_path", default=None,
         help="override the test split directory, e.g. with a split whose poses carry noise "
-        "(tools/make_e2e_data.py --pose_noise), so that refinement has inaccurate poses to recover",
+        "(gomavatar_tpu_torch.tools.make_e2e_data --pose_noise), so that refinement has inaccurate poses to "
+        "recover",
     )
     ap.add_argument("--device", default="cuda", help="torch device: cuda (the default) or cpu")
     args = ap.parse_args(argv)

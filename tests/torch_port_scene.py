@@ -160,3 +160,17 @@ def assert_bins_identical(j, t):
         for p in range(n):
             s, c = st[p], ct[p]
             np.testing.assert_array_equal(a[s : s + c], b[s : s + c], err_msg=f"{name} slot {p}")
+
+
+def tree_leaves_by_path(tree, prefix=""):
+    """(path, leaf) pairs of nested dicts and lists, dict keys sorted, list
+    positions as path segments: the same tree of JAX arrays, numpy arrays or
+    tensors gives the same paths."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_leaves_by_path(tree[k], f"{prefix}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from tree_leaves_by_path(v, f"{prefix}/{i}")
+    else:
+        yield prefix, tree
