@@ -62,9 +62,10 @@ Phases, each fatal on failure:
         Trainer bit-equal to the run's; then the host decode of one item
         and the steady loop's steps/s over two logged windows of 10;
      d. the phase change on the card: the gate scene from init with
-        subdivide_iters [2], 4 steps on the card and on the CPU, the loss
-        terms close at every step, the faces x4 from step 2 on, every
-        train kernel once per step.
+        subdivide_iters [2], 4 steps on the card, each also taken on the
+        CPU from the card's state, the loss terms and every leaf's gradient
+        (from Adam's first moments) close at every step, the faces x4 from
+        step 2 on, every train kernel once per step.
   6. pose refinement and animation, each run with every launch count set
      to 0 just before and read just after:
      a. the gate scene's pose loss (``cli.train_pose.frame_loss``: rgb and
@@ -135,16 +136,30 @@ Phases, each fatal on failure:
         window with an active tile id past 1,023 (else the busiest) through
         B1 and its plain version on the same entries, held to B1's criteria
         as in phase 2.
+  9. the seeded draws (``gomavatar_tpu_torch.prng``, the port's copy of
+     ``jax.random``; there is no JAX on the card's machine):
+     a. the e2e teacher's shadow MLP drawn from ``prng.key(7)`` bit-equal to
+        JAX's draw (``weights/e2e_teacher_shadow.npz``);
+     b. every draw of the witness ``weights/prng_witness.npz`` (JAX's split,
+        bits, uniform and normal for six seeds, and the first and last 64
+        values of each LPIPS conv draw) bit-equal to the port's;
+     c. the random VGG16 (14.7 M normals) and AlexNet trunks' draw times on
+        the host;
+     d. ``tools/tune_trained_budgets`` on JAX's trained avatar at 512^2 at
+        the budgets 32, 40 and 48, with every launch count set to 0 just
+        before and read just after: each setting's counters (0 dropped
+        required) and forward median and p90, B1a and B1b once per forward.
 Kernel times are CUDA events around back-to-back calls after a warm-up;
 each part of a two-launch kernel also prints its device time (the calls
 queued behind a device-side sleep) beside it, as a diagnostic.
-Each phase prints its seconds.  The last nine lines are phase 8's numbers
-as JSON, phase 7's numbers as JSON, the pose and animation numbers as
-JSON, the drivers' numbers as JSON, the forward timings as JSON, the
-train-step timings as JSON, the kernels JSON line (each kernel's launches
-on phase 7's paths under ``parallel_launches``, on phase 8's under
-``e2e_launches``), the card line and the result JSON.  Without a CUDA card
-it exits non-zero and prints no result.
+Each phase prints its seconds. The last ten lines are phase 9's numbers as
+JSON, phase 8's numbers as JSON, phase 7's numbers as JSON, the pose and
+animation numbers as JSON, the drivers' numbers as JSON, the forward
+timings as JSON, the train-step timings as JSON, the kernels JSON line
+(each kernel's launches on phase 7's paths under ``parallel_launches``, on
+phase 8's under ``e2e_launches``, in 9d under ``sweep_launches``), the card
+line and the result JSON. Without a CUDA card it exits non-zero and prints
+no result.
 """
 
 from __future__ import annotations
@@ -1491,14 +1506,35 @@ def phase_driver_loop(cfg_path: str, device="cuda"):
     return {"decode_ms_per_item": decode_ms, "steps": steps, "it_per_s_logged": rates[1:], "seconds": seconds}
 
 
+def copy_train_state(src, dst):
+    """``dst``'s params, Adam state and iteration set to ``src``'s, on
+    ``dst``'s device."""
+    def to(x):
+        if isinstance(x, dict):
+            return {k: to(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(to(v) for v in x)
+        return x.detach().to(dst.device).clone()
+
+    dst.params = to(src.params)
+    dst.opt_state = src.opt_state._replace(mu=to(src.opt_state.mu), nu=to(src.opt_state.nu))
+    dst.i_iter = src.i_iter
+
+
 def phase_change_on_card(device="cuda"):
     """Phase 5d: a fresh gate-scene Trainer (its per-face so3, scale and
     colors from numpy seed 0) with subdivide_iters [PHASE_AT], PHASE_STEPS
-    steps on the card and the same steps on the CPU: every loss term close
-    at every step, the faces x4 from step PHASE_AT on in both, every train
-    kernel launched once at every step on the card."""
+    steps on the card, each step also taken on the CPU from the card's state
+    (params, Adam state, iteration): every loss term and every leaf's
+    gradient close at every step, the faces x4 from step PHASE_AT on in
+    both, every train kernel launched once at every step on the card.  The
+    gradient is read from Adam's first moments, which both sides update
+    from the same moments: mu' = 0.9 mu + 0.1 g.  Each step starts from the
+    card's state because the free-running four-step trajectories parted
+    past rtol 1e-3 in one run (step 3's rgb loss, after the subdivision)."""
     from gomavatar_tpu_torch.models.lpips import load_lpips
     from gomavatar_tpu_torch.models.smpl import synthetic_body
+    from gomavatar_tpu_torch.optim import B1
     from gomavatar_tpu_torch.scene import gate_frame, gate_model_cfg, trained_train_cfg
     from gomavatar_tpu_torch.trainer import Trainer
 
@@ -1513,20 +1549,22 @@ def phase_change_on_card(device="cuda"):
     faces0 = card.gom_cfg.num_faces
     frame = gate_frame(info, device=device)
     batch = train_batch(card.params, card.statics, card.gom_cfg, frame, perturbed_frames(frame)[1])
-    runs = []
-    for tr in (card, host):
-        b = {k: v.to(tr.device) for k, v in batch.items()}
-        steps = []
-        for i in range(PHASE_STEPS):
-            if tr is card:
-                (total, losses), launches, _ = counted(lambda: tr.step(b))
-                for k in ("B2a", "B2b", "B3a", "B3b", "B4a", "B4b", "B5"):
-                    require(launches[k] == 1, f"phase change, step {i}: {k} launched {launches[k]} times")
-            else:
-                total, losses = tr.step(b)
-            steps.append(({"total": float(total), **{k: float(v) for k, v in losses.items()}}, tr.gom_cfg.num_faces))
-        runs.append(steps)
-    for i, ((lc, fc), (lh, fh)) in enumerate(zip(*runs)):
+    host_batch = {k: v.to("cpu") for k, v in batch.items()}
+
+    def losses_of(total, losses):
+        return {"total": float(total), **{k: float(v) for k, v in losses.items()}}
+
+    worst_grad = []
+    for i in range(PHASE_STEPS):
+        card.maybe_subdivide()
+        host.maybe_subdivide()
+        copy_train_state(card, host)
+        mu0 = host.opt_state.mu
+        (total, losses), launches, _ = counted(lambda: card.step(batch))
+        for k in ("B2a", "B2b", "B3a", "B3b", "B4a", "B4b", "B5"):
+            require(launches[k] == 1, f"phase change, step {i}: {k} launched {launches[k]} times")
+        lc, fc = losses_of(total, losses), card.gom_cfg.num_faces
+        lh, fh = losses_of(*host.step(host_batch)), host.gom_cfg.num_faces
         want = faces0 * (4 if i >= PHASE_AT else 1)
         print(f"  step {i}: {fc} faces on the card, {fh} on the CPU; " + ", ".join(
             f"{k} {lc[k]:.6g}/{lh[k]:.6g}" for k in lc if not k.startswith("bin_drop")))
@@ -1536,9 +1574,22 @@ def phase_change_on_card(device="cuda"):
             rtol = STEP_LPIPS_RTOL if k in ("lpips", "total") else STEP_RTOL
             require(abs(lc[k] - lh[k]) <= rtol * abs(lh[k]) + 1e-7,
                     f"phase change, step {i}: {k} differs between the card and the CPU by more than rtol {rtol:g}")
+        rels = []
+        for j, (mc, mh, m0) in enumerate(zip(card.opt_state.mu, host.opt_state.mu, mu0)):
+            mc = mc.cpu()
+            require(bool(torch.isfinite(mc).all()), f"phase change, step {i}: non-finite gradient in leaf {j}")
+            g_host = (mh - B1 * m0) / (1.0 - B1)
+            rels.append(float(torch.linalg.norm((mc - mh) / (1.0 - B1))
+                              / torch.clamp_min(torch.linalg.norm(g_host), 1e-30)))
+        worst = max(range(len(rels)), key=rels.__getitem__)
+        print(f"    gradients, relative L2 difference per leaf: " + " ".join(f"{r:.2g}" for r in rels))
+        require(rels[worst] <= STEP_GRAD_REL,
+                f"phase change, step {i}: leaf {worst} gradient off by {rels[worst]:.3g} of its norm")
+        worst_grad.append(rels[worst])
     print(f"  the phase change ran on the card at step {PHASE_AT}: {faces0} -> {4 * faces0} faces, each loss term "
-          f"within rtol {STEP_RTOL:g} (LPIPS and the total {STEP_LPIPS_RTOL:g}) of the CPU's at every step")
-    return {"faces": [faces0, 4 * faces0], "steps": PHASE_STEPS}
+          f"within rtol {STEP_RTOL:g} (LPIPS and the total {STEP_LPIPS_RTOL:g}) and each leaf's gradient within "
+          f"{STEP_GRAD_REL:g} of its norm of the CPU's step from the card's state at every step")
+    return {"faces": [faces0, 4 * faces0], "steps": PHASE_STEPS, "worst_grad_rel": worst_grad}
 
 
 def phase_drivers(device="cuda"):
@@ -1564,7 +1615,7 @@ def phase_drivers(device="cuda"):
     print(f"  phase 5c: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     print(f"[5d] the phase change on the card: the gate scene from init, subdivide_iters [{PHASE_AT}], {PHASE_STEPS} "
-          f"steps on the card and on the CPU")
+          f"steps on the card, each also on the CPU from the card's state")
     out["phase_change"] = phase_change_on_card(device)
     print(f"  phase 5d: {time.perf_counter() - t0:.1f} s")
     return out
@@ -2609,6 +2660,81 @@ def phase_e2e(device="cuda"):
     return out
 
 
+# ---- phase 9: the seeded draws ---------------------------------------------------
+
+# the budget sweep on JAX's avatar: the default budget and two past its floor
+SWEEP_SETTINGS = ((32, 4, 512), (40, 4, 512), (48, 4, 512))
+SWEEP_ITERS, SWEEP_WARMUP = 20, 3
+
+
+def phase_seeded_draws(device="cuda"):
+    """Phase 9: the port's copy of JAX's seeded draws on the card's host
+    (no JAX there): 9a the e2e teacher's shadow MLP drawn from
+    ``prng.key(7)`` against JAX's draw, ``weights/e2e_teacher_shadow.npz``;
+    9b every draw of the witness ``weights/prng_witness.npz`` (JAX's split,
+    bits, uniform and normal for six seeds, and the edges of each LPIPS
+    conv draw); 9c the random VGG16 and AlexNet trunks' draw times; 9d the
+    budget sweep (``tools/tune_trained_budgets``) on JAX's trained avatar at
+    512^2 through B1, launches counted."""
+    from gomavatar_tpu_torch.convert import TRAINED, load_trained, unflatten_params
+    from gomavatar_tpu_torch.models import lpips
+    from gomavatar_tpu_torch.models.smpl import synthetic_body
+    from gomavatar_tpu_torch.tools import make_e2e_data as D
+    from gomavatar_tpu_torch.tools import prng_witness
+    from gomavatar_tpu_torch.tools import tune_trained_budgets as TT
+
+    out = {}
+    print("[9a] the e2e teacher's shadow MLP drawn from prng.key(7) against JAX's draw")
+    params, _, cfg = D.teacher_model(synthetic_body(*E2E_BODY), device=device)
+    with np.load(D.TEACHER_SHADOW) as npz:
+        want = unflatten_params(npz)["shadow"]["layers"]
+    got = params["shadow"]["layers"]
+    same = len(got) == len(want) and all(
+        np.array_equal(g[k].cpu().numpy(), w[k]) for g, w in zip(got, want) for k in ("w", "b"))
+    n = sum(w[k].size for w in want for k in ("w", "b"))
+    print(f"  teacher ({cfg.num_faces} faces): {len(got)} shadow layers, {n} values, bit-equal to "
+          f"{D.TEACHER_SHADOW.name}: {same}")
+    require(same, "9a: the teacher's shadow MLP is not JAX's draw")
+    out["9a"] = {"layers": len(got), "values": n, "equal": same}
+
+    print("[9b] the port's draws against JAX's witness")
+    bad = prng_witness.mismatches()
+    with np.load(prng_witness.WITNESS) as z:
+        names = len(z.files)
+    print(f"  {prng_witness.WITNESS.name}: {names - len(bad)} of {names} draws bit-equal"
+          + (f"; differ: {bad}" if bad else ""))
+    require(not bad, "9b: the port's draws differ from JAX's witness")
+    out["9b"] = {"draws": names, "differ": bad}
+
+    print("[9c] the random LPIPS trunks drawn on the host")
+    draw = {}
+    for name, seed, shapes in (("vgg", 1234, lpips.vgg_shapes()), ("alex", 4321, lpips.alex_shapes())):
+        t = time.perf_counter()
+        ws = lpips.random_trunk.__wrapped__(seed, tuple(shapes))
+        draw[name] = {"seconds": time.perf_counter() - t, "values": int(sum(w.size for w in ws))}
+        print(f"  {name}: {draw[name]['values']} normals in {draw[name]['seconds']:.3f} s")
+    out["9c"] = draw
+
+    print(f"[9d] the budget sweep on JAX's trained avatar at 512^2: {SWEEP_SETTINGS} (max_tiles_per_gaussian, "
+          f"band0, active_tile_cap), {SWEEP_ITERS} timed forwards each after {SWEEP_WARMUP}")
+    params, statics, cfg, frame = load_trained(TRAINED, device)
+    span = TT.widest_span(params, statics, cfg, frame)
+    rows, launches, seconds = counted(lambda: TT.sweep(params, statics, cfg, frame, SWEEP_SETTINGS, SWEEP_ITERS,
+                                                       SWEEP_WARMUP, device))
+    print(f"  the widest splat spans {span} tiles; {seconds:.2f} s; launches {launches}")
+    for r in rows:
+        print(f"  mtg={r['max_tiles_per_gaussian']} band0={r['binning_band0']} cap={r['active_tile_cap']}: "
+              f"dropped_budget {r['dropped_budget']}, dropped_buffer {r['dropped_buffer']}, tile_overflow "
+              f"{r['tile_overflow']}; forward median {r['median_ms']:.3f} ms, p90 {r['p90_ms']:.3f} ms")
+        require(r["dropped_budget"] + r["dropped_buffer"] + r["tile_overflow"] == 0,
+                "9d: JAX's avatar dropped entries at a budget of 32 or more")
+    forwards = len(SWEEP_SETTINGS) * (1 + SWEEP_WARMUP + SWEEP_ITERS)
+    require(launches["B1a"] == launches["B1b"] == forwards, f"9d: B1 not launched once per forward ({forwards})")
+    out["9d"] = {"avatar": str(TRAINED), "widest_span": span, "settings": rows, "launches": launches,
+                 "seconds": seconds}
+    return out
+
+
 def e2e_launches(k: str, e2e: dict) -> dict:
     """Kernel ``k``'s launches (its parts' sum) in 8a, 8b and 8c."""
     parts = [k] if k == "B5" else [f"{k}a", f"{k}b"]
@@ -2685,6 +2811,9 @@ def main() -> int:
     t0 = time.perf_counter()
     e2e = phase_e2e()
     done(8, t0)
+    t0 = time.perf_counter()
+    draws = phase_seeded_draws()
+    done(9, t0)
 
     measured = {"B1": dict(b1, launches=b1_launches["B1"])}
     for k in ("B2", "B3", "B4", "B5"):
@@ -2708,7 +2837,9 @@ def main() -> int:
             entry["parts"] = m["parts"]
         entry["parallel_launches"] = parallel_launches(k, parallel["launches"])
         entry["e2e_launches"] = e2e_launches(k, e2e)
+        entry["sweep_launches"] = sum(draws["9d"]["launches"][q] for q in ([k] if k == "B5" else [f"{k}a", f"{k}b"]))
         result["kernels"].append(entry)
+    print(json.dumps({"seeded_draws": draws}))
     print(json.dumps({"e2e": e2e}))
     print(json.dumps({"parallel": parallel}))
     print(json.dumps({"pose": pose, "animate": animate}))

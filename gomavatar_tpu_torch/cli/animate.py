@@ -39,7 +39,8 @@ from gomavatar_tpu_torch.parallel import barrier, make_multi_scene_render, rende
 
 def _synthetic_scenes(n: int, img_size, device):
     """n untrained avatars on the synthetic body of seed s, their MLP
-    weights drawn from ``torch.Generator().manual_seed(s)``."""
+    weights drawn from ``prng.key(s)``."""
+    from gomavatar_tpu_torch import prng
     from gomavatar_tpu_torch.config import default_cfg
     from gomavatar_tpu_torch.models.gom import init_gom
     from gomavatar_tpu_torch.models.smpl import synthetic_body
@@ -54,7 +55,7 @@ def _synthetic_scenes(n: int, img_size, device):
     packs, infos = [], []
     for s in range(n):
         info = synthetic_body(n_rings=24, n_seg=20, seed=s)
-        packs.append(init_gom(m, info, device, torch.Generator().manual_seed(s)))
+        packs.append(init_gom(m, info, device, prng.key(s)))
         infos.append(info)
     return packs, infos
 

@@ -25,6 +25,7 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
+from gomavatar_tpu_torch import prng
 from gomavatar_tpu_torch.models import modules as M
 from gomavatar_tpu_torch.ops.frame_render import NCMAX, render_frame_sorted
 from gomavatar_tpu_torch.ops.fused_render import frame_union_bins
@@ -174,12 +175,13 @@ def init_gom(
     model_cfg: dict,
     canonical_info: dict,
     device="cuda",
-    generator: torch.Generator | None = None,
+    key=None,
 ):
     """Build (params, statics, gom_cfg) from a model config and a canonical
     info dict (canonical_vertex (N,3), canonical_lbs_weights (N,J), faces
-    (F,3)).  MLP weights are drawn from ``generator`` (seed 0 if None)."""
-    gen = generator if generator is not None else torch.Generator().manual_seed(0)
+    (F,3)).  MLP weights are drawn from the ``prng`` key (``prng.key(0)``
+    if None), split three ways as the reference splits it."""
+    k_pr, k_nr, k_sh = prng.split(prng.key(0) if key is None else key, 3)
     vertices = np.asarray(canonical_info["canonical_vertex"], np.float32)
     faces = np.asarray(canonical_info["faces"], np.int64)
     lbs_w = np.asarray(canonical_info["canonical_lbs_weights"], np.float32)
@@ -196,11 +198,11 @@ def init_gom(
     if gom_cfg.lbs_refine:
         params["lbs_logits"] = torch.log(statics.lbs_weights + 1e-9)
     if gom_cfg.pose_refinement is not None:
-        params["pose_refinement"] = M.pose_refinement_init(gen, gom_cfg.module_cfg("pose_refinement"), device)
+        params["pose_refinement"] = M.pose_refinement_init(k_pr, gom_cfg.module_cfg("pose_refinement"), device)
     if gom_cfg.non_rigid is not None:
-        params["non_rigid"] = M.non_rigid_init(gen, gom_cfg.module_cfg("non_rigid"), device)
+        params["non_rigid"] = M.non_rigid_init(k_nr, gom_cfg.module_cfg("non_rigid"), device)
     if gom_cfg.shadow is not None:
-        params["shadow"] = M.shadow_init(gen, gom_cfg.module_cfg("shadow"), device)
+        params["shadow"] = M.shadow_init(k_sh, gom_cfg.module_cfg("shadow"), device)
     return params, statics, gom_cfg
 
 

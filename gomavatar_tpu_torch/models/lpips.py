@@ -16,17 +16,20 @@ order, from ``WEIGHTS_DIR`` (this package's ``weights/``, or
   * vgg only: the reference's five linear heads (``lpips_vgg_heads.npz``,
     7 KB, shipped with this package) on a random trunk;
   * a random trunk with uniform heads.
-A random trunk is He-scaled and drawn from a ``torch.Generator`` with a
-fixed seed (VGG 1234, AlexNet 4321).  It gives a perceptual-style training
-signal, but its values are uncalibrated.  (The JAX package's random trunk
-cannot be redrawn in torch; ``convert.lpips_from_jax`` carries it across for
-the parity tests.)
+A random trunk is He-scaled and drawn as the JAX package draws it: from
+``prng.key(1234)`` (VGG) or ``prng.key(4321)`` (AlexNet), one ``split`` per
+conv, each weight drawn in JAX's HWIO shape and then transposed to OIHW.  So
+the port's random trunk is JAX's, number for number.  It gives a
+perceptual-style training signal, but its values are uncalibrated.  Each
+trunk is drawn once per process, on the host (the VGG16 trunk's 14.7 M
+normals take a few seconds; ``chip_smoke.py`` 9c times the draw).
 
 Convolutions run in bfloat16 by default, as in the reference.
 """
 
 from __future__ import annotations
 
+import functools
 import logging
 import os
 from pathlib import Path
@@ -34,6 +37,8 @@ from pathlib import Path
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from gomavatar_tpu_torch import prng
 
 log = logging.getLogger(__name__)
 
@@ -63,20 +68,43 @@ _ALEX_CONVS = [
 _ALEX_TAP_CHANNELS = (64, 192, 384, 256, 256)
 
 
+@functools.lru_cache(maxsize=None)
+def random_trunk(seed: int, shapes: tuple) -> tuple[np.ndarray, ...]:
+    """He-scaled conv weights, HWIO, as the JAX package draws them from
+    ``PRNGKey(seed)``: ``k, sub = split(k)`` then ``normal(sub, hwio)``
+    times sqrt(2 / fan_in) in float32, conv by conv; drawn once per
+    process."""
+    k = prng.key(seed)
+    ws = []
+    for shape in shapes:
+        k, sub = prng.split(k)
+        fan_in = shape[0] * shape[1] * shape[2]
+        ws.append(prng.normal(sub, shape) * np.float32(np.sqrt(2.0 / fan_in)))
+    return tuple(ws)
+
+
+def _convs(seed: int, shapes, device):
+    """The random trunk's convs, weights OIHW on ``device``."""
+    return [{"w": torch.as_tensor(np.ascontiguousarray(w.transpose(3, 2, 0, 1)), device=device),
+             "b": torch.zeros((w.shape[3],), device=device)}
+            for w in random_trunk(seed, tuple(shapes))]
+
+
+def vgg_shapes():
+    widths = [c for c in _VGG_CFG if c != "M"]
+    return [(3, 3, c_in, c) for c_in, c in zip([3] + widths[:-1], widths)]
+
+
+def alex_shapes():
+    widths = [c for c, *_ in _ALEX_CONVS]
+    return [(ksz, ksz, c_in, c) for c_in, (c, ksz, *_) in zip([3] + widths[:-1], _ALEX_CONVS)]
+
+
 def init_lpips(heads=None, device="cuda"):
-    """Random He-scaled VGG16 trunk (conv weights OIHW) drawn from
-    ``torch.Generator`` seed 1234, with ``heads`` (five (C,) arrays) or
-    uniform 1/C heads.  Returns (params, calibrated=False)."""
-    gen = torch.Generator().manual_seed(1234)
-    convs = []
-    c_in = 3
-    for c in _VGG_CFG:
-        if c == "M":
-            continue
-        w = torch.randn((c, c_in, 3, 3), generator=gen) * float(np.sqrt(2.0 / (c_in * 9)))
-        convs.append({"w": w.to(device), "b": torch.zeros((c,), device=device)})
-        c_in = c
-    return {"convs": convs, "heads": _heads(heads, _TAP_CHANNELS, device)}, False
+    """JAX's random He-scaled VGG16 trunk (seed 1234; conv weights OIHW),
+    with ``heads`` (five (C,) arrays) or uniform 1/C heads.  Returns
+    (params, calibrated=False)."""
+    return {"convs": _convs(1234, vgg_shapes(), device), "heads": _heads(heads, _TAP_CHANNELS, device)}, False
 
 
 def _heads(heads, channels, device):
@@ -86,17 +114,11 @@ def _heads(heads, channels, device):
 
 
 def init_lpips_alex(heads=None, device="cuda"):
-    """Random He-scaled AlexNet trunk (conv weights OIHW) drawn from
-    ``torch.Generator`` seed 4321, with ``heads`` or uniform 1/C heads.
-    Returns (params, calibrated=False); the ``"alex"`` key marks the trunk."""
-    gen = torch.Generator().manual_seed(4321)
-    convs = []
-    c_in = 3
-    for c, ksz, _, _, _ in _ALEX_CONVS:
-        w = torch.randn((c, c_in, ksz, ksz), generator=gen) * float(np.sqrt(2.0 / (c_in * ksz * ksz)))
-        convs.append({"w": w.to(device), "b": torch.zeros((c,), device=device)})
-        c_in = c
-    return {"alex": (), "convs": convs, "heads": _heads(heads, _ALEX_TAP_CHANNELS, device)}, False
+    """JAX's random He-scaled AlexNet trunk (seed 4321; conv weights OIHW),
+    with ``heads`` or uniform 1/C heads.  Returns (params,
+    calibrated=False); the ``"alex"`` key marks the trunk."""
+    return {"alex": (), "convs": _convs(4321, alex_shapes(), device),
+            "heads": _heads(heads, _ALEX_TAP_CHANNELS, device)}, False
 
 
 def load_npz(path: str, device="cuda"):

@@ -31,10 +31,10 @@ def appearance_apply(params):
 
 # -- pose refinement ----------------------------------------------------------
 
-def pose_refinement_init(gen: torch.Generator, cfg, device="cuda"):
+def pose_refinement_init(key, cfg, device="cuda"):
     total = cfg["total_bones"] if cfg.get("refine_root", False) else cfg["total_bones"] - 1
     return mlp_init(
-        gen,
+        key,
         d_in=cfg["embedding_size"],
         width=cfg["mlp_width"],
         depth=cfg["mlp_depth"],
@@ -60,10 +60,10 @@ def non_rigid_embed_dim(cfg) -> int:
     return embed_dim(cfg["multires"], include_input=False)
 
 
-def non_rigid_init(gen: torch.Generator, cfg, device="cuda"):
+def non_rigid_init(key, cfg, device="cuda"):
     pe = non_rigid_embed_dim(cfg)
     return mlp_init(
-        gen,
+        key,
         d_in=pe + cfg["condition_code_size"],
         width=cfg["mlp_width"],
         depth=cfg["mlp_depth"],
@@ -102,10 +102,10 @@ def _shadow_skips(cfg) -> tuple[int, ...]:
     return tuple(s for s in cfg["skips"] if s < cfg["mlp_depth"])
 
 
-def shadow_init(gen: torch.Generator, cfg, device="cuda"):
+def shadow_init(key, cfg, device="cuda"):
     pe = shadow_embed_dim(cfg)
     return mlp_init(
-        gen,
+        key,
         d_in=pe,
         width=cfg["mlp_width"],
         depth=cfg["mlp_depth"],

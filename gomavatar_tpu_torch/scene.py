@@ -14,6 +14,7 @@ import copy
 import numpy as np
 import torch
 
+from gomavatar_tpu_torch import prng
 from gomavatar_tpu_torch.config import default_cfg
 from gomavatar_tpu_torch.convert import TRAINED, trained_meta
 from gomavatar_tpu_torch.models.gom import init_gom
@@ -80,8 +81,7 @@ def gate_frame(info: dict, img_size=(64, 64), device="cuda") -> dict:
 
 def gate_scene(img_size=(64, 64), rings=(16, 18), device="cuda", seed=0):
     """(params, statics, gom_cfg, frame) of the gate scene, weights drawn
-    from ``torch.Generator().manual_seed(seed)``."""
+    from ``prng.key(seed)``."""
     info = synthetic_body(n_rings=rings[0], n_seg=rings[1])
-    gen = torch.Generator().manual_seed(seed)
-    params, statics, gom_cfg = init_gom(gate_model_cfg(img_size), info, device=device, generator=gen)
+    params, statics, gom_cfg = init_gom(gate_model_cfg(img_size), info, device=device, key=prng.key(seed))
     return params, statics, gom_cfg, gate_frame(info, img_size, device)

@@ -14,8 +14,9 @@ of the held-out fifth of the train poses at twice the size (zju_raw/), an
 MDM pose clip (mdm_poses.npy) and the teacher's per-face state
 (teacher.npz).
 
-The teacher is the JAX package's: its shadow trunk was drawn by
-``jax.random`` and is read from ``weights/e2e_teacher_shadow.npz``; every
+The teacher is the JAX package's: its shadow trunk is drawn from
+``prng.key(seed)`` as the reference draws it from ``jax.random.PRNGKey(seed)``
+(``weights/e2e_teacher_shadow.npz`` holds JAX's own draw as a witness); every
 other leaf is procedural or drawn from numpy in the reference's order.
 
     python -m gomavatar_tpu_torch.tools.make_e2e_data --out data/e2e [--frames 100] [--device cpu]
@@ -37,9 +38,10 @@ import numpy as np
 import torch
 from PIL import Image
 
+from gomavatar_tpu_torch import prng
 from gomavatar_tpu_torch.cli.train import check_device
 from gomavatar_tpu_torch.config import default_cfg
-from gomavatar_tpu_torch.convert import params_from_jax, unflatten_params
+from gomavatar_tpu_torch.convert import params_from_jax
 from gomavatar_tpu_torch.data.dataset import (
     TrainDataset,
     body_pose_to_body_RTs_np,
@@ -51,10 +53,12 @@ from gomavatar_tpu_torch.models.smpl import synthetic_body
 from gomavatar_tpu_torch.ops.camera import apply_global_tfm_to_camera
 
 IMG = (512, 512)
+# JAX's draw of the teacher's shadow trunk (seed 7), kept as a witness of
+# the port's own draw
 TEACHER_SHADOW = Path(__file__).resolve().parent.parent / "weights" / "e2e_teacher_shadow.npz"
 
 
-def teacher_model(info, seed=7, img=IMG, device="cuda", shadow_path=TEACHER_SHADOW):
+def teacher_model(info, seed=7, img=IMG, device="cuda"):
     """(params, statics, gom_cfg) of the teacher, one subdivision phase finer
     than the capture's canonical mesh: the un-subdivided student has 4x
     fewer faces than the ground truth and cannot represent the sub-face
@@ -68,7 +72,7 @@ def teacher_model(info, seed=7, img=IMG, device="cuda", shadow_path=TEACHER_SHAD
     m["normal_renderer"]["name"] = "mesh"
     m["canonical_geometry"]["deform_so3"] = True
     m["canonical_geometry"]["deform_scale"] = True
-    params, statics, gom_cfg = init_gom(m, info, device)
+    params, statics, gom_cfg = init_gom(m, info, device, prng.key(seed))
     params, statics, gom_cfg = subdivide_gom(params, statics, gom_cfg)
     rng = np.random.default_rng(seed)
 
@@ -100,17 +104,13 @@ def teacher_model(info, seed=7, img=IMG, device="cuda", shadow_path=TEACHER_SHAD
     so3 = rng.normal(size=tuple(params["so3"].shape)) * 0.1
     scale = 1.0 + rng.normal(size=tuple(params["scale"].shape)) * 0.1
     head_w = rng.normal(size=tuple(params["shadow"]["head"]["w"].shape)) * 0.25
-    with np.load(shadow_path) as npz:
-        trunk = unflatten_params(npz)["shadow"]["layers"]
 
     params["appearance"]["colors"] = params_from_jax(colors, device)
     params["vertices"] = params_from_jax(v2, device)
     params["so3"] = params_from_jax(so3, device)
     params["scale"] = params_from_jax(scale, device)
-    params["shadow"] = {
-        "layers": params_from_jax(trunk, device),
-        "head": {"w": params_from_jax(head_w, device), "b": torch.zeros_like(params["shadow"]["head"]["b"])},
-    }
+    params["shadow"]["head"] = {"w": params_from_jax(head_w, device),
+                                "b": torch.zeros_like(params["shadow"]["head"]["b"])}
     return params, statics, gom_cfg
 
 

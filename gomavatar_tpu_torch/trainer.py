@@ -28,6 +28,7 @@ import os
 import torch
 
 from gomavatar_tpu_torch import checkpoint as ckpt_lib
+from gomavatar_tpu_torch import prng
 from gomavatar_tpu_torch.losses import compute_loss, unpack
 from gomavatar_tpu_torch.models.gom import GoMConfig, GoMStatics, gom_forward, init_gom, subdivide_gom
 from gomavatar_tpu_torch.optim import (
@@ -128,8 +129,8 @@ class Trainer:
         self.subdivide_iters = sorted(cfg["model"].get("subdivide_iters", []))
         self.device = torch.device(device)
         if state is None:
-            gen = torch.Generator().manual_seed(seed)
-            self.params, self.statics, self.gom_cfg = init_gom(cfg["model"], canonical_info, self.device, gen)
+            self.params, self.statics, self.gom_cfg = init_gom(cfg["model"], canonical_info, self.device,
+                                                               prng.key(seed))
             self.i_iter, self.phase = 0, 0
         else:
             self.params, self.statics, self.gom_cfg, self.i_iter, self.phase = state

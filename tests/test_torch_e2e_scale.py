@@ -27,7 +27,7 @@ from gomavatar_tpu.models import lpips as JL
 from gomavatar_tpu.trainer import Trainer as JaxTrainer
 from gomavatar_tpu_torch import losses as TLosses
 from gomavatar_tpu_torch.config import make_cfg
-from gomavatar_tpu_torch.convert import lpips_from_jax, params_from_jax
+from gomavatar_tpu_torch.convert import params_from_jax
 from gomavatar_tpu_torch.data.dataset import EXCLUDE_KEYS, TrainDataset
 from gomavatar_tpu_torch.models import gom as TG
 from gomavatar_tpu_torch.models import lpips as TLpips
@@ -86,7 +86,7 @@ def runs(tmp_path_factory):
         cfg = _configure(make_cfg(YAML))
         params = params_from_jax(jax.tree_util.tree_map(np.asarray, jtr.params), device="cpu")
         _, statics, gom_cfg = TG.init_gom(cfg["model"], info, device="cpu")
-        ttr = Trainer(cfg, lpips_params=lpips_from_jax(j_lpips, device="cpu"), device="cpu",
+        ttr = Trainer(cfg, lpips_params=TLpips.init_lpips(heads=heads, device="cpu")[0], device="cpu",
                       state=(params, statics, gom_cfg, 0, 0))
         j0, t0 = np.asarray(jtr.params["scale"]), ttr.params["scale"].numpy().copy()
         j_losses, t_losses = [], []

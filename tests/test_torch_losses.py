@@ -1,6 +1,6 @@
 """The training loss of gomavatar_tpu_torch against gomavatar_tpu on the CPU:
 the mesh topology and the mesh loss terms, ``dilate_mask``, ``unpack``, every
-term of ``compute_loss``, LPIPS with the JAX trunk carried across, and the
+term of ``compute_loss``, LPIPS on the random trunk each package draws, and the
 config defaults and the trained avatar's train config."""
 
 from pathlib import Path
@@ -17,7 +17,6 @@ from gomavatar_tpu.models import lpips as JL
 from gomavatar_tpu.ops import mesh_ops as JM
 from gomavatar_tpu_torch import config as TC
 from gomavatar_tpu_torch import losses as TLo
-from gomavatar_tpu_torch.convert import lpips_from_jax
 from gomavatar_tpu_torch.models import lpips as TL
 from gomavatar_tpu_torch.models.smpl import synthetic_body
 from gomavatar_tpu_torch.ops import mesh_ops as TM
@@ -196,7 +195,7 @@ def lpips_pair():
     with np.load(TL.HEADS_PATH) as z:
         heads = [z[f"head_{i}"] for i in range(5)]
     j_params, _ = JL.init_lpips(heads=heads)
-    return j_params, lpips_from_jax(j_params, device="cpu")
+    return j_params, TL.init_lpips(heads=heads, device="cpu")[0]
 
 
 @pytest.mark.parametrize("bf16", [False, True])

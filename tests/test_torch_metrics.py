@@ -25,7 +25,6 @@ from gomavatar_tpu import metrics as JM
 from gomavatar_tpu.models import lpips as JL
 from gomavatar_tpu_torch import eval_lib as TE
 from gomavatar_tpu_torch import metrics as TM
-from gomavatar_tpu_torch.convert import lpips_from_jax
 from gomavatar_tpu_torch.models import lpips as TL
 from torch_threads import one_torch_thread  # noqa: F401
 
@@ -66,13 +65,13 @@ def test_ssim_is_one_on_equal_images_and_falls_with_noise():
 @pytest.fixture(scope="module")
 def lpips_pairs():
     """JAX's VGG and AlexNet LPIPS params (their random trunks, the VGG
-    with the packaged heads) and the port's copies of them."""
+    with the packaged heads) and the port's own draws of the same."""
     with np.load(TL.HEADS_PATH) as z:
         heads = [z[f"head_{i}"] for i in range(5)]
     j_vgg, _ = JL.init_lpips(heads=heads)
     j_alex, _ = JL.init_lpips_alex()
-    return {"vgg": (j_vgg, lpips_from_jax(j_vgg, device="cpu")),
-            "alex": (j_alex, lpips_from_jax(j_alex, device="cpu"))}
+    return {"vgg": (j_vgg, TL.init_lpips(heads=heads, device="cpu")[0]),
+            "alex": (j_alex, TL.init_lpips_alex(device="cpu")[0])}
 
 
 @pytest.mark.parametrize("bf16", [False, True])

@@ -11,6 +11,7 @@ from gomavatar_tpu import nn as JN
 from gomavatar_tpu.models import modules as JM
 from gomavatar_tpu.ops import embedding as JE
 from gomavatar_tpu_torch import nn as TN
+from gomavatar_tpu_torch import prng
 from gomavatar_tpu_torch.convert import params_from_jax, trained_meta
 from gomavatar_tpu_torch.models import modules as TM
 from gomavatar_tpu_torch.ops import embedding as TE
@@ -98,8 +99,7 @@ def test_shadow_bf16(mlps):
 
 @pytest.mark.parametrize("skips", [(), (2,)])
 def test_mlp_init_rules(skips):
-    gen = torch.Generator().manual_seed(0)
-    p = TN.mlp_init(gen, d_in=10, width=32, depth=3, d_out=4, skips=skips, skip_dim=10,
+    p = TN.mlp_init(prng.key(0), d_in=10, width=32, depth=3, d_out=4, skips=skips, skip_dim=10,
                     last_init_scale=1e-5, device="cpu")
     shapes = [tuple(layer["w"].shape) for layer in p["layers"]]
     jref = JN.mlp_init(jax.random.PRNGKey(0), 10, 32, 3, 4, skips=skips, skip_dim=10)
@@ -109,9 +109,11 @@ def test_mlp_init_rules(skips):
         assert float(layer["w"].abs().max()) <= limit and float(layer["w"].abs().max()) > 0.5 * limit, i
         assert float(layer["b"].abs().max()) == 0.0
     assert float(p["head"]["w"].abs().max()) <= 1e-5 and float(p["head"]["b"].abs().max()) == 0.0
-    # the same seed gives the same weights
-    q = TN.mlp_init(torch.Generator().manual_seed(0), 10, 32, 3, 4, skips=skips, skip_dim=10, device="cpu")
+    # the same key gives the same weights, and they are JAX's for that key
+    q = TN.mlp_init(prng.key(0), 10, 32, 3, 4, skips=skips, skip_dim=10, device="cpu")
     assert torch.equal(p["layers"][0]["w"], q["layers"][0]["w"])
+    for got, want in zip(p["layers"] + [p["head"]], jref["layers"] + [jref["head"]]):
+        np.testing.assert_array_equal(got["w"].numpy(), np.asarray(want["w"]))
 
 
 def jnp_tree(tree):

@@ -3,7 +3,8 @@ CPU: the same 48^2 body, config and params go through three optimizer steps
 of both; the per-step loss terms and the step-1 gradient of every parameter
 leaf must agree.  Every module of the train step is on: pose refinement and
 non-rigid offsets from iteration 0, the shadow MLP, the soft silhouette and
-all seven loss terms (LPIPS with the JAX trunk carried across).
+all seven loss terms (LPIPS on the random trunk each package draws from
+one seed).
 
 The step-1 gradients are read from Adam's first moments after step 1: both
 optimizers start from zero moments, so mu = (1 - 0.9) * gradient exactly.
@@ -29,7 +30,7 @@ from gomavatar_tpu.ops.skeleton import body_pose_to_body_RTs, get_canonical_glob
 from gomavatar_tpu.trainer import Trainer as JaxTrainer
 from gomavatar_tpu_torch import losses as TLosses
 from gomavatar_tpu_torch.config import default_cfg
-from gomavatar_tpu_torch.convert import lpips_from_jax, params_from_jax
+from gomavatar_tpu_torch.convert import params_from_jax
 from gomavatar_tpu_torch.models import gom as TG
 from gomavatar_tpu_torch.models import lpips as TLpips
 from gomavatar_tpu_torch.models.lpips import HEADS_PATH
@@ -132,7 +133,7 @@ def _run_both(info):
     cfg = _configure(default_cfg())
     params = params_from_jax(jax.tree_util.tree_map(np.asarray, jtr.params), device="cpu")
     _, statics, gom_cfg = TG.init_gom(cfg["model"], info, device="cpu")
-    ttr = Trainer(cfg, lpips_params=lpips_from_jax(j_lpips, device="cpu"), device="cpu",
+    ttr = Trainer(cfg, lpips_params=TLpips.init_lpips(heads=heads, device="cpu")[0], device="cpu",
                   state=(params, statics, gom_cfg, 0, 0))
 
     batch = _batch_np(info)
