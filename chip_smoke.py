@@ -17,11 +17,17 @@ Phases, each fatal on failure:
      B1 timed through its wrapper and as B1a and B1b, with their work and
      bounds.
   3. the eval path: the trained 57,600-face avatar rendered at 512^2 by
-     ``gom_forward(train=False)`` on three frames (the packed frame and two
-     with a perturbed pose vector and camera), with every launch count set
-     to 0 just before and read just after (B1a and B1b once per frame);
-     drop counters, overflow and finiteness are checked; then the forward is
-     timed.
+     the eval program (``models.gom.eval_program``: ``gom_forward(train=
+     False)`` captured once as a CUDA graph and replayed, ``programs.py``)
+     on three frames (the packed frame and two with a perturbed pose vector
+     and camera), with every launch count set to 0 just before and read
+     just after (B1a and B1b once per frame, counted through the program's
+     replays; one capture); drop counters, overflow and finiteness are
+     checked, and each frame against the eager forward's: bit-equal where
+     two eager runs are, else within their spread; then the eager and the
+     captured forward timed (median and p90 of 100 synchronised frames
+     after 3 warm-up) with their device time and busy share
+     (torch.profiler), and the program's memory pool.
   4. the train path:
      a. kernels B2/B3 (splat blend) and B4/B5 (mesh raster) against their
         plain versions on the card, forward outputs, the residuals B2 and B4
@@ -35,15 +41,20 @@ Phases, each fatal on failure:
         and plain version timed there;
      b. one gate-scene train step on the card against the same step on the
         CPU: loss terms and the step's gradients;
-     c. the main path: 5 ``Trainer.step`` calls on the trained avatar at
+     c. the main path: 5 ``Trainer.step`` calls (the trainer's train
+        program, captured once and replayed) on the trained avatar at
         512^2 (its train config, the optimizer fast-forwarded to its
         iteration), over the three frames with the port's own eval renders
         as targets, every launch count set to 0 just before and read just
         after; B2a, B2b, B3a, B3b, B4a, B4b and B5 must launch once per
         step, nothing may be dropped and every loss, gradient and parameter
-        must be finite;
-     d. the train step timed (median and p90 over 20 steps), with each
-        kernel's work and bound.
+        must be finite; the program's memory pool; then, under torch's
+        deterministic algorithms, a fresh trainer's captured steps against
+        the eager step from the same state: params, Adam moments, counts
+        and the total bit-equal after each of 5 steps;
+     d. the eager and the captured train step timed (median and p90 over 20
+        steps after 3 warm-up) with their device time and busy share
+        (torch.profiler), and each kernel's work and bound.
   5. the drivers, in-process (``cli.train.main``, ``cli.evaluate.main``),
      each run with every launch count set to 0 just before and read just
      after:
@@ -65,7 +76,8 @@ Phases, each fatal on failure:
         subdivide_iters [2], 4 steps on the card, each also taken on the
         CPU from the card's state, the loss terms and every leaf's gradient
         (from Adam's first moments) close at every step, the faces x4 from
-        step 2 on, every train kernel once per step.
+        step 2 on, every train kernel once per step, and the train program
+        captured once in each phase (a new program at the subdivision).
   6. pose refinement and animation, each run with every launch count set
      to 0 just before and read just after:
      a. the gate scene's pose loss (``cli.train_pose.frame_loss``: rgb and
@@ -76,10 +88,13 @@ Phases, each fatal on failure:
      b. 30 steps of ``make_pose_optimizer`` on the trained avatar at 512^2
         from the packed frame's joint angles plus N(0, 0.03) (numpy seed
         0) towards the port's render of the packed frame: B2a-B5 once per
-        step, 0 dropped entries, the best loss below the first; the first
-        and best loss, the joint-angle and posed-joint errors before and
-        after, the step's mean (one synchronize at the end) and median (20
-        synchronised one-step calls);
+        step (the pose program, captured once), 0 dropped entries, the best
+        loss below the first; the first and best loss, the joint-angle and
+        posed-joint errors before and after; under deterministic algorithms
+        the captured refinement against the eager one from the same pose,
+        losses and best pose bit-equal; the captured and the eager step's
+        mean (30 steps, one synchronize at the end) and s per test frame,
+        and the captured median of 20 synchronised one-step calls;
      c. ``cli.train_pose --max_frames 2`` over the 5a test capture from
         iter_6100 with 10 steps per frame, halving every 5: each train
         kernel 20 times, B1a and B1b 6 times (raw, zeroed and refined
@@ -117,8 +132,8 @@ Phases, each fatal on failure:
         --data_parallel 2`` for 2 steps over the 5a capture; with one card a
         line says it did not run.
   8. the end-to-end demonstration chain (``gomavatar_tpu_torch.tools``),
-     each run with every launch count set to 0 just before and read just
-     after:
+     its train, pose and eval steps through their programs, each run with
+     every launch count set to 0 just before and read just after:
      a. ``overfit_check`` at its defaults (two frames at 128^2, 400 steps):
         more than +5 dB of train-view PSNR, B2a-B5 once per step;
      b. ``run_e2e`` at 512^2 at full width on a short schedule (its first
@@ -149,6 +164,9 @@ Phases, each fatal on failure:
         the budgets 32, 40 and 48, with every launch count set to 0 just
         before and read just after: each setting's counters (0 dropped
         required) and forward median and p90, B1a and B1b once per forward.
+The programs' warm-up and capture are set-up: the launches they count are
+taken back, and every replay adds the captured call's launches, so a count
+is one per frame or step on every path, as the eager paths gave it.
 Kernel times are CUDA events around back-to-back calls after a warm-up;
 each part of a two-launch kernel also prints its device time (the calls
 queued behind a device-side sleep) beside it, as a diagnostic.
@@ -253,6 +271,10 @@ REPLAY_B3_OPS, REPLAY_B3_SFU, REPLAY_B5_HARD, REPLAY_B5_SOFT, REPLAY_B5_SFU = 10
 # steps after 3 warm-up steps
 FORWARD_ITERS, KERNEL_ITERS, PLAIN_ITERS = 100, 50, 5
 TRAIN_STEPS, TRAIN_WARMUP, TRAIN_ITERS = 5, 3, 20
+# the calls of a torch.profiler window (device time and busy share): the
+# profiler's post-processing of an eager path's thousands of launches per
+# call grows with the window
+PROFILE_WINDOW = 5
 # the gate-scene train step, card against CPU: every loss term within rtol
 # 1e-3 (LPIPS runs its convolutions in bfloat16, which cuDNN and the CPU
 # round differently: rtol 1e-2), each parameter leaf's gradient within 5 %
@@ -327,20 +349,12 @@ def time_split(label: str, whole, parts: dict) -> dict:
     return {"ms": ms["whole"], "parts": {k: ms[k] for k in parts}}
 
 
-def all_wrappers():
-    from gomavatar_tpu_torch.ops import frame_render as FR
-    from gomavatar_tpu_torch.ops import mesh_raster_pallas as MK
-    from gomavatar_tpu_torch.ops.splat import pallas_kernel as SK
-
-    return {"B1a": FR.frame_partials, "B1b": FR.frame_merge, "B2a": SK.splat_fwd_partials,
-            "B2b": SK.splat_fwd_merge, "B3a": SK.splat_bwd_partials, "B3b": SK.splat_bwd_grads,
-            "B4a": MK.mesh_fwd_partials, "B4b": MK.mesh_fwd_merge, "B5": MK.mesh_bwd}
-
-
 def counted(fn):
     """(fn(), launches of every kernel during it, wall seconds): the counts
     set to 0 just before and read just after, the device synchronised."""
-    wrappers = all_wrappers()
+    from gomavatar_tpu_torch.programs import kernel_wrappers
+
+    wrappers = kernel_wrappers()
     torch.cuda.synchronize()
     for w in wrappers.values():
         w.launches = 0
@@ -1127,11 +1141,66 @@ def phase_kernels_b1(card):
     return trained, b1
 
 
+def clone_tree(x):
+    """A copy of a program's outputs (tensors in tuples, lists, dicts and
+    NamedTuples), which its next call overwrites."""
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, dict):
+        return {k: clone_tree(v) for k, v in x.items()}
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(clone_tree(v) for v in x))
+    if isinstance(x, (list, tuple)):
+        return type(x)(clone_tree(v) for v in x)
+    return x
+
+
+def program_args(params, statics, cfg, frame):
+    """``eval_program``'s arguments for one frame (as ``forward``'s)."""
+    return (params, statics, cfg, frame["K"], frame["E"], frame["cnl_gtfms"], frame["dst_Rs"], frame["dst_Ts"],
+            frame["dst_posevec"], 1e7, None, None)
+
+
+def max_diff(a, b) -> float:
+    return max(float((x.float() - y.float()).abs().max()) for x, y in zip(a, b))
+
+
+def eager_and_captured(label: str, ways: dict, iters: int, unit: str, card: str) -> dict:
+    """``profile_eval.measure`` of the eager and the captured function in
+    one call: median and p90 of ``iters`` synchronised calls after 3
+    warm-up, device ms, kernels per call and busy share by torch.profiler
+    over PROFILE_WINDOW calls."""
+    from gomavatar_tpu_torch.profile_eval import measure
+
+    out = {}
+    for k, fn in ways.items():
+        m = measure(fn, iters, window=PROFILE_WINDOW)
+        out[k] = {x: m[x] for x in ("median_ms", "p90_ms", "device_ms", "kernels_per_call", "busy_share")}
+        print(f"  {label}, {k}: median {m['median_ms']:.3f} ms/{unit}, p90 {m['p90_ms']:.3f} over {iters} {unit}s "
+              f"after 3 warm-up; device {m['device_ms']:.3f} ms/{unit} over {m['kernels_per_call']:.0f} kernels, busy "
+              f"{100 * m['busy_share']:.1f} % (torch.profiler, {PROFILE_WINDOW} {unit}s) on {card}")
+    out["speedup"] = out["eager"]["median_ms"] / out["captured"]["median_ms"]
+    print(f"  {label}: the captured median {out['speedup']:.2f}x faster than the eager one")
+    return out
+
+
 def phase_eval_path(trained, card):
+    """Phase 3: the eval frame as the eval program, the main path (one
+    captured CUDA graph replayed per frame), its launches counted, against
+    the eager forward (bit-equal where two eager runs are); then both
+    timed."""
+    from gomavatar_tpu_torch.models.gom import eval_forward, eval_program
+
     params, statics, cfg, frame = trained
-    print("[3] eval path: gom_forward(train=False) on the trained avatar at 512^2")
+    print("[3] eval path: the eval program (gom_forward(train=False), captured) on the trained avatar at 512^2")
     frames = perturbed_frames(frame)
-    outs, counts, _ = counted(lambda: [forward(params, statics, cfg, f) for f in frames])
+    eager = [clone_tree(eval_forward(*program_args(params, statics, cfg, f))) for f in frames]
+    again = [clone_tree(eval_forward(*program_args(params, statics, cfg, f))) for f in frames]
+    spread = max(max_diff(a[:2], b[:2]) for a, b in zip(eager, again))
+    print(f"  eager against eager on the {len(frames)} frames: rgb and mask {'bit-equal' if spread == 0 else 'apart'}"
+          f" (worst {spread:.3g})")
+    render = eval_program()
+    outs, counts, _ = counted(lambda: [clone_tree(render(*program_args(params, statics, cfg, f))) for f in frames])
     launches = {k: counts[k] for k in ("B1a", "B1b")}
     W, H = cfg.img_size
     for i, (rgb, mask, aux) in enumerate(outs):
@@ -1144,26 +1213,27 @@ def phase_eval_path(trained, card):
         require(bool(torch.isfinite(rgb).all() and torch.isfinite(mask).all()), f"frame {i}: non-finite output")
         require(float(mask.mean()) > 0.01, f"frame {i}: empty render")
         require(dropped == 0 and overflow == 0, f"frame {i}: binning dropped entries")
-    print(f"  B1 launches: {launches} for {len(frames)} frames")
+        apart = max_diff(outs[i][:2], eager[i][:2])
+        tel_e = eager[i][2]["binning"]
+        same_tel = all(torch.equal(getattr(tel, f), getattr(tel_e, f)) for f in tel._fields)
+        print(f"    captured against eager: rgb and mask worst {apart:.3g}, telemetry "
+              f"{'equal' if same_tel else 'different'}")
+        require(apart <= spread and same_tel,
+                f"frame {i}: the captured forward is further from the eager one than two eager runs are")
+    print(f"  B1 launches: {launches} for {len(frames)} frames (the program's replays), {render.captures} capture")
     for k in launches:
         require(launches[k] == len(frames), f"the eval path did not launch {k} once per frame")
+    require(render.captures == 1, "the eval program captured more than once for one frame shape")
     launches["B1"] = launches["B1a"] + launches["B1b"]
 
-    # timings (after the counted run)
-    for _ in range(3):
-        forward(params, statics, cfg, frame)
-    torch.cuda.synchronize()
-    per_frame = []
-    for _ in range(FORWARD_ITERS):
-        t0 = time.perf_counter()
-        forward(params, statics, cfg, frame)
-        torch.cuda.synchronize()
-        per_frame.append((time.perf_counter() - t0) * 1e3)
-    fwd_ms = statistics.median(per_frame)
-    fwd_p90 = statistics.quantiles(per_frame, n=10)[-1]
-    print(f"  forward: median {fwd_ms:.3f} ms/frame, p90 {fwd_p90:.3f} ms over {FORWARD_ITERS} frames "
-          f"({1e3 / fwd_ms:.2f} frames/s at the median) on {card}")
-    return launches, {"median_ms": fwd_ms, "p90_ms": fwd_p90, "fps": 1e3 / fwd_ms, "frames": FORWARD_ITERS}
+    timed = eager_and_captured("forward", {
+        "eager": lambda: eval_forward(*program_args(params, statics, cfg, frame)),
+        "captured": lambda: render(*program_args(params, statics, cfg, frame)),
+    }, FORWARD_ITERS, "frame", card)
+    print(f"  the eval program's memory pool: {render.pool_bytes() / 2**20:.1f} MiB")
+    return launches, dict(timed, median_ms=timed["captured"]["median_ms"], p90_ms=timed["captured"]["p90_ms"],
+                          fps=1e3 / timed["captured"]["median_ms"], frames=FORWARD_ITERS,
+                          bit_equal_eager=spread == 0, pool_mib=render.pool_bytes() / 2**20)
 
 
 def phase_train_kernels(trained):
@@ -1224,27 +1294,34 @@ def phase_train_path(trained, card):
     launch counts, the train-step timings.  Returns (launches, timings)."""
     from gomavatar_tpu_torch.convert import trained_meta
     from gomavatar_tpu_torch.optim import tree_leaves
+    from gomavatar_tpu_torch.trainer import make_train_step
 
     i_iter = int(trained_meta()["iter"])
     print(f"[4b] one gate-scene train step at iteration {i_iter}, card vs CPU")
     compare_gate_step(i_iter)
 
     params, statics, cfg, frame = trained
-    print(f"[4c] train path: {TRAIN_STEPS} Trainer.step calls on the trained avatar at 512^2 from iteration {i_iter}")
+    print(f"[4c] train path: {TRAIN_STEPS} Trainer.step calls (the captured train program) on the trained avatar at "
+          f"512^2 from iteration {i_iter}")
     frames = perturbed_frames(frame)
     batches = [train_batch(params, statics, cfg, f, f) for f in frames]
     trainer = make_trainer(params, statics, cfg, i_iter, "cuda")
     before = [p.clone() for p in tree_leaves(trainer.params)]
-    steps, launches, _ = counted(lambda: [trainer.step(batches[i % len(batches)]) for i in range(TRAIN_STEPS)])
+    reserved0 = torch.cuda.memory_reserved()
+    # each step's outputs are the program's, overwritten by the next step
+    steps, launches, _ = counted(lambda: [clone_tree(trainer.step(batches[i % len(batches)]))
+                                          for i in range(TRAIN_STEPS)])
     for i, (total, losses) in enumerate(steps):
         terms = {k: float(v) for k, v in losses.items()}
         print(f"  step {i}: total {float(total):.6g}, " + ", ".join(f"{k} {v:.5g}" for k, v in terms.items()))
         require(all(np.isfinite(v) for v in terms.values()) and np.isfinite(float(total)), f"step {i}: non-finite loss")
         dropped = terms["bin_drop_budget"] + terms["bin_drop_buffer"] + terms["bin_drop_ncmax"]
         require(dropped == 0, f"step {i}: the binning dropped entries")
-    print(f"  launches over {TRAIN_STEPS} steps: {launches}")
+    print(f"  launches over {TRAIN_STEPS} steps: {launches} (the program's replays; {trainer._step_fn.captures} "
+          f"capture)")
     for k in ("B2a", "B2b", "B3a", "B3b", "B4a", "B4b", "B5"):
         require(launches[k] == TRAIN_STEPS, f"the train path did not launch {k} once per step")
+    require(trainer._step_fn.captures == 1, "the train program captured more than once in one phase")
     for k in ("B2", "B3", "B4"):  # two kernels each: their launches
         launches[k] = launches[f"{k}a"] + launches[f"{k}b"]
     after = tree_leaves(trainer.params)
@@ -1253,21 +1330,47 @@ def phase_train_path(trained, card):
     changed = sum(not torch.equal(a, b) for a, b in zip(after, before))
     print(f"  {changed} of {len(after)} parameter leaves changed; every parameter and moment finite")
     require(changed == len(after), "a parameter leaf did not change")
+    pool_mib = trainer._step_fn.pool_bytes() / 2**20
+    print(f"  the train program's memory pool at {cfg.num_faces} faces and {cfg.img_size[0]}^2: {pool_mib:.1f} MiB "
+          f"(the card's reserved memory grew by {(torch.cuda.memory_reserved() - reserved0) / 2**20:.1f} MiB over "
+          f"the capture and the steps)")
 
-    print(f"[4d] train step timed over {TRAIN_ITERS} steps after {TRAIN_WARMUP} warm-up steps")
-    for i in range(TRAIN_WARMUP):
-        trainer.step(batches[i % len(batches)])
-    torch.cuda.synchronize()
-    per_step = []
-    for i in range(TRAIN_ITERS):
-        t0 = time.perf_counter()
-        trainer.step(batches[i % len(batches)])
-        torch.cuda.synchronize()
-        per_step.append((time.perf_counter() - t0) * 1e3)
-    med = statistics.median(per_step)
-    p90 = statistics.quantiles(per_step, n=10)[-1]
-    print(f"  train step: median {med:.3f} ms, p90 {p90:.3f} ms ({1e3 / med:.3f} steps/s at the median) on {card}")
-    return launches, {"median_ms": med, "p90_ms": p90, "steps_per_s": 1e3 / med, "steps": TRAIN_ITERS}
+    print(f"[4c] the captured step against the eager one from the same state, {TRAIN_STEPS} steps, deterministic "
+          f"algorithms")
+    det_ms = []
+    with deterministic():
+        captured = make_trainer(params, statics, cfg, i_iter, "cuda")
+        eager = make_train_step(captured.gom_cfg, captured.loss_cfg, captured.tx)
+        p, o = clone_tree(captured.params), clone_tree(captured.opt_state)
+        for i in range(TRAIN_STEPS):
+            b = batches[i % len(batches)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            total, _ = captured.step(b)
+            torch.cuda.synchronize()
+            det_ms.append((time.perf_counter() - t0) * 1e3)
+            p, o, total_e, _ = eager(p, o, captured.statics, captured.lpips_params, b,
+                                     torch.full((), float(i_iter + i), device="cuda"))
+            same_p = leaves_equal(tree_leaves(captured.params), tree_leaves(p))
+            same_m = leaves_equal(list(captured.opt_state.mu) + list(captured.opt_state.nu), list(o.mu) + list(o.nu))
+            require(same_p and same_m and torch.equal(total, total_e) and int(captured.opt_state.count) == int(o.count),
+                    f"4c step {i}: the captured step differs from the eager one under deterministic algorithms")
+    det_med = statistics.median(det_ms[1:])  # the first step holds the capture
+    print(f"  params, Adam moments, counts and the total loss bit-equal to the eager step's after every step; the "
+          f"captured step under deterministic algorithms {det_med:.3f} ms (median of steps 1-{TRAIN_STEPS - 1})")
+
+    print(f"[4d] train step timed, eager and captured, over {TRAIN_ITERS} steps after {TRAIN_WARMUP} warm-up steps")
+    i_dev = torch.full((), float(trainer.i_iter), device="cuda")
+    timed = eager_and_captured("train step", {
+        # the eager step from the trainer's state, its result dropped
+        "eager": lambda: eager(trainer.params, trainer.opt_state, trainer.statics, trainer.lpips_params, batches[0],
+                               i_dev),
+        "captured": lambda: trainer.step(batches[0]),
+    }, TRAIN_ITERS, "step", card)
+    cap = timed["captured"]
+    return launches, dict(timed, median_ms=cap["median_ms"], p90_ms=cap["p90_ms"],
+                          steps_per_s=1e3 / cap["median_ms"], steps=TRAIN_ITERS, pool_mib=pool_mib,
+                          bit_equal_deterministic=True, deterministic_captured_ms=det_med)
 
 
 # ---- phase 5: the drivers ------------------------------------------------------
@@ -1517,7 +1620,7 @@ def copy_train_state(src, dst):
         return x.detach().to(dst.device).clone()
 
     dst.params = to(src.params)
-    dst.opt_state = src.opt_state._replace(mu=to(src.opt_state.mu), nu=to(src.opt_state.nu))
+    dst.opt_state = type(src.opt_state)(*(to(x) for x in src.opt_state))
     dst.i_iter = src.i_iter
 
 
@@ -1554,13 +1657,15 @@ def phase_change_on_card(device="cuda"):
     def losses_of(total, losses):
         return {"total": float(total), **{k: float(v) for k, v in losses.items()}}
 
-    worst_grad = []
+    worst_grad, programs = [], []
     for i in range(PHASE_STEPS):
         card.maybe_subdivide()
         host.maybe_subdivide()
         copy_train_state(card, host)
         mu0 = host.opt_state.mu
         (total, losses), launches, _ = counted(lambda: card.step(batch))
+        if not programs or programs[-1] is not card._step_fn:
+            programs.append(card._step_fn)
         for k in ("B2a", "B2b", "B3a", "B3b", "B4a", "B4b", "B5"):
             require(launches[k] == 1, f"phase change, step {i}: {k} launched {launches[k]} times")
         lc, fc = losses_of(total, losses), card.gom_cfg.num_faces
@@ -1586,10 +1691,14 @@ def phase_change_on_card(device="cuda"):
         require(rels[worst] <= STEP_GRAD_REL,
                 f"phase change, step {i}: leaf {worst} gradient off by {rels[worst]:.3g} of its norm")
         worst_grad.append(rels[worst])
+    print(f"  train programs: {len(programs)}, captures {[p.captures for p in programs]}")
+    require(len(programs) == 2 and all(p.captures == 1 for p in programs),
+            "phase change: the train step was not captured once per phase")
     print(f"  the phase change ran on the card at step {PHASE_AT}: {faces0} -> {4 * faces0} faces, each loss term "
           f"within rtol {STEP_RTOL:g} (LPIPS and the total {STEP_LPIPS_RTOL:g}) and each leaf's gradient within "
           f"{STEP_GRAD_REL:g} of its norm of the CPU's step from the card's state at every step")
-    return {"faces": [faces0, 4 * faces0], "steps": PHASE_STEPS, "worst_grad_rel": worst_grad}
+    return {"faces": [faces0, 4 * faces0], "steps": PHASE_STEPS, "worst_grad_rel": worst_grad,
+            "programs": len(programs)}
 
 
 def phase_drivers(device="cuda"):
@@ -1735,7 +1844,13 @@ def pose_on_trained(trained, device="cuda"):
     a perturbed pose towards the port's render of the packed frame, each
     train kernel once per step, nothing dropped, the best loss below the
     first; then the step timed."""
-    from gomavatar_tpu_torch.cli.train_pose import make_pose_optimizer
+    from gomavatar_tpu_torch.cli.train_pose import (
+        POSE_KEYS,
+        PoseAdam,
+        init_pose_carry,
+        make_pose_optimizer,
+        make_pose_step,
+    )
     from gomavatar_tpu_torch.config import default_cfg
     from gomavatar_tpu_torch.models.lpips import load_lpips
     from gomavatar_tpu_torch.ops.skeleton import get_joints_from_pose
@@ -1753,7 +1868,7 @@ def pose_on_trained(trained, device="cuda"):
     lpips_params = load_lpips(device=device, quiet=True)[0]
     optimize = make_pose_optimizer(cfg, loss_cfg, pose_cfg, POSE_STEPS)
     start = torch.as_tensor(pose0, device=device)
-    (best, best_loss, losses, dropped), launches, seconds = counted(
+    (best, best_loss, losses, dropped), launches, _ = counted(
         lambda: optimize(params, statics, lpips_params, batch, start))
     losses, dropped = losses.cpu().numpy(), dropped.cpu().numpy()
     best_pose = best["poses"].cpu().numpy()
@@ -1767,7 +1882,6 @@ def pose_on_trained(trained, device="cuda"):
     jerr0 = float(torch.linalg.norm(start_j - true_j, dim=-1).mean())
     jerr1 = float(torch.linalg.norm(best_j - true_j, dim=-1).mean())
     first, best_loss = float(losses[0]), float(best_loss)
-    mean_ms = seconds * 1e3 / POSE_STEPS
     print(f"  {POSE_STEPS} pose steps at lr {pose_cfg['lr']:g} (halving every {pose_cfg['decay']}): loss {first:.6g} -> "
           f"best {best_loss:.6g} at step {int(np.argmin(losses))} (ratio {best_loss / first:.4f}); mean joint-angle "
           f"error {err0:.5f} -> {err1:.5f} rad, mean posed-joint error {jerr0 * 1e3:.3f} -> {jerr1 * 1e3:.3f} mm; "
@@ -1780,21 +1894,60 @@ def pose_on_trained(trained, device="cuda"):
         require(launches[k] == POSE_STEPS, f"pose refinement did not launch {k} once per step")
     require(launches["B1a"] == launches["B1b"] == 0, "pose refinement launched the eval kernel")
 
+    require(optimize.program.captures == 1, "pose refinement: the pose step was captured more than once")
+
+    def eager_refine():
+        """The same refinement with the pose step run eagerly: the carry."""
+        tx = PoseAdam(pose_cfg)
+        step, carry = make_pose_step(cfg, loss_cfg, tx), init_pose_carry(tx, start, POSE_STEPS)
+        i_iter = torch.full((), 1e7, device=device)
+        for _ in range(POSE_STEPS):
+            step(params, statics, lpips_params, batch, carry, i_iter)
+        return carry
+
+    # the captured refinement against the eager one from the same pose,
+    # under deterministic algorithms (a fresh program, captured under them)
+    with deterministic():
+        det = make_pose_optimizer(cfg, loss_cfg, pose_cfg, POSE_STEPS)
+        c_best, c_loss, c_losses, _ = det(params, statics, lpips_params, batch, start)
+        e = eager_refine()
+    same = (torch.equal(c_losses, e.losses) and torch.equal(c_loss, e.best_loss)
+            and all(torch.equal(c_best[k], b) for k, b in zip(POSE_KEYS, e.best)))
+    rel = float(((c_losses - e.losses).abs() / e.losses.abs()).max())
+    print(f"  captured against eager, {POSE_STEPS} steps from the same pose (deterministic algorithms): losses and "
+          f"best pose {'bit-equal' if same else 'apart'} (worst loss rel {rel:.3g})")
+    require(same, "pose refinement: the captured steps differ from the eager ones under deterministic algorithms")
+
+    # ms per step: POSE_STEPS steps with one synchronize at the end, each way
+    per_step = {}
+    for name, run in (("captured", lambda: optimize(params, statics, lpips_params, batch, start)),
+                      ("eager", eager_refine)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        per_step[name] = (time.perf_counter() - t0) * 1e3 / POSE_STEPS
+    mean_ms = per_step["captured"]
     one_step = make_pose_optimizer(cfg, loss_cfg, pose_cfg, 1)
-    per_step = []
+    one_step(params, statics, lpips_params, batch, start)  # the capture
+    single = []
     for _ in range(POSE_TIMED):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         one_step(params, statics, lpips_params, batch, start)
         torch.cuda.synchronize()
-        per_step.append((time.perf_counter() - t0) * 1e3)
-    med = statistics.median(per_step)
-    print(f"  pose step: mean {mean_ms:.3f} ms over the {POSE_STEPS} steps (one synchronize at the end), median "
-          f"{med:.3f} ms of {POSE_TIMED} synchronised one-step calls; {mean_ms * PROTOCOL_STEPS / 1e3:.2f} s per test "
-          f"frame at {PROTOCOL_STEPS} steps")
+        single.append((time.perf_counter() - t0) * 1e3)
+    med = statistics.median(single)
+    print(f"  pose step: captured mean {mean_ms:.3f} ms over {POSE_STEPS} steps (one synchronize at the end), eager "
+          f"{per_step['eager']:.3f} ms ({per_step['eager'] / mean_ms:.2f}x); captured median {med:.3f} ms of "
+          f"{POSE_TIMED} synchronised one-step calls; per test frame at {PROTOCOL_STEPS} steps: captured "
+          f"{mean_ms * PROTOCOL_STEPS / 1e3:.2f} s, eager {per_step['eager'] * PROTOCOL_STEPS / 1e3:.2f} s")
     return {"steps": POSE_STEPS, "first_loss": first, "best_loss": best_loss, "ratio": best_loss / first,
-            "joint_err_rad": [err0, err1], "posed_joint_err_m": [jerr0, jerr1], "step_mean_ms": mean_ms, "step_median_ms": med,
-            "seconds_per_frame_300": mean_ms * PROTOCOL_STEPS / 1e3, "launches": launches}
+            "joint_err_rad": [err0, err1], "posed_joint_err_m": [jerr0, jerr1], "step_mean_ms": mean_ms,
+            "step_median_ms": med, "seconds_per_frame_300": mean_ms * PROTOCOL_STEPS / 1e3,
+            "eager_step_mean_ms": per_step["eager"],
+            "eager_seconds_per_frame_300": per_step["eager"] * PROTOCOL_STEPS / 1e3,
+            "bit_equal_deterministic": same, "launches": launches}
 
 
 def pose_yaml(cfg_path: str, it: int) -> str:
@@ -2050,7 +2203,10 @@ def dp_world1(trained, group, batches, i_iter, train_median):
     require(launches["B1a"] == launches["B1b"] == 0, "7a: the train step launched the eval kernel")
     require(reduces == DP_STEPS, "7a: not one all-reduce per step")
     # timed in turns with Trainer.step, each step synchronised, so that both
-    # see the same host; then the reducer alone on the last step's terms
+    # see the same host; then the reducer alone on the last step's terms.
+    # A fresh Trainer: ref's program was captured under deterministic
+    # algorithms and replays their kernels
+    ref = make_trainer(params, statics, cfg, i_iter, "cuda")
     for i in range(TRAIN_WARMUP):
         ref.step(batches[i % 3])
         dp.step(batches[i % 3])
@@ -2064,8 +2220,8 @@ def dp_world1(trained, group, batches, i_iter, train_median):
             per_step[name].append((time.perf_counter() - t0) * 1e3)
     med = {k: statistics.median(v) for k, v in per_step.items()}
     reduce_ms = reducer_ms(group, dp, batches[0], i_iter)
-    print(f"  data-parallel step at world 1: median {med['dp']:.3f} ms over {DP_TIMED} steps, Trainer.step "
-          f"{med['plain']:.3f} ms in turns with it ({med['dp'] - med['plain']:+.3f} ms), 4d's median {train_median:.3f} "
+    print(f"  data-parallel step at world 1 (eager): median {med['dp']:.3f} ms over {DP_TIMED} steps, Trainer.step "
+          f"(its captured program) {med['plain']:.3f} ms in turns with it ({med['dp'] - med['plain']:+.3f} ms), 4d's median {train_median:.3f} "
           f"ms; the pack, all-reduce, divide and unpack alone {reduce_ms:.3f} ms")
     return {"steps": DP_STEPS, "bit_equal": True, "launches": launches, "all_reduces": reduces,
             "median_ms": med["dp"], "plain_median_ms": med["plain"], "reducer_ms": reduce_ms,

@@ -16,7 +16,7 @@ import re
 
 import torch
 
-from gomavatar_tpu_torch.optim import AdamState, tree_leaves
+from gomavatar_tpu_torch.optim import AdamState, counter, tree_leaves
 
 STATE_FILE = "state.pt"
 
@@ -104,6 +104,7 @@ def restore_checkpoint(path: str, params_like, opt_state_like: AdamState):
     opt = payload["opt_state"]
     _check_like(opt["mu"], opt_state_like.mu, "opt_state/mu")
     _check_like(opt["nu"], opt_state_like.nu, "opt_state/nu")
-    opt_state = AdamState(int(opt["count"]), list(opt["mu"]), list(opt["nu"]), int(opt["schedule_count"]))
+    opt_state = AdamState(counter(opt["count"], device), list(opt["mu"]), list(opt["nu"]),
+                          counter(opt["schedule_count"], device))
     return payload["params"], opt_state, int(payload["meta"]["iter"]), int(payload["meta"]["phase"])
 

@@ -9,8 +9,9 @@ side by side per frame.
     python -m gomavatar_tpu_torch.cli.animate --synthetic 4 --n_frames 16 --out out_dir
 
 On one card the scenes are rendered in turn, each frame of each scene by
-``gom_forward(train=False)`` (kernel B1), so every scene lands in the strip,
-which is n x W wide for n scenes.  Where several CUDA cards are visible,
+its own eval program (``models.gom.eval_program``: ``gom_forward(train=False)``
+with kernel B1, one captured CUDA graph per scene on the card), so every
+scene lands in the strip, which is n x W wide for n scenes.  Where several CUDA cards are visible,
 k rank processes (``parallel.spawn``, NCCL) render the scenes through
 ``parallel.make_multi_scene_render``, k the largest divisor of n that is at
 most the number of cards (JAX asserts that n divides onto its devices; the
@@ -34,7 +35,7 @@ from PIL import Image
 
 from gomavatar_tpu_torch.cli.train import check_device
 from gomavatar_tpu_torch.eval_lib import to_8b_image
-from gomavatar_tpu_torch.parallel import barrier, make_multi_scene_render, render_scenes, spawn
+from gomavatar_tpu_torch.parallel import barrier, make_multi_scene_render, spawn
 
 
 def _synthetic_scenes(n: int, img_size, device):
@@ -183,6 +184,28 @@ def scene_ranks(n: int, device) -> int:
     return max(k for k in range(1, min(n, cards) + 1) if n % k == 0)
 
 
+def render_in_turn(n: int, device):
+    """``render(packs, items)`` of :func:`parallel.render_scenes` in one
+    process, each scene through its own eval program (one program per
+    scene: a program's outputs are overwritten by its next call)."""
+    from gomavatar_tpu_torch.data.dataset import to_device
+    from gomavatar_tpu_torch.models.gom import eval_program
+
+    programs = [eval_program() for _ in range(n)]
+
+    def render(packs, items):
+        rgbs, masks = [], []
+        for prog, (params, statics, gom_cfg), item in zip(programs, packs, items):
+            b = to_device(item, device)
+            rgb, mask, _ = prog(params, statics, gom_cfg, b["K"], b["E"], b["cnl_gtfms"], b["dst_Rs"], b["dst_Ts"],
+                                b.get("dst_posevec"), 1e7, None, None)
+            rgbs.append(rgb)
+            masks.append(mask)
+        return torch.stack(rgbs), torch.stack(masks)
+
+    return render
+
+
 def animate_rank(group, argv) -> dict | None:
     """One rank of the multi-scene animation: the summary on rank 0."""
     return animate(parse_args(argv), group.device, group)
@@ -211,7 +234,7 @@ def animate(args, device, group=None) -> dict | None:
 
     n = len(packs)
     check_homogeneous_scenes(packs)
-    render = make_multi_scene_render(group) if group is not None else None
+    render = make_multi_scene_render(group) if group is not None else render_in_turn(n, device)
 
     os.makedirs(args.out, exist_ok=True)
     if args.type == "mdm":
@@ -229,7 +252,7 @@ def animate(args, device, group=None) -> dict | None:
         frames = _orbit_items(infos, 0, args.n_frames, img_size)
     t0 = time.perf_counter()
     for t, items in enumerate(frames):
-        rgb, _ = render_scenes(packs, items, device) if render is None else render(packs, items)
+        rgb, _ = render(packs, items)
         if not lead:
             continue
         strip = torch.cat(list(rgb), dim=1).cpu().numpy()

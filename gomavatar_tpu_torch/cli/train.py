@@ -5,8 +5,9 @@
 
 The loop: the iter-0 checkpoint, a frame order per epoch (pose-balanced
 under ``train.pose_balanced_sampling``), the thread ``Prefetcher``, one
-``Trainer.step`` per frame, and at their cadences the log line, TensorBoard,
-a checkpoint and the periodic eval; then a final checkpoint.  The host reads
+``Trainer.step`` per frame (on the card one replay of the phase's captured
+train program), and at their cadences the log line, TensorBoard, a
+checkpoint and the periodic eval; then a final checkpoint.  The host reads
 the loss only at ``log_freq`` and the TB scalars only at ``tb_freq``, so no
 other step waits for the device.  It runs on the card unless ``--device
 cpu``; ``main`` returns the ``Trainer``.
@@ -282,6 +283,9 @@ def train(args, device: torch.device, group=None) -> Trainer:
             if trainer.i_iter >= total_iters:
                 break
             batch = to_device(item, device)
+            # the step copies the batch into its program's inputs; total and
+            # losses are the program's outputs, which the next step
+            # overwrites: everything below reads them before that
             total, losses = trainer.step(batch)
             it = trainer.i_iter
 

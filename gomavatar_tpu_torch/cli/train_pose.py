@@ -14,7 +14,9 @@ them once per frame.  The frames are then evaluated with the dataset's poses
 (``raw``), the refined body pose without the global transform (``zeroed``)
 and with it (``refined``), by ``gom_forward(train=False)`` (kernel B1) and
 the Anim-NeRF evaluator; the refined poses go to ``checkpoints/pose.pkl``.
-It runs on the card unless ``--device cpu``; ``main`` returns a summary.
+On the card the pose step and the eval frame each run as one captured
+program (``programs.py``), replayed.  It runs on the card unless ``--device
+cpu``; ``main`` returns a summary.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import logging
 import os
 import pickle
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -35,18 +38,20 @@ from gomavatar_tpu_torch.data.dataset import TrainDataset, to_device
 from gomavatar_tpu_torch.eval_lib import EvaluatorSnapshot, to_8b_image
 from gomavatar_tpu_torch.losses import unpack
 from gomavatar_tpu_torch.models import lpips as lpips_lib
-from gomavatar_tpu_torch.models.gom import gom_forward
+from gomavatar_tpu_torch.models.gom import eval_program, gom_forward
 from gomavatar_tpu_torch.ops.mesh_ops import abs_l1
 from gomavatar_tpu_torch.ops.skeleton import body_pose_to_body_RTs
 from gomavatar_tpu_torch.ops.splat.binning import CHUNK
 from gomavatar_tpu_torch.ops.splat.tiled_jnp import NCMAX
-from gomavatar_tpu_torch.optim import AdamState, adam_directions, tree_leaves, tree_unflatten
+from gomavatar_tpu_torch.optim import AdamState, adam_directions, init_state, tree_leaves, tree_unflatten
+from gomavatar_tpu_torch.programs import Program
 from gomavatar_tpu_torch.trainer import Trainer
 
 POSE_KEYS = ("Rh", "Th", "poses")
 
 
-def frame_loss(pose_vars: dict, params: dict, statics, gom_cfg, loss_cfg: dict, lpips_params, batch: dict):
+def frame_loss(pose_vars: dict, params: dict, statics, gom_cfg, loss_cfg: dict, lpips_params, batch: dict,
+               i_iter=1e7):
     """(loss, dropped) of one frame at the pose (Rh, Th, poses), through
     the train renderer: rgb L1 + mask L1 + VGG-LPIPS, each times its
     coefficient, with the L1 terms through ``abs_l1`` (background pixels
@@ -56,7 +61,7 @@ def frame_loss(pose_vars: dict, params: dict, statics, gom_cfg, loss_cfg: dict, 
     dst_Rs, dst_Ts = body_pose_to_body_RTs(poses, batch["dst_tpose_joints"])
     rgb, mask, aux = gom_forward(
         params, statics, gom_cfg, batch["K"], batch["E"], batch["cnl_gtfms"], dst_Rs, dst_Ts,
-        dst_posevec=poses[3:] + 1e-2, i_iter=1e7, global_R=Rh, global_T=Th, train=True, device=poses.device,
+        dst_posevec=poses[3:] + 1e-2, i_iter=i_iter, global_R=Rh, global_T=Th, train=True, device=poses.device,
     )
     rgb_u = unpack(rgb, mask, batch["bgcolor"])
     loss = torch.mean(abs_l1(rgb_u - batch["target_rgbs"])) * loss_cfg["rgb"]["coeff"]
@@ -74,22 +79,87 @@ class PoseAdam:
     """``optax.adam`` under the step schedule ``lr * 0.5 ** (t // decay)``,
     where t counts the updates before this one: Adam(0.9, 0.999, 1e-8) with
     eps outside the square root, the step size a float32 product as optax
-    forms it."""
+    forms it, from the device count."""
 
     def __init__(self, pose_cfg: dict):
-        self.lr = np.float32(pose_cfg["lr"])
+        self.lr = float(np.float32(pose_cfg["lr"]))
         self.decay = int(pose_cfg["decay"])
 
     def init(self, leaves: list) -> AdamState:
-        return AdamState(0, [torch.zeros_like(p) for p in leaves], [torch.zeros_like(p) for p in leaves], 0)
+        return init_state(leaves)
 
-    def step_size(self, t: int) -> float:
-        return float(-(self.lr * np.float32(0.5) ** (t // self.decay)))
+    def step_size(self, count: torch.Tensor) -> torch.Tensor:
+        """-lr * 0.5 ** (count // decay), a float32 device scalar."""
+        return -(torch.pow(0.5, torch.div(count, self.decay, rounding_mode="floor").to(torch.float32)) * self.lr)
 
     def update(self, grads: list, state: AdamState):
         """(updates, new state) for the leaves' gradients."""
         directions, count, mu, nu = adam_directions(grads, state)
         return torch._foreach_mul(directions, self.step_size(state.count)), AdamState(count, mu, nu, count)
+
+
+class PoseCarry(NamedTuple):
+    """The pose loop's state between steps, on the device: the variables
+    (Rh, Th, poses), their Adam state, the best variables and loss so far,
+    and every step's loss and dropped entries at the step's index (as
+    ``lax.scan`` stacks them)."""
+
+    leaves: list
+    opt: AdamState
+    best: list
+    best_loss: torch.Tensor
+    losses: torch.Tensor
+    dropped: torch.Tensor
+
+
+def init_pose_carry(tx: PoseAdam, init_poses: torch.Tensor, n_iters: int) -> PoseCarry:
+    """The carry before a frame's first step, on the device of
+    ``init_poses``: Rh = Th = 0, the poses, fresh Adam state, no best loss
+    yet, ``n_iters`` rows of losses and dropped entries."""
+    device = init_poses.device
+    zeros = torch.zeros(3, dtype=torch.float32, device=device)
+    leaves = [zeros, zeros.clone(), init_poses.detach().to(torch.float32)]
+    return PoseCarry(
+        leaves, tx.init(leaves), [t.clone() for t in leaves],
+        torch.full((), float("inf"), dtype=torch.float32, device=device),
+        torch.zeros((n_iters,), dtype=torch.float32, device=device),
+        torch.zeros((n_iters,), dtype=torch.int32, device=device),
+    )
+
+
+def make_pose_step(gom_cfg, loss_cfg: dict, tx: PoseAdam):
+    """One pose step as its program runs it: (params, statics, lpips_params,
+    batch, carry, i_iter) -> carry, the new carry written into the one it
+    was given.  The model and the LPIPS trunk are frozen inputs: the
+    gradient is taken in the pose only.  The best variables are replaced only
+    on a strict decrease of the loss."""
+
+    def step(params, statics, lpips_params, batch, carry: PoseCarry, i_iter):
+        params = tree_unflatten(params, [p.detach() for p in tree_leaves(params)])
+        if lpips_params is not None:
+            lpips_params = tree_unflatten(lpips_params, [p.detach() for p in tree_leaves(lpips_params)])
+        cur = [v.detach().requires_grad_(True) for v in carry.leaves]
+        loss, drop = frame_loss(dict(zip(POSE_KEYS, cur)), params, statics, gom_cfg, loss_cfg, lpips_params, batch,
+                                i_iter)
+        grads = torch.autograd.grad(loss, cur)
+        updates, opt = tx.update(list(grads), carry.opt)
+        with torch.no_grad():
+            loss = loss.detach()
+            improved = loss < carry.best_loss
+            # this step's row of the stacked losses: its index is Adam's count
+            # before the update
+            row = torch.arange(carry.losses.shape[0], device=loss.device) == carry.opt.count
+            new = PoseCarry(
+                torch._foreach_add([c.detach() for c in cur], updates), opt,
+                [torch.where(improved, c.detach(), b) for c, b in zip(cur, carry.best)],
+                torch.where(improved, loss, carry.best_loss),
+                torch.where(row, loss, carry.losses),
+                torch.where(row, drop.to(carry.dropped.dtype), carry.dropped),
+            )
+            torch._foreach_copy_(tree_leaves(list(carry)), tree_leaves(list(new)))
+        return carry
+
+    return step
 
 
 def make_pose_optimizer(gom_cfg, loss_cfg: dict, pose_cfg: dict, n_iters: int):
@@ -98,35 +168,26 @@ def make_pose_optimizer(gom_cfg, loss_cfg: dict, pose_cfg: dict, n_iters: int):
     entries of every step), all on the device of ``init_poses``: n_iters
     Adam steps from Rh = Th = 0, keeping the variables at which the loss was
     lowest (replaced only on a strict decrease).  The model and the LPIPS
-    trunk are frozen: the gradient is taken in the pose only."""
+    trunk are frozen: the gradient is taken in the pose only.
+
+    The step is one program (``optimize.program``, ``programs.py``), the
+    counterpart of the JAX package's jitted ``lax.scan``: on CUDA tensors
+    one CUDA graph, captured at the first frame and replayed ``n_iters``
+    times per frame, with no read of the host; on CPU tensors the same step
+    eagerly.  The results are copies: the next frame reuses the buffers."""
     tx = PoseAdam(pose_cfg)
+    program = Program(make_pose_step(gom_cfg, loss_cfg, tx))
 
     def optimize(params, statics, lpips_params, batch, init_poses):
-        params = tree_unflatten(params, [p.detach() for p in tree_leaves(params)])
-        if lpips_params is not None:
-            lpips_params = tree_unflatten(lpips_params, [p.detach() for p in tree_leaves(lpips_params)])
-        zeros = torch.zeros(3, dtype=torch.float32, device=init_poses.device)
-        leaves = [zeros, zeros.clone(), init_poses.detach().to(torch.float32)]
-        state = tx.init(leaves)
-        best_loss = torch.full((), float("inf"), dtype=torch.float32, device=init_poses.device)
-        best = list(leaves)
-        losses, dropped = [], []
+        args = (params, statics, lpips_params, batch, init_pose_carry(tx, init_poses, n_iters), 1e7)
         for _ in range(n_iters):
-            cur = [v.detach().requires_grad_(True) for v in leaves]
-            loss, drop = frame_loss(dict(zip(POSE_KEYS, cur)), params, statics, gom_cfg, loss_cfg, lpips_params,
-                                    batch)
-            grads = torch.autograd.grad(loss, cur)
-            updates, state = tx.update(list(grads), state)
-            with torch.no_grad():
-                loss = loss.detach()
-                improved = loss < best_loss
-                best_loss = torch.where(improved, loss, best_loss)
-                best = [torch.where(improved, c.detach(), b) for c, b in zip(cur, best)]
-                leaves = torch._foreach_add([c.detach() for c in cur], updates)
-            losses.append(loss)
-            dropped.append(drop)
-        return dict(zip(POSE_KEYS, best)), best_loss, torch.stack(losses), torch.stack(dropped)
+            carry = program(*args)
+            args = program.last_args  # the buffers: the next step copies nothing
+        # the buffers are the next frame's: hand out copies
+        return (dict(zip(POSE_KEYS, (b.clone() for b in carry.best))), carry.best_loss.clone(),
+                carry.losses.clone(), carry.dropped.clone())
 
+    optimize.program = program
     return optimize
 
 
@@ -166,6 +227,8 @@ def main(argv=None) -> dict:
     out_dir = os.path.join(cfg["save_dir"], "eval", "test_refine")
     os.makedirs(out_dir, exist_ok=True)
 
+    render = eval_program()
+
     def evaluate(tag, Rhs, Ths, poses_all):
         evaluator = EvaluatorSnapshot(device=device)
         for i in range(n):
@@ -173,12 +236,8 @@ def main(argv=None) -> dict:
             batch = to_device(item, device)
             dst_Rs, dst_Ts = body_pose_to_body_RTs(torch.as_tensor(poses_all[i], device=device),
                                                    batch["dst_tpose_joints"])
-            with torch.no_grad():
-                rgb, mask, _ = gom_forward(
-                    trainer.params, trainer.statics, trainer.gom_cfg, batch["K"], batch["E"], batch["cnl_gtfms"],
-                    dst_Rs, dst_Ts, dst_posevec=poses_all[i][3:] + 1e-2, i_iter=1e7,
-                    global_R=Rhs[i], global_T=Ths[i], device=device,
-                )
+            rgb, mask, _ = render(trainer.params, trainer.statics, trainer.gom_cfg, batch["K"], batch["E"],
+                                  batch["cnl_gtfms"], dst_Rs, dst_Ts, poses_all[i][3:] + 1e-2, 1e7, Rhs[i], Ths[i])
             pred = unpack(rgb, mask, bg, clamp=True).cpu().numpy()
             evaluator.evaluate(pred, np.asarray(item["target_rgbs"]))
             Image.fromarray(to_8b_image(pred)).save(os.path.join(out_dir, item["frame_name"] + f"_{tag}.png"))

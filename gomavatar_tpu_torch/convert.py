@@ -41,7 +41,7 @@ def adam_state_from_optax(opt_state, device="cuda"):
     ``optim.AdamState``: Adam's count and moments (leaves in sorted-key
     order, as ``optim.tree_leaves`` lists them) and the decay schedule's
     count (0 when the chain has no schedule)."""
-    from gomavatar_tpu_torch.optim import AdamState, tree_leaves
+    from gomavatar_tpu_torch.optim import AdamState, counter, tree_leaves
 
     found = {}
 
@@ -61,7 +61,8 @@ def adam_state_from_optax(opt_state, device="cuda"):
     def moments(tree):
         return [torch.tensor(np.asarray(a, np.float32), device=device) for a in tree_leaves(tree)]
 
-    return AdamState(int(np.asarray(adam.count)), moments(adam.mu), moments(adam.nu), found.get("schedule", 0))
+    return AdamState(counter(np.asarray(adam.count), device), moments(adam.mu), moments(adam.nu),
+                     counter(found.get("schedule", 0), device))
 
 
 def unflatten_params(npz) -> dict:

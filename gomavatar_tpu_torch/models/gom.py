@@ -305,7 +305,9 @@ def posed_vertices(
 ) -> torch.Tensor:
     """Observation-space vertices (N, 3): pose refinement, non-rigid
     offsets, FK + LBS and the optional global transform, each gated by its
-    kick-in iteration."""
+    kick-in iteration.  ``i_iter`` is a float32 device scalar in a step
+    program (``programs.py``), which replays with the value it finds there; a
+    Python float is filled into one here, outside any program."""
     if isinstance(i_iter, torch.Tensor):
         i_iter = i_iter.to(dtype=torch.float32, device=dst_Rs.device)
     else:
@@ -461,6 +463,26 @@ def gom_forward(
         return render_frame_train(params, statics, cfg, verts_obs, K, E)
     colors = M.appearance_apply(params["appearance"])
     return render_frame_eval(params, statics, cfg, verts_obs, colors, K, E)
+
+
+def eval_forward(params: dict, statics: GoMStatics, cfg: GoMConfig, K, E, cnl_gtfms, dst_Rs, dst_Ts,
+                 dst_posevec=None, i_iter=1e7, global_R=None, global_T=None):
+    """``gom_forward(train=False)`` without autograd, positional: the
+    function of :func:`eval_program`."""
+    with torch.no_grad():
+        return gom_forward(params, statics, cfg, K, E, cnl_gtfms, dst_Rs, dst_Ts, dst_posevec=dst_posevec,
+                           i_iter=i_iter, global_R=global_R, global_T=global_T, device=params["vertices"].device)
+
+
+def eval_program():
+    """The eval frame as one program per (config, shapes): call it with
+    :func:`eval_forward`'s arguments (``i_iter`` a float or a device scalar).
+    The counterpart of ``bench.py``'s ``jax.jit(forward)``; on CUDA tensors
+    one captured CUDA graph replayed per frame, on CPU tensors the eager
+    forward.  Its outputs are overwritten by its next call."""
+    from gomavatar_tpu_torch.programs import Program
+
+    return Program(eval_forward)
 
 
 def _splat_export(params: dict, statics: GoMStatics, cfg: GoMConfig, verts: torch.Tensor) -> dict:

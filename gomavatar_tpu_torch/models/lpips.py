@@ -180,11 +180,20 @@ def load_lpips(trunk: str = "vgg", weights_dir: str | None = None, quiet: bool =
     return out
 
 
+def _channel_constant(values, like: torch.Tensor) -> torch.Tensor:
+    """(3,) ``values`` made on ``like``'s device: filled there, since a copy
+    from the host would block a captured step."""
+    return torch.stack([torch.full((), v, dtype=like.dtype, device=like.device) for v in values])
+
+
+def _normalize(x: torch.Tensor) -> torch.Tensor:
+    """(x - shift) / scale per channel, the trunks' input scaling."""
+    return (x - _channel_constant(_SHIFT, x)) / _channel_constant(_SCALE, x)
+
+
 def _vgg_features(params, x: torch.Tensor, bf16: bool):
     """x (H, W, 3) in [-1, 1] -> the five tap feature maps, (1, C, h, w) f32."""
-    shift = torch.tensor(_SHIFT, dtype=x.dtype, device=x.device)
-    scale = torch.tensor(_SCALE, dtype=x.dtype, device=x.device)
-    h = ((x - shift) / scale).permute(2, 0, 1)[None]  # (1, 3, H, W)
+    h = _normalize(x).permute(2, 0, 1)[None]  # (1, 3, H, W)
     dtype = torch.bfloat16 if bf16 else torch.float32
     h = h.to(dtype)
     feats = []
@@ -205,10 +214,8 @@ def _vgg_features(params, x: torch.Tensor, bf16: bool):
 
 def _alex_features(params, x: torch.Tensor, bf16: bool):
     """x (H, W, 3) in [-1, 1] -> the five AlexNet relu taps, (1, C, h, w) f32."""
-    shift = torch.tensor(_SHIFT, dtype=x.dtype, device=x.device)
-    scale = torch.tensor(_SCALE, dtype=x.dtype, device=x.device)
     dtype = torch.bfloat16 if bf16 else torch.float32
-    h = ((x - shift) / scale).permute(2, 0, 1)[None].to(dtype)
+    h = _normalize(x).permute(2, 0, 1)[None].to(dtype)
     feats = []
     for conv, (_, _, stride, pad, pool_before) in zip(params["convs"], _ALEX_CONVS):
         if pool_before:

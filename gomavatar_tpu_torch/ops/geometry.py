@@ -49,7 +49,7 @@ class FrameGeometry(NamedTuple):
 
     @property
     def union_box(self):
-        inf = torch.tensor(float("inf"), dtype=self.sx0.dtype, device=self.sx0.device)
+        inf = torch.full((), float("inf"), dtype=self.sx0.dtype, device=self.sx0.device)
         zero = torch.zeros_like(inf)
         sx0 = torch.where(self.valid_splat, self.sx0, inf)
         sx1 = torch.where(self.valid_splat, self.sx1, -inf)

@@ -58,5 +58,5 @@ def construct_G(R: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
     G = torch.zeros(batch + (4, 4), dtype=R.dtype, device=R.device)
     G[..., :3, :3] = R
     G[..., :3, 3] = T
-    G[..., 3, 3] = 1.0
+    G[..., 3, 3].fill_(1.0)  # a fill on the device: a Python scalar assigned would be copied from the host
     return G

@@ -6,6 +6,10 @@ per-group ``scale(-lr)`` -> ``scale_by_schedule(0.1 ** (t / decay))``.  Here
 the same chain is written out over the params' leaves, with the same state:
 Adam's count and moments, and the schedule's own count, which is 0 on the
 first update and which ``fast_forward_schedule`` sets after a phase change.
+Both counts are int32 tensors on the params' device, as optax keeps them,
+and the bias corrections and the decay are computed there in float32, so an
+update reads nothing from the host and a captured step (``programs.py``)
+replays with the counts it finds.
 """
 
 from __future__ import annotations
@@ -59,10 +63,22 @@ def leaf_groups(params: dict) -> list[str]:
 
 
 class AdamState(NamedTuple):
-    count: int  # Adam's update count (bias correction)
+    count: torch.Tensor  # () int32: Adam's update count (bias correction)
     mu: list  # first moments, one per leaf
     nu: list  # second moments
-    schedule_count: int  # the decay schedule's step
+    schedule_count: torch.Tensor  # () int32: the decay schedule's step
+
+
+def counter(value: int, device) -> torch.Tensor:
+    """A count of the optimizer state: a 0-d int32 tensor on ``device``."""
+    return torch.full((), int(value), dtype=torch.int32, device=device)
+
+
+def init_state(leaves: list) -> AdamState:
+    """Zero moments and counts on the leaves' device."""
+    device = leaves[0].device
+    return AdamState(counter(0, device), [torch.zeros_like(p) for p in leaves], [torch.zeros_like(p) for p in leaves],
+                     counter(0, device))
 
 
 def adam_directions(grads: list, state: AdamState):
@@ -73,9 +89,9 @@ def adam_directions(grads: list, state: AdamState):
         torch._foreach_mul(torch._foreach_mul(grads, grads), 1.0 - B2), torch._foreach_mul(state.nu, B2)
     )
     count = state.count + 1
-    f32 = dict(dtype=torch.float32)
-    bc1 = float(1.0 - torch.tensor(B1, **f32) ** count)
-    bc2 = float(1.0 - torch.tensor(B2, **f32) ** count)
+    # 1 - decay ** count in float32 on the device, as optax's bias correction
+    bc1 = 1.0 - torch.pow(B1, count.to(torch.float32))
+    bc2 = 1.0 - torch.pow(B2, count.to(torch.float32))
     denom = torch._foreach_add(torch._foreach_sqrt(torch._foreach_div(nu, bc2)), EPS)
     return torch._foreach_div(torch._foreach_div(mu, bc1), denom), count, mu, nu
 
@@ -91,20 +107,18 @@ class Optimizer:
         self.lrs = [float(lrs[g]) for g in leaf_groups(params)]
 
     def init(self, params: dict) -> AdamState:
-        leaves = tree_leaves(params)
-        return AdamState(0, [torch.zeros_like(p) for p in leaves], [torch.zeros_like(p) for p in leaves], 0)
+        return init_state(tree_leaves(params))
 
     def update(self, grads: list, state: AdamState):
         """(updates, new state) for the leaves' gradients, as the optax chain
         computes them."""
         directions, count, mu, nu = adam_directions(grads, state)
-        scale = 1.0
-        if self.use_decay:
-            f32 = dict(dtype=torch.float32)
-            t = torch.tensor(float(state.schedule_count), **f32)
-            scale = float(torch.tensor(0.1, **f32) ** (t / self.decay_steps))
         # the per-group -lr, then the schedule, each a rounded float32 product
-        updates = [torch.mul(torch.mul(u, -lr), scale) for u, lr in zip(directions, self.lrs)]
+        updates = [torch.mul(u, -lr) for u, lr in zip(directions, self.lrs)]
+        if self.use_decay:
+            # 0.1 ** (t / decay_steps) in float32 on the device
+            scale = torch.pow(0.1, state.schedule_count.to(torch.float32) / self.decay_steps)
+            updates = torch._foreach_mul(updates, scale)
         return updates, AdamState(count, mu, nu, state.schedule_count + 1)
 
 
@@ -121,4 +135,4 @@ def fast_forward_schedule(state: AdamState, step: int) -> AdamState:
     from the global iteration, so a rebuilt optimizer keeps the decay
     continuous across a phase change.  Adam's own count restarts, as a
     fresh optimizer's does."""
-    return state._replace(schedule_count=int(step))
+    return state._replace(schedule_count=counter(step, state.schedule_count.device))

@@ -1,15 +1,18 @@
 """Where the time of the port's eval forward goes, on the card.
 
-Runs the trained avatar's 512^2 frame through ``gom_forward(train=False)``
-and reports, after a warm-up:
-  * the whole forward, host clock around a synchronised call (median);
+Runs the trained avatar's 512^2 frame through ``gom_forward(train=False)``,
+eagerly and as the eval program (``models.gom.eval_program``: one captured
+CUDA graph, replayed), and reports, after a warm-up:
+  * the whole forward, each way, host clock around a synchronised call
+    (median, p90);
   * each stage of the forward on its own, host clock around a synchronised
     call (median): posed vertices (pose MLP, non-rigid MLP, FK + LBS), the
     geometry table, the per-face shadow MLP, sorted binning, the entry
     gather, kernel B1, untile + shading;
-  * torch.profiler's device time by kernel over a steady window of forwards,
-    and the device's busy share: kernel time over the unprofiled forward's
-    time (the profiler's own host cost slows the profiled window).
+  * for each way, torch.profiler's device time by kernel over a steady
+    window of forwards, the kernels per frame, and the device's busy share:
+    kernel time over the unprofiled forward's time (the profiler's own host
+    cost slows the profiled window).
 The first line names the card and its power limit.
 
     python -m gomavatar_tpu_torch.profile_eval [--iters 20] [--json profile_eval.json]
@@ -33,8 +36,8 @@ from gomavatar_tpu_torch.ops.geometry import frame_geometry
 from gomavatar_tpu_torch.ops.splat.binning import bin_sorted
 
 
-def _host_ms(fn, iters: int):
-    """Median host time of a synchronised call, and the last result."""
+def _host_times(fn, iters: int):
+    """Host ms of ``iters`` synchronised calls, and the last result."""
     times, out = [], None
     for _ in range(iters):
         torch.cuda.synchronize()
@@ -42,7 +45,65 @@ def _host_ms(fn, iters: int):
         out = fn()
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
+    return times, out
+
+
+def _host_ms(fn, iters: int):
+    """Median host time of a synchronised call, and the last result."""
+    times, out = _host_times(fn, iters)
     return statistics.median(times), out
+
+
+def card_name() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def measure(fn, iters: int, warmup: int = 3, window: int | None = None) -> dict:
+    """``fn`` (one frame or step) after ``warmup`` calls: the median and p90
+    of ``iters`` synchronised calls on the host clock, then torch.profiler
+    over a window of ``window`` calls (``iters`` if None): the device ms and
+    kernels per call by kernel, and the busy share, the device ms over the
+    unprofiled median."""
+    from torch.profiler import ProfilerActivity, profile
+
+    window = window or iters
+    for _ in range(warmup):
+        fn()
+    times, _ = _host_times(fn, iters)
+    median, p90 = statistics.median(times), statistics.quantiles(times, n=10)[-1]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(window):
+            fn()
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    kernels = []
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue  # host-side ops also carry their kernels' device time
+        dev_us = getattr(evt, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = evt.self_cuda_time_total
+        kernels.append({"name": evt.key, "ms": dev_us / 1e3 / window, "count": evt.count / window})
+    kernels.sort(key=lambda k: -k["ms"])
+    device_ms = sum(k["ms"] for k in kernels)
+    return {"median_ms": median, "p90_ms": p90, "device_ms": device_ms,
+            "kernels_per_call": sum(k["count"] for k in kernels), "busy_share": device_ms / median,
+            "window_ms_per_call": window_ms / window, "kernels": kernels}
+
+
+def report(label: str, m: dict, unit: str, top: int) -> None:
+    print(f"{label}: median {m['median_ms']:.3f} ms/{unit}, p90 {m['p90_ms']:.3f}; device kernels "
+          f"{m['device_ms']:.3f} ms/{unit} over {m['kernels_per_call']:.0f} kernels/{unit}, busy "
+          f"{100 * m['busy_share']:.1f} % of the unprofiled median (profiled window "
+          f"{m['window_ms_per_call']:.3f} ms/{unit} wall)")
+    for k in m["kernels"][:top]:
+        print(f"  {k['ms']:8.4f} ms  x{k['count']:<6.1f} {k['name'][:90]}")
 
 
 def stage_times(params, statics, cfg, frame, iters: int) -> dict:
@@ -90,55 +151,26 @@ def main():
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_eval measures the card; no CUDA device is present")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    card = card_name()
     params, statics, cfg, frame = load_trained(device="cuda")
-
-    def forward():
-        return G.gom_forward(params, statics, cfg, frame["K"], frame["E"], frame["cnl_gtfms"],
-                             frame["dst_Rs"], frame["dst_Ts"], dst_posevec=frame["dst_posevec"])
-
-    for _ in range(5):
-        forward()
-    fwd_ms, _ = _host_ms(forward, args.iters)
+    f = frame
+    frame_args = (f["K"], f["E"], f["cnl_gtfms"], f["dst_Rs"], f["dst_Ts"], f["dst_posevec"], 1e7, None, None)
+    render = G.eval_program()
+    ways = {
+        "eager": lambda: G.eval_forward(params, statics, cfg, *frame_args),
+        "captured": lambda: render(params, statics, cfg, *frame_args),
+    }
+    measured = {k: measure(fn, args.iters) for k, fn in ways.items()}
     stages = stage_times(params, statics, cfg, frame, args.iters)
 
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(args.iters):
-            forward()
-        torch.cuda.synchronize()
-        window_ms = (time.perf_counter() - t0) * 1e3
-    kernels = []
-    for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue  # host-side ops also carry their kernels' device time
-        dev_us = getattr(evt, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = evt.self_cuda_time_total
-        kernels.append((evt.key, dev_us / 1e3 / args.iters, evt.count // args.iters))
-    kernels.sort(key=lambda k: -k[1])
-    device_ms = sum(k[1] for k in kernels)
-
     print(f"card: {card}")
-    print(f"forward: median {fwd_ms:.3f} ms/frame ({1e3 / fwd_ms:.2f} frames/s)")
+    for k, m in measured.items():
+        report(f"forward, {k}", m, "frame", 25 if k == "eager" else 12)
     for name, ms in stages.items():
         print(f"  stage {name:16s} {ms:8.3f} ms")
-    print(f"device kernels: {device_ms:.3f} ms/frame over {sum(k[2] for k in kernels)} launches/frame, "
-          f"{100 * device_ms / fwd_ms:.1f} % of the unprofiled forward (profiled window "
-          f"{window_ms / args.iters:.3f} ms/frame wall)")
-    for name, ms, n in kernels[:25]:
-        print(f"  {ms:8.4f} ms  x{n:<4d} {name[:90]}")
     if args.json:
         with open(args.json, "w") as fh:
-            json.dump({"card": card, "forward_ms": fwd_ms, "stages_ms": stages,
-                       "window_ms_per_frame": window_ms / args.iters, "device_ms_per_frame": device_ms,
-                       "kernels": [{"name": n, "ms": ms, "count": c} for n, ms, c in kernels]}, fh, indent=1)
+            json.dump({"card": card, **measured, "stages_ms": stages}, fh, indent=1)
 
 
 if __name__ == "__main__":

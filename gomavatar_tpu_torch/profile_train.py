@@ -2,15 +2,18 @@
 
 Runs ``Trainer.step`` on the trained avatar at 512^2 (its train config, the
 optimizer fast-forwarded to its iteration, the packed frame with the port's
-own eval render as target) and reports, after a warm-up:
-  * the whole step, host clock around a synchronised call (median, p90);
+own eval render as target), eagerly (``trainer.make_train_step``) and as
+the trainer's program (one captured CUDA graph, replayed), and reports,
+after a warm-up:
+  * the whole step, each way, host clock around a synchronised call
+    (median, p90);
   * the step's stages, each timed on the host clock with a synchronise
     before and after it (median): ``gom_forward(train=True)``, the loss
     without LPIPS, LPIPS alone, the backward, the Adam update;
-  * torch.profiler's device time by kernel over a steady window of steps,
-    the launches per step, and the device's busy share: kernel time over
-    the unprofiled step's time (the profiler's own host cost slows the
-    profiled window).
+  * for each way, torch.profiler's device time by kernel over a steady
+    window of steps, the kernels per step, and the device's busy share:
+    kernel time over the unprofiled step's time (the profiler's own host
+    cost slows the profiled window).
 The first line names the card and its power limit.
 
     python -m gomavatar_tpu_torch.profile_train [--iters 10] [--json profile_train.json]
@@ -21,7 +24,6 @@ from __future__ import annotations
 import argparse
 import json
 import statistics
-import subprocess
 import time
 
 import torch
@@ -32,7 +34,8 @@ from gomavatar_tpu_torch.models import gom as G
 from gomavatar_tpu_torch.models.lpips import load_lpips
 from gomavatar_tpu_torch.optim import apply_updates, tree_leaves, tree_unflatten
 from gomavatar_tpu_torch.scene import trained_train_cfg
-from gomavatar_tpu_torch.trainer import Trainer
+from gomavatar_tpu_torch.profile_eval import card_name, measure, report
+from gomavatar_tpu_torch.trainer import Trainer, make_train_step
 
 
 def _timed(fn):
@@ -92,62 +95,34 @@ def main():
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_train measures the card; no CUDA device is present")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    card = card_name()
     state, frame = load_trained_state(device="cuda")
     params, statics, cfg = state[:3]
-    with torch.no_grad():
-        rgb, mask, _ = G.gom_forward(params, statics, cfg, frame["K"], frame["E"], frame["cnl_gtfms"],
-                                     frame["dst_Rs"], frame["dst_Ts"], dst_posevec=frame["dst_posevec"])
+    rgb, mask, _ = G.eval_forward(params, statics, cfg, frame["K"], frame["E"], frame["cnl_gtfms"], frame["dst_Rs"],
+                                  frame["dst_Ts"], frame["dst_posevec"])
     bg = torch.zeros(3, device="cuda")
     batch = dict(frame, bgcolor=bg, target_rgbs=unpack(rgb, mask, bg, clamp=True), target_masks=mask)
     trainer = Trainer(trained_train_cfg(), lpips_params=load_lpips(device="cuda")[0], device="cuda", state=state)
-
-    for _ in range(3):
-        trainer.step(batch)
-    steps = [_timed(lambda: trainer.step(batch))[0] for _ in range(args.iters)]
-    step_ms = statistics.median(steps)
-    step_p90 = statistics.quantiles(steps, n=10)[-1]
+    # the eager step from the trainer's state, its result dropped: the state
+    # does not move
+    eager_step = make_train_step(trainer.gom_cfg, trainer.loss_cfg, trainer.tx)
+    i_iter = torch.full((), float(trainer.i_iter), device="cuda")
+    ways = {
+        "eager": lambda: eager_step(trainer.params, trainer.opt_state, trainer.statics, trainer.lpips_params, batch,
+                                    i_iter),
+        "captured": lambda: trainer.step(batch),
+    }
+    measured = {k: measure(fn, args.iters) for k, fn in ways.items()}
     stages = stage_times(trainer, batch, args.iters)
 
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(args.iters):
-            trainer.step(batch)
-        torch.cuda.synchronize()
-        window_ms = (time.perf_counter() - t0) * 1e3
-    kernels = []
-    for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue  # host-side ops also carry their kernels' device time
-        dev_us = getattr(evt, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = evt.self_cuda_time_total
-        kernels.append((evt.key, dev_us / 1e3 / args.iters, evt.count / args.iters))
-    kernels.sort(key=lambda k: -k[1])
-    device_ms = sum(k[1] for k in kernels)
-    launches = sum(k[2] for k in kernels)
-
     print(f"card: {card}")
-    print(f"train step: median {step_ms:.3f} ms, p90 {step_p90:.3f} ms ({1e3 / step_ms:.3f} steps/s)")
+    for k, m in measured.items():
+        report(f"train step, {k}", m, "step", 30 if k == "eager" else 12)
     for name, ms in stages.items():
         print(f"  stage {name:20s} {ms:8.3f} ms")
-    print(f"device kernels: {device_ms:.3f} ms/step over {launches:.0f} launches/step, "
-          f"{100 * device_ms / step_ms:.1f} % of the unprofiled step (profiled window "
-          f"{window_ms / args.iters:.3f} ms/step wall)")
-    for name, ms, n in kernels[:30]:
-        print(f"  {ms:8.4f} ms  x{n:<6.1f} {name[:90]}")
     if args.json:
         with open(args.json, "w") as fh:
-            json.dump({"card": card, "step_ms": step_ms, "step_p90_ms": step_p90, "stages_ms": stages,
-                       "window_ms_per_step": window_ms / args.iters, "device_ms_per_step": device_ms,
-                       "launches_per_step": launches,
-                       "kernels": [{"name": n, "ms": ms, "count": c} for n, ms, c in kernels]}, fh, indent=1)
+            json.dump({"card": card, **measured, "stages_ms": stages}, fh, indent=1)
 
 
 if __name__ == "__main__":

@@ -1,0 +1,240 @@
+"""One-program steps: what ``jax.jit`` gives the JAX package's train step,
+pose-refinement scan and eval forward (trace once, run as one program),
+here by CUDA graph capture and replay.
+
+``Program(fn)`` wraps a step function over pytrees of tensors (dicts,
+lists, tuples and NamedTuples of tensors in, the same out).  Its leaves:
+
+* tensors and numpy arrays are inputs: the program owns a buffer for each,
+  and every call copies the argument into it (non-blocking), unless the
+  argument is that buffer;
+* Python floats are inputs too: a 0-d float32 buffer on the program's
+  device, filled on every call (so an iteration number reaches the step as a
+  device tensor, never as a constant), interchangeable with a 0-d float32
+  tensor;
+* every other leaf (None, bools, ints, strings, a frozen config) is static:
+  part of the cache key and passed through as it is.
+
+The cache is keyed as jit's is: the pytree's structure, its static leaves
+and every input's shape and dtype.  A new key captures a new program.
+
+On CUDA tensors the first call of a key warms ``fn`` up on a side stream
+(three calls, so that autograd, cuDNN's algorithm choice and the caching
+allocator settle; the input buffers are put back after each, since a step
+may write its state into its inputs), then captures one call into a
+``torch.cuda.CUDAGraph`` with a memory pool of its own (PyTorch's
+whole-network capture), and every call replays that graph.  A failed
+capture raises: nothing carries on eagerly.  On CPU tensors the same
+protocol runs ``fn`` eagerly over the buffers, as each kernel wrapper runs
+its plain version there.
+
+The outputs are the program's static tensors on both paths: the next call
+of the same key overwrites them, so a caller that keeps a value past the
+next call clones it.  Outputs that are input buffers (a state the step
+updates in place) are returned as those buffers.  ``last_args`` holds the
+last call's buffers as an argument tree: a loop that calls the program
+with them again copies nothing.
+
+Launch counts: the kernel wrappers count a launch when they enqueue it, and
+a replay enqueues without them.  So the program takes back the counts of
+its set-up (warm-up and capture, as jit's trace is set-up) and keeps those
+of the captured call, which it adds to the wrappers' ``launches`` on every
+replay.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+WARMUP_CALLS = 3
+
+
+def kernel_wrappers() -> dict:
+    """The counted wrapper of every kernel launch, by name: each holds its
+    ``launches``."""
+    from gomavatar_tpu_torch.ops import frame_render as FR
+    from gomavatar_tpu_torch.ops import mesh_raster_pallas as MK
+    from gomavatar_tpu_torch.ops.splat import pallas_kernel as SK
+
+    return {"B1a": FR.frame_partials, "B1b": FR.frame_merge, "B2a": SK.splat_fwd_partials,
+            "B2b": SK.splat_fwd_merge, "B3a": SK.splat_bwd_partials, "B3b": SK.splat_bwd_grads,
+            "B4a": MK.mesh_fwd_partials, "B4b": MK.mesh_fwd_merge, "B5": MK.mesh_bwd}
+
+
+def _launches() -> dict:
+    return {k: w.launches for k, w in kernel_wrappers().items()}
+
+
+# ---- pytrees ---------------------------------------------------------------------
+
+_TENSOR = "tensor"
+
+
+def _flatten(x, leaves: list):
+    """The structure of ``x`` (hashable), its input leaves appended to
+    ``leaves``."""
+    if isinstance(x, torch.Tensor):
+        leaves.append(x)
+        return _TENSOR
+    if isinstance(x, np.ndarray):
+        leaves.append(torch.from_numpy(np.ascontiguousarray(x)))
+        return _TENSOR
+    if isinstance(x, (float, np.floating)):
+        leaves.append(float(x))
+        return _TENSOR
+    if isinstance(x, dict):
+        return (dict, tuple((k, _flatten(v, leaves)) for k, v in x.items()))
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return (type(x), tuple(_flatten(v, leaves) for v in x))
+    if isinstance(x, (list, tuple)):
+        return (type(x), tuple(_flatten(v, leaves) for v in x))
+    return ("static", x)
+
+
+def _unflatten(spec, it):
+    if spec == _TENSOR:
+        return next(it)
+    kind, body = spec
+    if kind == "static":
+        return body
+    if kind is dict:
+        return {k: _unflatten(s, it) for k, s in body}
+    children = [_unflatten(s, it) for s in body]
+    if kind is list:
+        return children
+    return kind(*children) if hasattr(kind, "_fields") else kind(children)
+
+
+def _tensor_leaves(tree) -> list:
+    """Every tensor of a pytree, in the program's order."""
+    leaves: list = []
+    _flatten(tree, leaves)
+    return [x for x in leaves if isinstance(x, torch.Tensor)]
+
+
+# ---- the program -----------------------------------------------------------------
+
+
+class _Captured:
+    """One key's buffers, graph (None on the CPU), static outputs and
+    launches per call."""
+
+    def __init__(self, spec, leaves: list, device: torch.device):
+        with torch.no_grad():
+            self.bufs = [
+                torch.full((), x, dtype=torch.float32, device=device) if isinstance(x, float)
+                else torch.empty_like(x, device=device).copy_(x)
+                for x in leaves
+            ]
+        self.args = _unflatten(spec, iter(self.bufs))
+        self.graph = None
+        self.out = None
+        self.launches: dict = {}
+
+    @torch.no_grad()
+    def load(self, leaves: list) -> None:
+        """Copy the call's arguments into the buffers (none where the
+        argument is the buffer)."""
+        same_dev, other = ([], []), []
+        for b, x in zip(self.bufs, leaves):
+            if isinstance(x, float):
+                b.fill_(x)
+            elif x is not b and not (x.data_ptr() == b.data_ptr() and x.stride() == b.stride()):
+                if x.device == b.device:
+                    same_dev[0].append(b)
+                    same_dev[1].append(x)
+                else:
+                    other.append((b, x))
+        if same_dev[0]:
+            torch._foreach_copy_(same_dev[0], same_dev[1], non_blocking=True)
+        for b, x in other:
+            b.copy_(x, non_blocking=True)
+
+
+class Program:
+    """``fn`` run as one program per key (see the module docstring):
+    ``Program(fn)(*args)`` returns ``fn(*args)``'s outputs as the program's
+    static tensors, which the next call overwrites."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self._cache: dict = {}
+        self.captures = 0  # keys seen so far: on CUDA tensors, graphs captured
+        self.last_args = None
+
+    def pool_bytes(self) -> int:
+        """Device memory reserved by the memory pools of this program's
+        graphs (0 on the CPU): what keeps every activation of a captured
+        step alive between its replays."""
+        pools = {tuple(cap.graph.pool()) for cap in self._cache.values() if cap.graph is not None}
+        if not pools:
+            return 0
+        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if tuple(seg.get("segment_pool_id", ())) in pools)
+
+    def __call__(self, *args):
+        leaves: list = []
+        spec = _flatten(args, leaves)
+        tensors = [x for x in leaves if isinstance(x, torch.Tensor)]
+        device = next((t.device for t in tensors if t.is_cuda), torch.device("cpu"))
+        key = (spec, device,
+               tuple(((), torch.float32) if isinstance(x, float) else (tuple(x.shape), x.dtype) for x in leaves))
+        cap = self._cache.get(key)
+        fresh = cap is None
+        if fresh:
+            cap = self._cache[key] = _Captured(spec, leaves, device)
+            self.captures += 1
+        else:
+            cap.load(leaves)
+        self.last_args = cap.args
+        if device.type != "cuda":
+            out = self.fn(*cap.args)
+            if fresh:
+                cap.out = out
+            else:
+                self._copy_out(cap, out)
+            return cap.out
+        if fresh:
+            try:
+                self._capture(cap, device)
+            except BaseException:
+                del self._cache[key]
+                raise
+        cap.graph.replay()
+        wrappers = kernel_wrappers()
+        for k, n in cap.launches.items():
+            wrappers[k].launches += n
+        return cap.out
+
+    @staticmethod
+    @torch.no_grad()
+    def _copy_out(cap: _Captured, out) -> None:
+        dst, src = _tensor_leaves(cap.out), _tensor_leaves(out)
+        pairs = [(d, s) for d, s in zip(dst, src) if d is not s]
+        if pairs:
+            torch._foreach_copy_([d for d, _ in pairs], [s for _, s in pairs])
+
+    def _capture(self, cap: _Captured, device: torch.device) -> None:
+        counts0 = _launches()
+        with torch.no_grad():
+            saved = [b.clone() for b in cap.bufs]
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            for _ in range(WARMUP_CALLS):
+                self.fn(*cap.args)
+                if saved:
+                    with torch.no_grad():
+                        torch._foreach_copy_(cap.bufs, saved)
+        torch.cuda.current_stream(device).wait_stream(side)
+        del saved
+        graph = torch.cuda.CUDAGraph()
+        before = _launches()
+        with torch.cuda.graph(graph):
+            cap.out = self.fn(*cap.args)
+        after = _launches()
+        cap.launches = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        for k, w in kernel_wrappers().items():
+            w.launches = counts0[k]
+        cap.graph = graph

@@ -2,9 +2,9 @@
 package's ``tools/tune_trained_budgets.py``).
 
 For each setting of (``max_tiles_per_gaussian``, ``binning_band0``,
-``active_tile_cap``) the avatar's packed frame goes through
-``gom_forward(train=False)`` (kernel B1 on the card) under
-``dataclasses.replace(cfg, ...)``.  Each line gives the binning's
+``active_tile_cap``) the avatar's packed frame goes through the eval program
+(``gom_forward(train=False)``, kernel B1 on the card, one captured CUDA
+graph per setting) under ``dataclasses.replace(cfg, ...)``.  Each line gives the binning's
 ``dropped_budget`` and ``dropped_buffer``, the renderer's ``tile_overflow``
 and the forward's median ms; the first line gives the widest splat's tile
 span on the packed frame, which is what the per-splat budget has to cover.
@@ -32,7 +32,7 @@ import torch
 from gomavatar_tpu_torch.cli.train import check_device
 from gomavatar_tpu_torch.convert import TRAINED, load_trained
 from gomavatar_tpu_torch.models import modules as M
-from gomavatar_tpu_torch.models.gom import eval_aux, frame_table_and_bins, gom_forward, posed_vertices
+from gomavatar_tpu_torch.models.gom import eval_aux, eval_program, frame_table_and_bins, posed_vertices
 from gomavatar_tpu_torch.ops.geometry import frame_geometry
 from gomavatar_tpu_torch.ops.splat.binning import TILE
 
@@ -57,9 +57,12 @@ def widest_span(params, statics, cfg, frame) -> int:
     return int(np.where(g.valid.cpu().numpy(), np.maximum(tiles, 0), 0).max())
 
 
-def forward(params, statics, cfg, frame, device):
-    return gom_forward(params, statics, cfg, frame["K"], frame["E"], frame["cnl_gtfms"], frame["dst_Rs"],
-                       frame["dst_Ts"], dst_posevec=frame["dst_posevec"], i_iter=1e7, train=False, device=device)
+def forward(render, params, statics, cfg, frame):
+    """The eval frame through ``render`` (an ``eval_program``): one program
+    per setting, so that a median here means what phase 3 of chip_smoke.py
+    and ``profile_eval.py`` mean by one."""
+    return render(params, statics, cfg, frame["K"], frame["E"], frame["cnl_gtfms"], frame["dst_Rs"],
+                  frame["dst_Ts"], frame["dst_posevec"], 1e7, None, None)
 
 
 def counters(aux) -> dict:
@@ -80,23 +83,24 @@ def binned_counters(params, statics, cfg, frame) -> dict:
 
 def sweep(params, statics, cfg, frame, settings, iters: int, warmup: int, device="cuda"):
     """One row per setting: its counters and the forward's median and p90
-    ms over ``iters`` synchronised calls after ``warmup``."""
+    ms over ``iters`` synchronised calls after ``warmup``, through one eval
+    program (a captured CUDA graph per setting on the card)."""
     sync = torch.cuda.synchronize if torch.device(device).type == "cuda" else (lambda: None)
+    render = eval_program()
     rows = []
     for mtg, band0, cap in settings:
         c = dataclasses.replace(cfg, max_tiles_per_gaussian=mtg, binning_band0=band0, active_tile_cap=cap)
-        with torch.no_grad():
-            row = {"max_tiles_per_gaussian": mtg, "binning_band0": band0, "active_tile_cap": cap,
-                   **counters(forward(params, statics, c, frame, device)[2])}
-            for _ in range(warmup):
-                forward(params, statics, c, frame, device)
-            ms = []
-            for _ in range(iters):
-                sync()
-                t0 = time.perf_counter()
-                forward(params, statics, c, frame, device)
-                sync()
-                ms.append((time.perf_counter() - t0) * 1e3)
+        row = {"max_tiles_per_gaussian": mtg, "binning_band0": band0, "active_tile_cap": cap,
+               **counters(forward(render, params, statics, c, frame)[2])}
+        for _ in range(warmup):
+            forward(render, params, statics, c, frame)
+        ms = []
+        for _ in range(iters):
+            sync()
+            t0 = time.perf_counter()
+            forward(render, params, statics, c, frame)
+            sync()
+            ms.append((time.perf_counter() - t0) * 1e3)
         row["median_ms"] = statistics.median(ms)
         row["p90_ms"] = statistics.quantiles(ms, n=10)[-1] if len(ms) > 1 else ms[0]
         rows.append(row)

@@ -10,6 +10,17 @@ device: the losses and the binning telemetry come back as device tensors
 (``GOMAVATAR_DEBUG_BINNING=1`` reads the drop counters after every step and
 fails on a drop, a sync per step).
 
+The step runs as one program (``programs.py``), the counterpart of the JAX
+package's jitted step: on CUDA tensors one captured CUDA graph per phase,
+replayed every step, on CPU tensors the same function eagerly.  The params
+and the Adam state live in the program's buffers and the step writes their
+new values back into them; the iteration reaches it as a device scalar.
+The eval forward (``Trainer.forward(train=False)``) is a program too
+(``models.gom.eval_program``).  Every path that rebinds the state (a
+restore, a resume, a checkpoint load) leaves the new tensors to be copied
+into the buffers by the next call; a phase change builds new programs,
+which capture anew, as JAX re-jits.
+
 ``Trainer.save`` writes the params, the Adam state, the iteration and the
 phase (``checkpoint.py``); ``resume`` and ``load_for_eval`` build the
 phase-0 model first, replay the stored number of subdivisions, then load.
@@ -17,7 +28,8 @@ phase-0 model first, replay the stored number of subdivisions, then load.
 Under a rank group (``parallel/``) each rank steps on its own frame and the
 gradients and loss terms are averaged over the ranks between the backward
 and Adam (``parallel.step.make_data_parallel_train_step``); only rank 0
-saves.
+saves.  That step runs eagerly: its all-reduce cannot be captured into a
+graph over gloo, and the rank path has no program yet.
 """
 
 from __future__ import annotations
@@ -30,7 +42,14 @@ import torch
 from gomavatar_tpu_torch import checkpoint as ckpt_lib
 from gomavatar_tpu_torch import prng
 from gomavatar_tpu_torch.losses import compute_loss, unpack
-from gomavatar_tpu_torch.models.gom import GoMConfig, GoMStatics, gom_forward, init_gom, subdivide_gom
+from gomavatar_tpu_torch.models.gom import (
+    GoMConfig,
+    GoMStatics,
+    eval_program,
+    gom_forward,
+    init_gom,
+    subdivide_gom,
+)
 from gomavatar_tpu_torch.optim import (
     apply_updates,
     fast_forward_schedule,
@@ -40,6 +59,7 @@ from gomavatar_tpu_torch.optim import (
 )
 from gomavatar_tpu_torch.ops.splat.binning import CHUNK
 from gomavatar_tpu_torch.ops.splat.tiled_jnp import NCMAX
+from gomavatar_tpu_torch.programs import Program
 
 log = logging.getLogger(__name__)
 
@@ -104,6 +124,25 @@ def make_train_step(gom_cfg: GoMConfig, loss_cfg: dict, tx, reduce=None):
     return step
 
 
+def make_program_step(gom_cfg: GoMConfig, loss_cfg: dict, tx, statics: GoMStatics, lpips_params):
+    """The train step as its program runs it: (params, opt_state, batch,
+    i_iter) -> (params, opt_state, total, losses), where the new params and
+    Adam state are written into the tensors it was given (the program's
+    buffers, as optax's donated ones) and returned.  The statics and the
+    LPIPS trunk are read where they lie: the trainer never rebinds them
+    within a phase."""
+    step = make_train_step(gom_cfg, loss_cfg, tx)
+
+    def run(params, opt_state, batch, i_iter):
+        new_params, new_state, total, losses = step(params, opt_state, statics, lpips_params, batch, i_iter)
+        with torch.no_grad():
+            torch._foreach_copy_(tree_leaves(params) + tree_leaves(list(opt_state)),
+                                 tree_leaves(new_params) + tree_leaves(list(new_state)))
+        return params, opt_state, total, losses
+
+    return run
+
+
 class Trainer:
     """Owns params, statics and the optimizer across subdivision phases, and
     saves and loads them.
@@ -144,8 +183,11 @@ class Trainer:
         if self.i_iter:
             # keep the lr decay continuous across the phase change
             self.opt_state = fast_forward_schedule(self.opt_state, self.i_iter)
+        # the eval program of the previous phase renders no more
+        self._eval = eval_program()
         if self.group is None:
-            self._step_fn = make_train_step(self.gom_cfg, self.loss_cfg, self.tx)
+            self._step_fn = Program(make_program_step(self.gom_cfg, self.loss_cfg, self.tx, self.statics,
+                                                      self.lpips_params))
         else:
             from gomavatar_tpu_torch.parallel.step import make_data_parallel_train_step
 
@@ -171,11 +213,21 @@ class Trainer:
         """One optimizer step on one frame; returns (total, losses) as device
         tensors.  Under a rank group ``batch`` is this rank's frame and the
         step's gradients and losses are the ranks' means: the rank-per-process
-        form of JAX's ``step`` over a list of ``data_parallel`` frames."""
+        form of JAX's ``step`` over a list of ``data_parallel`` frames.
+
+        Without a group the step is the phase's program: ``batch`` is
+        copied into its inputs, the state is updated in place in its
+        buffers, and (total, losses) are its outputs, which the next step
+        overwrites (clone what is kept longer)."""
         self.maybe_subdivide()
-        self.params, self.opt_state, total, losses = self._step_fn(
-            self.params, self.opt_state, self.statics, self.lpips_params, batch, float(self.i_iter)
-        )
+        if self.group is None:
+            self.params, self.opt_state, total, losses = self._step_fn(
+                self.params, self.opt_state, batch, float(self.i_iter)
+            )
+        else:
+            self.params, self.opt_state, total, losses = self._step_fn(
+                self.params, self.opt_state, self.statics, self.lpips_params, batch, float(self.i_iter)
+            )
         if _DEBUG_BINNING:
             # float: under a rank group the counters are means over the ranks
             dropped = sum(float(losses[k]) for k in ("bin_drop_budget", "bin_drop_buffer", "bin_drop_ncmax"))
@@ -188,12 +240,20 @@ class Trainer:
         return total, losses
 
     def forward(self, batch: dict, train: bool = False):
-        with torch.set_grad_enabled(train):
-            return gom_forward(
-                self.params, self.statics, self.gom_cfg, batch["K"], batch["E"], batch["cnl_gtfms"],
-                batch["dst_Rs"], batch["dst_Ts"], dst_posevec=batch.get("dst_posevec"), i_iter=float(self.i_iter),
-                global_R=batch.get("global_R"), global_T=batch.get("global_T"), train=train, device=self.device,
-            )
+        """The frame at the current iteration: (rgb, mask, aux).  Eval
+        (``train=False``) through the trainer's eval program, whose outputs
+        the next eval call overwrites; ``train=True`` eagerly, with
+        autograd."""
+        frame = (batch["K"], batch["E"], batch["cnl_gtfms"], batch["dst_Rs"], batch["dst_Ts"],
+                 batch.get("dst_posevec"))
+        if not train:
+            return self._eval(self.params, self.statics, self.gom_cfg, *frame, float(self.i_iter),
+                              batch.get("global_R"), batch.get("global_T"))
+        i_iter = torch.full((), float(self.i_iter), dtype=torch.float32, device=self.device)
+        with torch.enable_grad():
+            return gom_forward(self.params, self.statics, self.gom_cfg, *frame, i_iter=i_iter,
+                               global_R=batch.get("global_R"), global_T=batch.get("global_T"), train=True,
+                               device=self.device)
 
     # -- checkpointing -------------------------------------------------------
 

@@ -194,7 +194,7 @@ def test_scene_loop_matches_jax_multi_scene_render():
     statics_s = jax.tree_util.tree_map(lambda *xs: jnp.stack(xs), *[p[1] for p in j_packs])
     render = make_multi_scene_render(make_mesh(2, axis=SCENE_AXIS), gom_cfg)
     want, _ = render(params_s, statics_s, stack_batches(items), jnp.float32(1e7))
-    got, _ = anim_cli.render_scenes(t_packs, items, "cpu")
+    got, _ = anim_cli.render_in_turn(len(t_packs), "cpu")(t_packs, items)
     assert len(got) == 2
     for s in range(2):
         assert_close_frac(got[s].numpy(), np.asarray(want[s]), f"scene {s}")

@@ -2,7 +2,11 @@
 gomavatar_tpu_torch against the optax chain of gomavatar_tpu's
 ``make_optimizer`` on the CPU: five updates on fixed gradients, after a
 fresh start, after ``fast_forward_schedule`` and from an optax state carried
-across mid-trajectory; rtol 1e-6."""
+across mid-trajectory, and the same inside a program (``programs.py``) that
+writes the state in place, its counts device tensors; the pose optimizer's
+``PoseAdam`` against ``optax.adam`` under the pose schedule of
+gomavatar_tpu's ``make_pose_optimizer``, across its decay boundaries;
+rtol 1e-6."""
 
 import numpy as np
 import jax
@@ -13,6 +17,8 @@ import torch
 
 from gomavatar_tpu import optim as JO
 from gomavatar_tpu_torch import optim as TO
+from gomavatar_tpu_torch.cli.train_pose import PoseAdam
+from gomavatar_tpu_torch.programs import Program
 from gomavatar_tpu_torch.convert import adam_state_from_optax, params_from_jax
 from gomavatar_tpu_torch.scene import E2E_TRAIN
 from torch_threads import one_torch_thread  # noqa: F401
@@ -111,3 +117,68 @@ def test_leaf_groups_follow_the_reference_labels():
     params = _params(rng)
     labels = jax.tree_util.tree_leaves(JO.label_params(params))
     assert TO.leaf_groups(params) == labels
+
+
+@pytest.mark.parametrize("fast_forward", [0, 6100])
+def test_adam_in_a_program_matches_optax(fast_forward):
+    """The update as the train program runs it: the state written into the
+    program's buffers in place, the counts int32 tensors that the program
+    never reads on the host; five calls equal optax's five updates."""
+    rng = np.random.default_rng(3)
+    params = _params(rng)
+    grads = _grads(rng, params, STEPS)
+    cfg = _train_cfg(True)
+    j_params = jax.tree_util.tree_map(jnp.asarray, params)
+    jtx = JO.make_optimizer(cfg, j_params)
+    j_state = JO.fast_forward_schedule(jtx.init(j_params), fast_forward)
+    j_params, _ = _jax_run(jtx, j_state, j_params, grads)
+
+    t_params = params_from_jax(params, device="cpu")
+    ttx = TO.make_optimizer(cfg, t_params)
+    state = TO.fast_forward_schedule(ttx.init(t_params), fast_forward)
+
+    def step(leaves, state, g):
+        updates, new_state = ttx.update(g, state)
+        torch._foreach_copy_(leaves + TO.tree_leaves(list(state)),
+                             list(torch._foreach_add(leaves, updates)) + TO.tree_leaves(list(new_state)))
+        return leaves, state
+
+    prog = Program(step)
+    leaves = TO.tree_leaves(t_params)
+    for g in grads:
+        leaves, state = prog(leaves, state, [torch.as_tensor(x) for x in jax.tree_util.tree_leaves(g)])
+    assert prog.captures == 1
+    _assert_params_close(TO.tree_unflatten(t_params, leaves), j_params)
+    assert state.count.dtype == state.schedule_count.dtype == torch.int32
+    assert int(state.count) == STEPS and int(state.schedule_count) == fast_forward + STEPS
+
+
+@pytest.mark.parametrize("decay", [1, 2, 3])
+def test_pose_adam_matches_optax_across_decay(decay):
+    """Seven updates of the pose variables (Rh, Th, the 72-d pose) with the
+    step size halving every ``decay`` updates: the step size from the
+    device count equals optax's schedule at each of them."""
+    rng = np.random.default_rng(4)
+    shapes = {"Rh": (3,), "Th": (3,), "poses": (72,)}
+    pose = {k: rng.standard_normal(v).astype(np.float32) for k, v in shapes.items()}
+    grads = [{k: rng.standard_normal(v).astype(np.float32) for k, v in shapes.items()} for _ in range(7)]
+    lr = 1e-2
+
+    def schedule(t):  # gomavatar_tpu/cli/train_pose.py's
+        return lr * 0.5 ** (t // decay)
+
+    jtx = optax.adam(schedule)
+    j_vars = {k: jnp.asarray(v) for k, v in pose.items()}
+    j_state = jtx.init(j_vars)
+    ttx = PoseAdam({"lr": lr, "decay": decay})
+    keys = ("Rh", "Th", "poses")
+    t_vars = [torch.as_tensor(pose[k]) for k in keys]
+    t_state = ttx.init(t_vars)
+    for g in grads:
+        updates, j_state = jtx.update({k: jnp.asarray(v) for k, v in g.items()}, j_state, j_vars)
+        j_vars = optax.apply_updates(j_vars, updates)
+        t_updates, t_state = ttx.update([torch.as_tensor(g[k]) for k in keys], t_state)
+        t_vars = torch._foreach_add(t_vars, t_updates)
+        for k, t in zip(keys, t_vars):
+            np.testing.assert_allclose(t.numpy(), np.asarray(j_vars[k]), rtol=RTOL, atol=1e-7)
+    assert int(t_state.count) == len(grads) and t_state.count.dtype == torch.int32

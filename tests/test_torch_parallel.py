@@ -233,7 +233,7 @@ def test_every_scene_of_every_block_in_order(scenes):
     for p, info in zip(params_np, infos):
         _, statics, cfg = TG.init_gom(m, info, device="cpu")
         packs.append((params_from_jax(p, "cpu"), statics, cfg))
-    want, want_mask = anim_cli.render_scenes(packs, items, "cpu")
+    want, want_mask = anim_cli.render_in_turn(len(packs), "cpu")(packs, items)
     (rgb0, mask0), (rgb1, mask1) = runs
     assert rgb0.shape == (4, IMG[1], IMG[0], 3) and mask0.shape == (4, IMG[1], IMG[0])
     assert np.array_equal(rgb0, rgb1) and np.array_equal(mask0, mask1)
