@@ -104,30 +104,46 @@ Phases, each fatal on failure:
         frames) and ``--synthetic 2 --type mdm`` (2 frames) at 512^2: B1a
         and B1b once per scene and frame, each strip 1024 x 512 with both
         halves not black, frames/s.
-  7. the multi-rank layer (``gomavatar_tpu_torch.parallel``), each path's
-     launches counted on each rank (set to 0 just before it, read just
-     after); the train step's bit-equality checks run under torch's
-     deterministic algorithms (a probe shows that two runs of one step
-     differ in the last bits otherwise: the gathers' backward adds with
-     atomics), and every phase under one cuBLAS workspace config
-     (``CUBLAS_WORKSPACE_CONFIG=:4096:8``, which they need):
-     a. the data-parallel step at world 1 over NCCL: 5 steps on the trained
-        avatar, the params bit-equal to ``Trainer.step``'s after each, B2a-B5
-        once per step and one all-reduce per step; then timed in turns with
-        ``Trainer.step``, and the reducer alone;
-     b. world 2 on the one card over gloo: 3 steps on frame pairs, both
-        replicas bit-equal after each and rank 0 bit-equal to the one-process
-        mean-gradient step, (g_a + g_b) / 2 before Adam; each rank's step
-        median and the two ranks' frames/s against 7a's;
+  7. the multi-rank layer (``gomavatar_tpu_torch.parallel``) through the
+     rank programs (``programs.RankProgram``: over NCCL one captured CUDA
+     graph around the collective, over gloo on the card two graphs with the
+     collective on the host between their replays), each path's launches
+     and collectives counted on each rank through the replays (set to 0
+     just before it, read just after); the train step's bit-equality checks
+     run under torch's deterministic algorithms (a probe shows that two runs
+     of one step differ in the last bits otherwise: the gathers' backward
+     adds with atomics), each in a program of its own, its timed steps
+     under the default algorithms, and every phase under one cuBLAS
+     workspace config (``CUBLAS_WORKSPACE_CONFIG=:4096:8``, which they
+     need):
+     a. the data-parallel step at world 1 over NCCL (``Trainer(group=...)``,
+        one graph): 5 steps on the trained avatar, the params and Adam
+        moments bit-equal to ``Trainer.step``'s and to the eager rank step's
+        (``make_data_parallel_train_step``) after each, B2a-B5 once per step
+        and one all-reduce per step, one capture; then the captured and the
+        eager rank step timed in turns with ``Trainer.step`` (median, p90,
+        device ms and busy share), the program's memory pool, and the
+        reducer alone;
+     b. world 2 on the one card over gloo (two graphs per rank): 3 steps on
+        frame pairs, both replicas bit-equal after each and rank 0 bit-equal
+        to the one-process mean-gradient step, (g_a + g_b) / 2 before Adam,
+        one capture per rank; each rank's captured and eager step medians,
+        its pool, and the two ranks' frames/s, captured and eager, against
+        7a's;
      c. the tile-parallel render: B1 on 2, 4 and 8 shares of the slots in one
         process, concatenated bit-equal to the one-call sweep below n_active,
         each share against the plain version and timed; then worlds 1 (NCCL),
-        2 and 4 (gloo on the one card), rgb and alpha bit-equal to
-        ``render_frame_eval``, n_active and each rank's n_local, 0 dropped, B1a
-        and B1b once per rank;
+        2 and 4 (gloo on the one card), two frames each through the program,
+        rgb and alpha bit-equal to ``render_frame_eval``, n_active and each
+        rank's n_local, 0 dropped, B1a and B1b once per rank and frame, one
+        all-gather per frame, one capture; the captured and the eager frame
+        timed in turns on each rank (world 1 beside phase 3's captured eval
+        frame);
      d. the multi-scene render of the trained avatar and a recoloured copy at
-        worlds 1 (NCCL) and 2 (gloo): each scene, in order, bit-equal to its
-        own ``gom_forward(train=False)``, B1 once per scene on its rank;
+        worlds 1 (NCCL) and 2 (gloo), each scene through its own eval
+        program, two calls: each scene, in order, bit-equal to its own
+        ``gom_forward(train=False)``, B1 once per scene on its rank, one
+        all-gather per output per call;
      e. with 2 cards or more: 7b-7d over 2 cards with NCCL and ``cli.train
         --data_parallel 2`` for 2 steps over the 5a capture; with one card a
         line says it did not run.
@@ -1030,6 +1046,10 @@ def train_batch(params, statics, cfg, frame, target_frame):
     return dict(frame, bgcolor=bg, target_rgbs=unpack(rgb, mask, bg, clamp=True), target_masks=mask)
 
 
+# the LPIPS trunk of each device, drawn once (the random VGG16 takes seconds)
+_LPIPS: dict = {}
+
+
 def make_trainer(params, statics, cfg, i_iter, device, group=None):
     """A Trainer of the trained avatar's train config, started from
     (params, statics, cfg) at ``i_iter`` with no subdivision left to do; a
@@ -1040,7 +1060,9 @@ def make_trainer(params, statics, cfg, i_iter, device, group=None):
 
     train_cfg = trained_train_cfg()
     phase = len(train_cfg["model"]["subdivide_iters"])
-    return Trainer(train_cfg, lpips_params=load_lpips(device=device)[0], device=device,
+    if str(device) not in _LPIPS:
+        _LPIPS[str(device)] = load_lpips(device=device)[0]
+    return Trainer(train_cfg, lpips_params=_LPIPS[str(device)], device=device,
                    state=(params, statics, cfg, i_iter, phase), group=group)
 
 
@@ -2093,12 +2115,17 @@ def phase_pose_animate(cfg_path: str, trained, device="cuda"):
 
 # ---- phase 7: the multi-rank layer ---------------------------------------------
 
-# 7a: DP_STEPS data-parallel steps at world 1 (NCCL) against Trainer.step,
-# then DP_TIMED synchronised steps of each in turns after TRAIN_WARMUP; 7b: DP2_STEPS steps at world 2 on frame pairs against
-# the one-process mean-gradient step, then DP2_TIMED synchronised steps on
-# each rank after TRAIN_WARMUP; 7c: B1's shard splits in one process and
-# the tile-parallel render's worlds; 7d: the multi-scene render's worlds
+# 7a: DP_STEPS data-parallel steps at world 1 (NCCL) against Trainer.step
+# and the eager rank step, then DP_TIMED synchronised steps of the three in
+# turns after TRAIN_WARMUP; 7b: DP2_STEPS steps at world 2 on frame pairs
+# against the one-process mean-gradient step, then DP2_TIMED synchronised
+# steps of the program and of the eager step on each rank after
+# TRAIN_WARMUP; 7c: B1's shard splits in one process and the tile-parallel
+# render's worlds, RANK_CALLS frames each, then RANK_TIMED frames of the
+# program and of the eager render in turns; 7d: the multi-scene render's
+# worlds, RANK_CALLS calls each
 DP_STEPS, DP_TIMED, DP2_STEPS, DP2_TIMED = 5, 10, 3, 10
+RANK_CALLS, RANK_TIMED = 2, 20
 SHARD_SPLITS, TILE_WORLDS, SCENE_WORLDS = (2, 4, 8), (1, 2, 4), (1, 2)
 
 
@@ -2117,6 +2144,32 @@ def deterministic():
         torch.use_deterministic_algorithms(False)
 
 
+def in_turns(ways: dict, iters: int) -> dict:
+    """{way: ms of each of its ``iters`` synchronised calls}, the ways
+    called in turns (``fn(i)`` in round i), so that all see the same host."""
+    per_call = {k: [] for k in ways}
+    torch.cuda.synchronize()
+    for i in range(iters):
+        for k, fn in ways.items():
+            t0 = time.perf_counter()
+            fn(i)
+            torch.cuda.synchronize()
+            per_call[k].append((time.perf_counter() - t0) * 1e3)
+    return per_call
+
+
+def spread(ms: list) -> dict:
+    return {"median_ms": statistics.median(ms), "p90_ms": statistics.quantiles(ms, n=10)[-1]}
+
+
+def profiled_ms(fn) -> float:
+    """The device ms of one call of ``fn()`` by torch.profiler over
+    PROFILE_WINDOW calls (``profile_eval.measure``'s window)."""
+    from gomavatar_tpu_torch.profile_eval import measure
+
+    return measure(fn, 2, warmup=0, window=PROFILE_WINDOW)["device_ms"]
+
+
 def leaves_equal(a, b) -> bool:
     return len(a) == len(b) and all(torch.equal(x.cpu(), y.cpu()) for x, y in zip(a, b))
 
@@ -2133,19 +2186,28 @@ def dp_pairs(steps: int):
     return [(s % 3, (s + 1) % 3) for s in range(steps)]
 
 
-def timed_steps(trainer, batch_of, iters: int):
-    """(ms of each synchronised step, wall seconds of all) over ``iters``
-    steps after TRAIN_WARMUP warm-up steps."""
+def timed_steps(step, iters: int):
+    """(ms of each synchronised ``step(i)``, wall seconds of all) over
+    ``iters`` steps after TRAIN_WARMUP warm-up steps."""
     for i in range(TRAIN_WARMUP):
-        trainer.step(batch_of(i))
+        step(i)
     torch.cuda.synchronize()
     per_step, t_all = [], time.perf_counter()
-    for i in range(iters):
+    for i in range(TRAIN_WARMUP, TRAIN_WARMUP + iters):
         t0 = time.perf_counter()
-        trainer.step(batch_of(i))
+        step(i)
         torch.cuda.synchronize()
         per_step.append((time.perf_counter() - t0) * 1e3)
     return per_step, time.perf_counter() - t_all
+
+
+def train_state(trainer):
+    """Copies of a trainer's params, Adam moments and count."""
+    from gomavatar_tpu_torch.optim import tree_leaves
+
+    st = trainer.opt_state
+    return ([p.clone() for p in tree_leaves(trainer.params)], [m.clone() for m in list(st.mu) + list(st.nu)],
+            int(st.count))
 
 
 def check_dp_losses(label, steps):
@@ -2157,14 +2219,16 @@ def check_dp_losses(label, steps):
                 f"{label} step {i}: the binning dropped entries")
 
 
-def dp_world1(trained, group, batches, i_iter, train_median):
-    """Phase 7a: the data-parallel step at world 1 over NCCL against
-    Trainer.step, bit for bit after every step, with its launches and
-    all-reduces counted; then timed."""
+def dp_world1(trained, group, batches, i_iter, train_median, card):
+    """Phase 7a: the data-parallel step at world 1 over NCCL, the rank's
+    program, against Trainer.step and the eager rank step, bit for bit after
+    every step, with its launches and all-reduces counted through the
+    replays; then the three timed in turns."""
     from gomavatar_tpu_torch.optim import tree_leaves
-    from gomavatar_tpu_torch.parallel import all_reduce_sum
+    from gomavatar_tpu_torch.parallel import all_reduce_sum, make_data_parallel_train_step
 
     params, statics, cfg, _ = trained
+    t0 = time.perf_counter()
     # the probe: the plain step twice from one state, torch's default algorithms
     a, b = (make_trainer(params, statics, cfg, i_iter, "cuda") for _ in range(2))
     a.step(batches[0])
@@ -2174,58 +2238,88 @@ def dp_world1(trained, group, batches, i_iter, train_median):
              "values_differing": sum(int((d > 0).sum()) for d in diffs), "max_abs": max(float(d.max()) for d in diffs)}
     print(f"  probe: one Trainer.step run twice from one state with torch's default algorithms: "
           f"{probe['values_differing']} values in {probe['leaves_differing']} of {len(diffs)} leaves differ, "
-          f"worst {probe['max_abs']:.3g}")
-
-    ref = make_trainer(params, statics, cfg, i_iter, "cuda")
-    dp = make_trainer(params, statics, cfg, i_iter, "cuda", group)
-    snaps = []
-
-    def run():
-        out = []
-        for i in range(DP_STEPS):
-            out.append(dp.step(batches[i % 3]))
-            snaps.append([p.clone() for p in tree_leaves(dp.params)])
-        return out
+          f"worst {probe['max_abs']:.3g} ({time.perf_counter() - t0:.1f} s)")
+    del a, b
+    t0 = time.perf_counter()
 
     with deterministic():
+        ref = make_trainer(params, statics, cfg, i_iter, "cuda")
+        dp = make_trainer(params, statics, cfg, i_iter, "cuda", group)
+        eager = make_data_parallel_train_step(group, dp.gom_cfg, dp.loss_cfg, dp.tx)
+        p, o = clone_tree(dp.params), clone_tree(dp.opt_state)
+        snaps = []
+
+        def run():
+            out = []
+            for i in range(DP_STEPS):
+                out.append(clone_tree(dp.step(batches[i % 3])))
+                snaps.append(train_state(dp))
+            return out
+
         calls = all_reduce_sum.calls
         steps, launches, _ = counted(run)
         reduces = all_reduce_sum.calls - calls
         for i in range(DP_STEPS):
             ref.step(batches[i % 3])
-            require(leaves_equal(tree_leaves(ref.params), snaps[i]),
-                    f"7a step {i}: the world-1 data-parallel step differs from Trainer.step")
+            st = train_state(ref)
+            require(leaves_equal(st[0], snaps[i][0]) and leaves_equal(st[1], snaps[i][1]) and st[2] == snaps[i][2],
+                    f"7a step {i}: the world-1 data-parallel program differs from Trainer.step")
+            p, o, total, _ = eager(p, o, dp.statics, dp.lpips_params, batches[i % 3],
+                                   torch.full((), float(i_iter + i), device="cuda"))
+            same = (leaves_equal(tree_leaves(p), snaps[i][0])
+                    and leaves_equal(list(o.mu) + list(o.nu), snaps[i][1]) and int(o.count) == snaps[i][2])
+            require(same and torch.equal(total, steps[i][0]),
+                    f"7a step {i}: the data-parallel program differs from the eager rank step")
     check_dp_losses("7a", steps)
-    print(f"  {DP_STEPS} steps (deterministic algorithms): params bit-equal to Trainer.step after every step; "
-          f"launches {launches}; {reduces} all-reduces")
+    print(f"  {DP_STEPS} steps (deterministic algorithms): params and Adam moments bit-equal to Trainer.step's and "
+          f"to the eager rank step's after every step; launches {launches}; {reduces} all-reduces (the replays); "
+          f"{dp._step_fn.captures} capture ({type(dp._step_fn).__name__}, one graph: {dp._step_fn.one_graph}; "
+          f"{time.perf_counter() - t0:.1f} s)")
     for k in TRAIN_KERNELS:
         require(launches[k] == DP_STEPS, f"7a: {k} did not launch once per step")
     require(launches["B1a"] == launches["B1b"] == 0, "7a: the train step launched the eval kernel")
     require(reduces == DP_STEPS, "7a: not one all-reduce per step")
-    # timed in turns with Trainer.step, each step synchronised, so that both
-    # see the same host; then the reducer alone on the last step's terms.
-    # A fresh Trainer: ref's program was captured under deterministic
-    # algorithms and replays their kernels
+    require(dp._step_fn.captures == 1 and dp._step_fn.one_graph, "7a: not one captured graph in the phase")
+    del ref, dp, snaps
+    t0 = time.perf_counter()
+
+    # timed under torch's default algorithms (programs of their own: a graph
+    # captured under the deterministic ones replays their kernels), the three
+    # in turns, each step synchronised; then the reducer alone
     ref = make_trainer(params, statics, cfg, i_iter, "cuda")
-    for i in range(TRAIN_WARMUP):
-        ref.step(batches[i % 3])
-        dp.step(batches[i % 3])
-    torch.cuda.synchronize()
-    per_step = {"dp": [], "plain": []}
-    for i in range(DP_TIMED):
-        for name, tr in (("plain", ref), ("dp", dp)):
-            t0 = time.perf_counter()
-            tr.step(batches[i % 3])
-            torch.cuda.synchronize()
-            per_step[name].append((time.perf_counter() - t0) * 1e3)
-    med = {k: statistics.median(v) for k, v in per_step.items()}
-    reduce_ms = reducer_ms(group, dp, batches[0], i_iter)
-    print(f"  data-parallel step at world 1 (eager): median {med['dp']:.3f} ms over {DP_TIMED} steps, Trainer.step "
-          f"(its captured program) {med['plain']:.3f} ms in turns with it ({med['dp'] - med['plain']:+.3f} ms), 4d's median {train_median:.3f} "
-          f"ms; the pack, all-reduce, divide and unpack alone {reduce_ms:.3f} ms")
-    return {"steps": DP_STEPS, "bit_equal": True, "launches": launches, "all_reduces": reduces,
-            "median_ms": med["dp"], "plain_median_ms": med["plain"], "reducer_ms": reduce_ms,
-            "train_4d_median_ms": train_median, "frames_per_s": 1e3 / med["dp"], "probe_default_algorithms": probe}
+    dp = make_trainer(params, statics, cfg, i_iter, "cuda", group)
+    eager = make_data_parallel_train_step(group, dp.gom_cfg, dp.loss_cfg, dp.tx)
+    i_dev = torch.full((), float(i_iter), device="cuda")
+    ways = {
+        "plain": lambda i: ref.step(batches[i % 3]),
+        "captured": lambda i: dp.step(batches[i % 3]),
+        # the eager rank step from the program's state, its result dropped
+        "eager": lambda i: eager(dp.params, dp.opt_state, dp.statics, dp.lpips_params, batches[i % 3], i_dev),
+    }
+    in_turns(ways, TRAIN_WARMUP)
+    per_step = in_turns(ways, DP_TIMED)
+    print(f"  {DP_TIMED} steps of each in turns after {TRAIN_WARMUP} and the captures: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out = {"steps": DP_STEPS, "bit_equal": True, "launches": launches, "all_reduces": reduces,
+           "captures": 1, "probe_default_algorithms": probe, "train_4d_median_ms": train_median}
+    for k, fn in ways.items():
+        m = spread(per_step[k])
+        m["device_ms"] = profiled_ms(lambda: fn(0))
+        m["busy_share"] = m["device_ms"] / m["median_ms"]
+        out[k] = m
+        print(f"  {k}: median {m['median_ms']:.3f} ms, p90 {m['p90_ms']:.3f} over {DP_TIMED} steps in turns; device "
+              f"{m['device_ms']:.3f} ms, busy {100 * m['busy_share']:.1f} % (torch.profiler, {PROFILE_WINDOW} steps) "
+              f"on {card}")
+    print(f"  the profiles: {time.perf_counter() - t0:.1f} s")
+    out["pool_mib"] = dp._step_fn.pool_bytes() / 2**20
+    out["reducer_ms"] = reducer_ms(group, dp, batches[0], i_iter)
+    cap, plain = out["captured"]["median_ms"], out["plain"]["median_ms"]
+    print(f"  the captured data-parallel step {cap / plain:.3f}x Trainer.step's median (4d's {train_median:.3f} ms), "
+          f"{out['eager']['median_ms'] / cap:.2f}x faster than the eager rank step; pool {out['pool_mib']:.1f} MiB; "
+          f"the pack, all-reduce, divide and unpack alone {out['reducer_ms']:.3f} ms")
+    out.update(median_ms=cap, plain_median_ms=plain, frames_per_s=1e3 / cap,
+               eager_frames_per_s=1e3 / out["eager"]["median_ms"], vs_plain=cap / plain)
+    return out
 
 
 def reducer_ms(group, trainer, batch, i_iter) -> float:
@@ -2249,33 +2343,48 @@ def reducer_ms(group, trainer, batch, i_iter) -> float:
 
 
 def rank_dp(group, trained, batches, i_iter):
-    """One rank of 7b: DP2_STEPS data-parallel steps on its frame of each
-    pair (deterministic algorithms), each step's params copied to the CPU;
-    then DP2_TIMED timed steps."""
+    """One rank of 7b: DP2_STEPS steps of the rank's program on its frame of
+    each pair (deterministic algorithms), each step's params copied to the
+    CPU; then DP2_TIMED timed steps of a fresh program and of the eager
+    rank step."""
     from gomavatar_tpu_torch.optim import tree_leaves
-    from gomavatar_tpu_torch.parallel import all_reduce_sum
+    from gomavatar_tpu_torch.parallel import all_reduce_sum, make_data_parallel_train_step
 
     params, statics, cfg, _ = trained
-    trainer = make_trainer(params, statics, cfg, i_iter, group.device, group)
     pairs = dp_pairs(DP2_STEPS)
     snaps = []
-
-    def run():
-        out = []
-        for pair in pairs:
-            out.append(trainer.step(batches[pair[group.rank]]))
-            snaps.append([p.detach().cpu() for p in tree_leaves(trainer.params)])
-        return out
-
     with deterministic():
+        trainer = make_trainer(params, statics, cfg, i_iter, group.device, group)
+
+        def run():
+            out = []
+            for pair in pairs:
+                out.append(clone_tree(trainer.step(batches[pair[group.rank]])))
+                snaps.append([p.detach().cpu() for p in tree_leaves(trainer.params)])
+            return out
+
         calls = all_reduce_sum.calls
         steps, launches, _ = counted(run)
         reduces = all_reduce_sum.calls - calls
     check_dp_losses(f"7b rank {group.rank}", steps)
-    timed = dp_pairs(DP2_TIMED + TRAIN_WARMUP)
-    per_step, wall = timed_steps(trainer, lambda i: batches[timed[i][group.rank]], DP2_TIMED)
-    return {"params": snaps, "launches": launches, "all_reduces": reduces,
-            "totals": [float(t) for t, _ in steps], "median_ms": statistics.median(per_step), "wall_s": wall}
+    captures, one_graph = trainer._step_fn.captures, trainer._step_fn.one_graph
+    del trainer
+    order = dp_pairs(DP2_TIMED + TRAIN_WARMUP)
+    timed = make_trainer(params, statics, cfg, i_iter, group.device, group)
+    cap_ms, cap_wall = timed_steps(lambda i: timed.step(batches[order[i][group.rank]]), DP2_TIMED)
+    eager = make_data_parallel_train_step(group, timed.gom_cfg, timed.loss_cfg, timed.tx)
+    state = [timed.params, timed.opt_state]
+    i_dev = torch.full((), float(i_iter), device=group.device)
+
+    def eager_step(i):
+        state[0], state[1], _, _ = eager(state[0], state[1], timed.statics, timed.lpips_params,
+                                         batches[order[i][group.rank]], i_dev)
+
+    eager_ms, eager_wall = timed_steps(eager_step, DP2_TIMED)
+    return {"params": snaps, "launches": launches, "all_reduces": reduces, "captures": captures,
+            "one_graph": one_graph, "totals": [float(t) for t, _ in steps],
+            "captured": dict(spread(cap_ms), wall_s=cap_wall), "eager": dict(spread(eager_ms), wall_s=eager_wall),
+            "pool_mib": timed._step_fn.pool_bytes() / 2**20}
 
 
 def dp_reference(trained, batches, i_iter):
@@ -2305,17 +2414,25 @@ def check_dp_ranks(label, ranks, reference, world1):
         for k in TRAIN_KERNELS:
             require(res["launches"][k] == DP2_STEPS, f"{label} rank {r}: {k} did not launch once per step")
         require(res["all_reduces"] == DP2_STEPS, f"{label} rank {r}: not one all-reduce per step")
-    fps = 2 * DP2_TIMED / max(r["wall_s"] for r in ranks)
+        require(res["captures"] == 1, f"{label} rank {r}: the program captured {res['captures']} times in one phase")
     launches = [{k: r["launches"][k] for k in TRAIN_KERNELS} for r in ranks]
     reduces = [r["all_reduces"] for r in ranks]
-    medians = [r["median_ms"] for r in ranks]
+    forms = ["one graph" if r["one_graph"] else "two graphs around a host all-reduce" for r in ranks]
     print(f"  {DP2_STEPS} steps on frame pairs (deterministic algorithms): both replicas bit-equal after every step, "
           f"rank 0 bit-equal to the one-process (g_a + g_b) / 2 step; launches per rank {launches}; all-reduces "
-          f"{reduces}")
-    print(f"  step median per rank {', '.join('%.3f' % m for m in medians)} ms; the two ranks {fps:.3f} frames/s "
-          f"over {DP2_TIMED} steps against 7a's {world1['frames_per_s']:.3f} ({fps / world1['frames_per_s']:.2f}x)")
-    return {"steps": DP2_STEPS, "bit_equal": True, "median_ms": medians, "frames_per_s": fps,
-            "vs_world1": fps / world1["frames_per_s"], "launches": launches, "all_reduces": reduces}
+          f"{reduces} (per call); one capture per rank ({forms[0]}); pools "
+          f"{', '.join('%.1f' % r['pool_mib'] for r in ranks)} MiB")
+    out = {"steps": DP2_STEPS, "bit_equal": True, "launches": launches, "all_reduces": reduces, "form": forms[0],
+           "pool_mib": [r["pool_mib"] for r in ranks]}
+    for k in ("captured", "eager"):
+        fps = 2 * DP2_TIMED / max(r[k]["wall_s"] for r in ranks)
+        out[k] = {"median_ms": [r[k]["median_ms"] for r in ranks], "p90_ms": [r[k]["p90_ms"] for r in ranks],
+                  "frames_per_s": fps, "vs_world1": fps / world1[f"{'eager_' if k == 'eager' else ''}frames_per_s"]}
+        print(f"  {k}: step median per rank {', '.join('%.3f' % m for m in out[k]['median_ms'])} ms; the two ranks "
+              f"{fps:.3f} frames/s over {DP2_TIMED} steps against 7a's {k} {fps / out[k]['vs_world1']:.3f} "
+              f"({out[k]['vs_world1']:.2f}x)")
+    out["frames_per_s"] = out["captured"]["frames_per_s"]
+    return out
 
 
 def eval_inputs(trained):
@@ -2369,42 +2486,66 @@ def b1_shards(trained):
 
 
 def rank_tile(group, trained):
-    """One rank of 7c: the tile-parallel render of the trained frame, its
-    launches counted, against render_frame_eval in the same process."""
+    """One rank of 7c: RANK_CALLS frames of the tile-parallel render (the
+    rank's program), its launches and all-gathers counted, against
+    render_frame_eval in the same process; then the program and the eager
+    render timed in turns."""
     from gomavatar_tpu_torch.models.gom import frame_table_and_bins, render_frame_eval
-    from gomavatar_tpu_torch.parallel import make_tile_parallel_render, shard_slots
+    from gomavatar_tpu_torch.parallel import all_gather_cat, make_tile_parallel_render, shard_slots
 
     params, statics, cfg, frame = trained
     verts_obs, colors = eval_inputs(trained)
+    args = (params, verts_obs, colors, frame["K"], frame["E"])
     render = make_tile_parallel_render(group, cfg, statics)
-    (rgb, alpha, aux), launches, _ = counted(lambda: render(params, verts_obs, colors, frame["K"], frame["E"]))
-    want_rgb, want_alpha, _ = render_frame_eval(params, statics, cfg, verts_obs, colors, frame["K"], frame["E"])
-    _, bins, _ = frame_table_and_bins(params, statics, cfg, verts_obs, colors, frame["K"], frame["E"])
+    calls = all_gather_cat.calls
+    frames, launches, _ = counted(lambda: [clone_tree(render(*args)) for _ in range(RANK_CALLS)])
+    gathers = all_gather_cat.calls - calls
+    want_rgb, want_alpha, _ = render_frame_eval(params, statics, cfg, *args[1:])
+    _, bins, _ = frame_table_and_bins(params, statics, cfg, *args[1:])
+    rgb, alpha, aux = frames[-1]
     tel = aux["binning"]
+    ms = in_turns({"captured": lambda i: render(*args), "eager": lambda i: render.fn(*args)}, RANK_TIMED)
     return {"rgb": rgb.cpu() if group.rank == 0 else None, "alpha": alpha.cpu() if group.rank == 0 else None,
-            "equal": bool(torch.equal(rgb, want_rgb) and torch.equal(alpha, want_alpha)),
+            "equal": all(bool(torch.equal(f[0], want_rgb) and torch.equal(f[1], want_alpha)) for f in frames),
             "n_active": int(bins.n_active), "n_local": int(shard_slots(bins, group.rank, group.world)[3]),
             "dropped": int(tel.total_dropped()), "tile_overflow": int(aux["tile_overflow"]),
-            "launches": {k: launches[k] for k in ("B1a", "B1b")}}
+            "launches": {k: launches[k] for k in ("B1a", "B1b")}, "gathers": gathers, "captures": render.captures,
+            "one_graph": render.one_graph, "captured": spread(ms["captured"]), "eager": spread(ms["eager"]),
+            "pool_mib": render.pool_bytes() / 2**20}
 
 
-def check_tile(label, world, ranks, want):
+def check_tile(label, world, ranks, want, forward_median=None):
     """7c's checks on one world's ranks against the parent's
-    render_frame_eval (``want`` = (rgb, alpha))."""
+    render_frame_eval (``want`` = (rgb, alpha)); ``forward_median`` phase
+    3's captured eval frame, printed beside world 1's."""
     require(bool(torch.equal(ranks[0]["rgb"], want[0].cpu()) and torch.equal(ranks[0]["alpha"], want[1].cpu())),
             f"{label}: rank 0's frame differs from render_frame_eval")
     for r, res in enumerate(ranks):
-        require(res["equal"], f"{label} rank {r}: the frame differs from render_frame_eval")
+        require(res["equal"], f"{label} rank {r}: a frame differs from render_frame_eval")
         require(res["dropped"] == 0 and res["tile_overflow"] == 0, f"{label} rank {r}: dropped entries")
-        require(res["launches"]["B1a"] == res["launches"]["B1b"] == 1, f"{label} rank {r}: B1 not once per frame")
+        require(res["launches"]["B1a"] == res["launches"]["B1b"] == RANK_CALLS,
+                f"{label} rank {r}: B1 not once per frame")
+        require(res["gathers"] == RANK_CALLS, f"{label} rank {r}: not one all-gather per frame")
+        require(res["captures"] == 1, f"{label} rank {r}: the render captured {res['captures']} times")
     n_local = [r["n_local"] for r in ranks]
     empty = [r for r, x in enumerate(n_local) if x == 0]
     idle = f"ranks {empty} hold no active slot" if empty else "every rank holds active slots"
-    print(f"  world {world}: rgb and alpha bit-equal to render_frame_eval on every rank; n_active "
-          f"{ranks[0]['n_active']}, n_local {n_local} ({idle}); 0 dropped, 0 tile_overflow; B1a and B1b once per "
-          f"rank")
-    return {"n_active": ranks[0]["n_active"], "n_local": n_local, "bit_equal": True,
-            "launches": [r["launches"] for r in ranks]}
+    form = "one graph" if ranks[0]["one_graph"] else "two graphs around a host all-gather"
+    print(f"  world {world} ({form}): {RANK_CALLS} frames, rgb and alpha bit-equal to render_frame_eval on every "
+          f"rank; n_active {ranks[0]['n_active']}, n_local {n_local} ({idle}); 0 dropped, 0 tile_overflow; B1a and "
+          f"B1b once per rank and frame, one all-gather per frame, one capture")
+    out = {"n_active": ranks[0]["n_active"], "n_local": n_local, "bit_equal": True, "form": form,
+           "launches": [r["launches"] for r in ranks], "gathers": [r["gathers"] for r in ranks],
+           "pool_mib": [r["pool_mib"] for r in ranks]}
+    for k in ("captured", "eager"):
+        out[k] = {x: [r[k][x] for r in ranks] for x in ("median_ms", "p90_ms")}
+        print(f"  {k}: frame median per rank {', '.join('%.3f' % m for m in out[k]['median_ms'])} ms, p90 "
+              f"{', '.join('%.3f' % m for m in out[k]['p90_ms'])} over {RANK_TIMED} frames in turns")
+    if forward_median is not None:
+        out["vs_forward"] = out["captured"]["median_ms"][0] / forward_median
+        print(f"  the captured tile-parallel frame {out['vs_forward']:.3f}x phase 3's captured eval frame "
+              f"({forward_median:.3f} ms)")
+    return out
 
 
 def two_scenes(trained):
@@ -2419,28 +2560,36 @@ def two_scenes(trained):
 
 
 def rank_scenes(group, trained):
-    """One rank of 7d: the multi-scene render of the two scenes, launches
-    counted; the gathered frames on rank 0."""
-    from gomavatar_tpu_torch.parallel import make_multi_scene_render
+    """One rank of 7d: RANK_CALLS calls of the multi-scene render of the two
+    scenes, launches and all-gathers counted; the gathered frames on rank
+    0."""
+    from gomavatar_tpu_torch.parallel import all_gather_cat, make_multi_scene_render
 
     packs, items = two_scenes(trained)
     render = make_multi_scene_render(group)
-    (rgb, _), launches, _ = counted(lambda: render(packs, items))
-    return {"rgb": rgb.cpu() if group.rank == 0 else None, "launches": {k: launches[k] for k in ("B1a", "B1b")}}
+    calls = all_gather_cat.calls
+    outs, launches, _ = counted(lambda: [clone_tree(render(packs, items)) for _ in range(RANK_CALLS)])
+    return {"rgb": [rgb.cpu() for rgb, _ in outs] if group.rank == 0 else None,
+            "launches": {k: launches[k] for k in ("B1a", "B1b")}, "gathers": all_gather_cat.calls - calls}
 
 
 def check_scenes(label, world, ranks, want):
-    """7d's checks: every scene, in order, bit-equal to its own gom_forward."""
-    rgb = ranks[0]["rgb"]
-    require(rgb.shape[0] == len(want), f"{label}: {rgb.shape[0]} scenes gathered, {len(want)} expected")
-    for s, w in enumerate(want):
-        require(bool(torch.equal(rgb[s], w.cpu())), f"{label}: scene {s} differs from its own gom_forward")
+    """7d's checks: every scene, in order, bit-equal to its own gom_forward,
+    on every call."""
+    for rgb in ranks[0]["rgb"]:
+        require(rgb.shape[0] == len(want), f"{label}: {rgb.shape[0]} scenes gathered, {len(want)} expected")
+        for s, w in enumerate(want):
+            require(bool(torch.equal(rgb[s], w.cpu())), f"{label}: scene {s} differs from its own gom_forward")
     per = len(want) // world
     for r, res in enumerate(ranks):
-        require(res["launches"]["B1a"] == res["launches"]["B1b"] == per, f"{label} rank {r}: B1 not once per scene")
-    print(f"  world {world}: {len(want)} scenes gathered in order, each bit-equal to its own gom_forward(train=False); "
-          f"B1a and B1b {per} per rank")
-    return {"scenes": len(want), "bit_equal": True, "launches": [r["launches"] for r in ranks]}
+        require(res["launches"]["B1a"] == res["launches"]["B1b"] == per * RANK_CALLS,
+                f"{label} rank {r}: B1 not once per scene")
+        require(res["gathers"] == 2 * RANK_CALLS, f"{label} rank {r}: not one all-gather per output and call")
+    print(f"  world {world}: {RANK_CALLS} calls, {len(want)} scenes gathered in order, each bit-equal to its own "
+          f"gom_forward(train=False) on every call (each scene through its eval program); B1a and B1b {per} per "
+          f"rank and call; 2 all-gathers per call")
+    return {"scenes": len(want), "calls": RANK_CALLS, "bit_equal": True,
+            "launches": [r["launches"] for r in ranks], "gathers": [r["gathers"] for r in ranks]}
 
 
 def parallel_rank(group, jobs):
@@ -2448,14 +2597,15 @@ def parallel_rank(group, jobs):
     loaded on its device, then each of ``jobs`` ("dp", "tile", "scenes")."""
     from gomavatar_tpu_torch.convert import load_trained, trained_meta
 
+    t0 = time.perf_counter()
     trained = load_trained(device=group.device)
-    out = {}
-    if "dp" in jobs:
-        out["dp"] = rank_dp(group, trained, dp_batches(trained), int(trained_meta()["iter"]))
-    if "tile" in jobs:
-        out["tile"] = rank_tile(group, trained)
-    if "scenes" in jobs:
-        out["scenes"] = rank_scenes(group, trained)
+    out = {"seconds": {"load": time.perf_counter() - t0}}
+    for job, run in (("dp", lambda: rank_dp(group, trained, dp_batches(trained), int(trained_meta()["iter"]))),
+                     ("tile", lambda: rank_tile(group, trained)), ("scenes", lambda: rank_scenes(group, trained))):
+        if job in jobs:
+            t0 = time.perf_counter()
+            out[job] = run()
+            out["seconds"][job] = time.perf_counter() - t0
     return out
 
 
@@ -2481,7 +2631,7 @@ def dp_cli_yaml(cfg_path: str, it: int) -> str:
     return path
 
 
-def phase_parallel(trained, train_median, cfg_path: str):
+def phase_parallel(trained, train_median, forward_median, cfg_path: str, card):
     """Phase 7: the multi-rank layer on the card."""
     import tempfile
 
@@ -2504,13 +2654,13 @@ def phase_parallel(trained, train_median, cfg_path: str):
         group = init_group(0, 1, f"{tmp}/store", "cuda:0", "nccl")
         print(f"[7a] the data-parallel step at world 1 over {group.backend}: {DP_STEPS} steps on the trained avatar "
               f"against Trainer.step")
-        out["7a"] = dp_world1(trained, group, batches, i_iter, train_median)
+        out["7a"] = dp_world1(trained, group, batches, i_iter, train_median, card)
         print(f"  phase 7a: {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         print("[7c] the tile-parallel render: B1 on shares of the slots, then worlds "
               f"{list(TILE_WORLDS)} (world 1 over nccl, the others over gloo on the one card)")
         out["7c"] = {"shares": b1_shards(trained)}
-        out["7c"]["1"] = check_tile("7c world 1", 1, [rank_tile(group, trained)], want_frame)
+        out["7c"]["1"] = check_tile("7c world 1", 1, [rank_tile(group, trained)], want_frame, forward_median)
         print("[7d] the multi-scene render: the trained avatar and a recoloured copy, worlds "
               f"{list(SCENE_WORLDS)} (world 1 over nccl)")
         out["7d"] = {"1": check_scenes("7d world 1", 1, [rank_scenes(group, trained)], want_scenes)}
@@ -2525,12 +2675,14 @@ def phase_parallel(trained, train_median, cfg_path: str):
     out["7b"] = check_dp_ranks("7b", [r["dp"] for r in two], reference, out["7a"])
     out["7c"]["2"] = check_tile("7c world 2", 2, [r["tile"] for r in two], want_frame)
     out["7d"]["2"] = check_scenes("7d world 2", 2, [r["scenes"] for r in two], want_scenes)
-    print(f"  world 2: {time.perf_counter() - t0:.1f} s with the ranks' start")
+    print(f"  world 2: {time.perf_counter() - t0:.1f} s with the ranks' start; rank 0 "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in two[0]["seconds"].items()))
     t0 = time.perf_counter()
     print("[7c] world 4 on the one card over gloo: the tile-parallel render")
     four = spawn(parallel_rank, ["cuda:0"] * 4, ("tile",), backend="gloo")
     out["7c"]["4"] = check_tile("7c world 4", 4, [r["tile"] for r in four], want_frame)
-    print(f"  world 4: {time.perf_counter() - t0:.1f} s with the ranks' start")
+    print(f"  world 4: {time.perf_counter() - t0:.1f} s with the ranks' start; rank 0 "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in four[0]["seconds"].items()))
 
     t0 = time.perf_counter()
     cards = torch.cuda.device_count()
@@ -2962,7 +3114,7 @@ def main() -> int:
     pose, animate = phase_pose_animate(f"{DRIVER_DIR}/exp.yaml", trained)
     done(6, t0)
     t0 = time.perf_counter()
-    parallel = phase_parallel(trained, train["median_ms"], f"{DRIVER_DIR}/exp.yaml")
+    parallel = phase_parallel(trained, train["median_ms"], fwd["median_ms"], f"{DRIVER_DIR}/exp.yaml", card)
     done(7, t0)
     t0 = time.perf_counter()
     e2e = phase_e2e()

@@ -16,8 +16,9 @@ k rank processes (``parallel.spawn``, NCCL) render the scenes through
 ``parallel.make_multi_scene_render``, k the largest divisor of n that is at
 most the number of cards (JAX asserts that n divides onto its devices; the
 port takes fewer ranks instead, and one card where k is 1): rank r renders
-every scene of its block of n / k, the frames are gathered in scene order
-and rank 0 writes the strips.  With ``--cfgs`` the camera intrinsics come
+every scene of its block of n / k, each through its own eval program as on
+one card (``parallel.render_in_turn``), the frames are gathered in scene
+order and rank 0 writes the strips.  With ``--cfgs`` the camera intrinsics come
 from ``--img`` and the render size from each checkpoint's config.  It runs on the card unless ``--device
 cpu``; ``main`` returns a summary.
 """
@@ -35,7 +36,7 @@ from PIL import Image
 
 from gomavatar_tpu_torch.cli.train import check_device
 from gomavatar_tpu_torch.eval_lib import to_8b_image
-from gomavatar_tpu_torch.parallel import barrier, make_multi_scene_render, spawn
+from gomavatar_tpu_torch.parallel import barrier, make_multi_scene_render, render_in_turn, spawn
 
 
 def _synthetic_scenes(n: int, img_size, device):
@@ -182,28 +183,6 @@ def scene_ranks(n: int, device) -> int:
     is at most the number of cards (1 keeps the one-card loop), else 1."""
     cards = torch.cuda.device_count() if device.type == "cuda" else 1
     return max(k for k in range(1, min(n, cards) + 1) if n % k == 0)
-
-
-def render_in_turn(n: int, device):
-    """``render(packs, items)`` of :func:`parallel.render_scenes` in one
-    process, each scene through its own eval program (one program per
-    scene: a program's outputs are overwritten by its next call)."""
-    from gomavatar_tpu_torch.data.dataset import to_device
-    from gomavatar_tpu_torch.models.gom import eval_program
-
-    programs = [eval_program() for _ in range(n)]
-
-    def render(packs, items):
-        rgbs, masks = [], []
-        for prog, (params, statics, gom_cfg), item in zip(programs, packs, items):
-            b = to_device(item, device)
-            rgb, mask, _ = prog(params, statics, gom_cfg, b["K"], b["E"], b["cnl_gtfms"], b["dst_Rs"], b["dst_Ts"],
-                                b.get("dst_posevec"), 1e7, None, None)
-            rgbs.append(rgb)
-            masks.append(mask)
-        return torch.stack(rgbs), torch.stack(masks)
-
-    return render
 
 
 def animate_rank(group, argv) -> dict | None:

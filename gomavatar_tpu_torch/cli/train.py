@@ -16,6 +16,9 @@ cpu``; ``main`` returns the ``Trainer``.
 processes (``parallel.spawn``; on CUDA one card each, ``cuda:0`` ..
 ``cuda:N-1``, so N cards are needed; on the CPU gloo ranks), each stepping
 on its own frame with the gradients averaged by one all-reduce per step.
+The step is the rank's program (``parallel.make_data_parallel_program``):
+over NCCL one CUDA graph per phase, the all-reduce captured in it, replayed
+every step; on the CPU the same step eagerly.
 Every rank draws the same epoch order and takes its items by
 ``parallel.rank_items`` (item g * N + r of step g; an epoch's leftover
 items dropped), as JAX's driver groups them.  Every rank checks the
@@ -248,7 +251,8 @@ def train(args, device: torch.device, group=None) -> Trainer:
     if len(dataset) < world:
         raise SystemExit(f"--data_parallel {world} needs at least {world} train frames, found {len(dataset)}")
     if group is not None:
-        logging.info("data-parallel over %d ranks (%s), one frame per rank per step", world, group.backend)
+        logging.info("data-parallel over %d ranks (%s on %s), one frame per rank per step through the rank's "
+                     "program", world, group.backend, group.device.type)
 
     lpips_params, calibrated = None, False
     if tcfg["losses"]["lpips"]["coeff"] > 0:

@@ -6,7 +6,8 @@ port's steps are host-bound (thousands of launches each), so one process
 driving n cards would issue every card's launches in turn, and only a
 process per card lets n cards run n times as fast.  ``shard_map`` with
 ``pmean`` / ``all_gather`` becomes rank-local code with explicit
-collectives, the two of this module, each counted in its ``calls``.
+collectives, the two of this module, each counted in its ``calls`` (a
+captured program's replay ticks them too: ``programs.RankProgram``).
 
 A group's backend follows its device, NCCL for CUDA and gloo for the CPU,
 unless the caller names one (gloo lets several ranks share one card).  A
@@ -76,14 +77,16 @@ def all_reduce_sum(group: RankGroup, t: torch.Tensor) -> torch.Tensor:
     return t
 
 
-def all_gather_cat(group: RankGroup, t: torch.Tensor) -> torch.Tensor:
+def all_gather_cat(group: RankGroup, t: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
     """Every rank's ``t`` concatenated along dim 0 in rank order, on every
-    rank."""
+    rank: gathered into ``out`` when it is given, else into one new
+    tensor."""
     t = t.contiguous()
-    parts = [torch.empty_like(t) for _ in range(group.world)]
-    dist.all_gather(parts, t, group=group.pg)
+    if out is None:
+        out = t.new_empty((group.world * t.shape[0],) + tuple(t.shape[1:]))
+    dist.all_gather_into_tensor(out, t, group=group.pg)
     all_gather_cat.calls += 1
-    return torch.cat(parts)
+    return out
 
 
 def barrier(group: RankGroup) -> None:

@@ -36,10 +36,24 @@ last call's buffers as an argument tree: a loop that calls the program
 with them again copies nothing.
 
 Launch counts: the kernel wrappers count a launch when they enqueue it, and
-a replay enqueues without them.  So the program takes back the counts of
-its set-up (warm-up and capture, as jit's trace is set-up) and keeps those
-of the captured call, which it adds to the wrappers' ``launches`` on every
-replay.
+the collectives of ``parallel.mesh`` count their calls; a replay enqueues
+without either.  So the program takes back the counts of its set-up
+(warm-up and capture, as jit's trace is set-up) and keeps those of the
+captured call, which it adds to the counters on every replay.
+
+``RankProgram(group, pre, collective, post)`` is one rank's step over a
+``parallel.RankGroup``, the counterpart of a jitted ``shard_map``: the
+function ``post(collective(group, send), carry, *args)`` with ``(send,
+carry) = pre(*args)``, one all-reduce or all-gather between two parts of
+device work.  Its form follows from the group's backend when it is built:
+
+* NCCL (one card per rank): ``pre``, the collective and ``post`` captured
+  as one graph, after the warm-up has created the communicator;
+* gloo on CUDA tensors (ranks sharing a card): a gloo collective cannot be
+  captured, so ``pre`` and ``post`` are two graphs (one memory pool), and
+  the collective runs on the host between their replays, on ``pre``'s
+  static output, once per call;
+* CPU tensors: the same function eagerly over the program's buffers.
 """
 
 from __future__ import annotations
@@ -62,8 +76,42 @@ def kernel_wrappers() -> dict:
             "B4a": MK.mesh_fwd_partials, "B4b": MK.mesh_fwd_merge, "B5": MK.mesh_bwd}
 
 
-def _launches() -> dict:
-    return {k: w.launches for k, w in kernel_wrappers().items()}
+def _counters() -> dict:
+    """Every counter a replay must tick, by name: (holder, attribute) of
+    each kernel wrapper's ``launches`` and each collective's ``calls``."""
+    from gomavatar_tpu_torch.parallel import mesh
+
+    out = {k: (w, "launches") for k, w in kernel_wrappers().items()}
+    out.update(all_reduce=(mesh.all_reduce_sum, "calls"), all_gather=(mesh.all_gather_cat, "calls"))
+    return out
+
+
+def _counts() -> dict:
+    return {k: getattr(h, a) for k, (h, a) in _counters().items()}
+
+
+def _set_counts(counts: dict) -> None:
+    for k, (h, a) in _counters().items():
+        setattr(h, a, counts[k])
+
+
+def _tick(delta: dict) -> None:
+    counters = _counters()
+    for k, n in delta.items():
+        h, a = counters[k]
+        setattr(h, a, getattr(h, a) + n)
+
+
+def _capture_graph(fn, pool=None, mode: str = "global"):
+    """(graph, outputs, counts per replay) of ``fn()`` captured into a new
+    CUDA graph (in ``pool`` when given, with ``capture_error_mode``
+    ``mode``)."""
+    graph = torch.cuda.CUDAGraph()
+    before = _counts()
+    with torch.cuda.graph(graph, pool=pool, capture_error_mode=mode):
+        out = fn()
+    after = _counts()
+    return graph, out, {k: after[k] - before[k] for k in after if after[k] != before[k]}
 
 
 # ---- pytrees ---------------------------------------------------------------------
@@ -117,8 +165,8 @@ def _tensor_leaves(tree) -> list:
 
 
 class _Captured:
-    """One key's buffers, graph (None on the CPU), static outputs and
-    launches per call."""
+    """One key's buffers, graphs (none on the CPU), static outputs and
+    counts per call."""
 
     def __init__(self, spec, leaves: list, device: torch.device):
         with torch.no_grad():
@@ -128,7 +176,7 @@ class _Captured:
                 for x in leaves
             ]
         self.args = _unflatten(spec, iter(self.bufs))
-        self.graph = None
+        self.graphs: list = []
         self.out = None
         self.launches: dict = {}
 
@@ -167,7 +215,7 @@ class Program:
         """Device memory reserved by the memory pools of this program's
         graphs (0 on the CPU): what keeps every activation of a captured
         step alive between its replays."""
-        pools = {tuple(cap.graph.pool()) for cap in self._cache.values() if cap.graph is not None}
+        pools = {tuple(g.pool()) for cap in self._cache.values() for g in cap.graphs}
         if not pools:
             return 0
         return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
@@ -201,11 +249,12 @@ class Program:
             except BaseException:
                 del self._cache[key]
                 raise
-        cap.graph.replay()
-        wrappers = kernel_wrappers()
-        for k, n in cap.launches.items():
-            wrappers[k].launches += n
+        self._replay(cap)
         return cap.out
+
+    def _replay(self, cap: _Captured) -> None:
+        cap.graphs[0].replay()
+        _tick(cap.launches)
 
     @staticmethod
     @torch.no_grad()
@@ -215,8 +264,9 @@ class Program:
         if pairs:
             torch._foreach_copy_([d for d, _ in pairs], [s for _, s in pairs])
 
-    def _capture(self, cap: _Captured, device: torch.device) -> None:
-        counts0 = _launches()
+    def _warm_up(self, cap: _Captured, device: torch.device) -> None:
+        """WARMUP_CALLS calls of ``fn`` on a side stream, the input buffers
+        put back after each."""
         with torch.no_grad():
             saved = [b.clone() for b in cap.bufs]
         side = torch.cuda.Stream(device)
@@ -228,13 +278,77 @@ class Program:
                     with torch.no_grad():
                         torch._foreach_copy_(cap.bufs, saved)
         torch.cuda.current_stream(device).wait_stream(side)
-        del saved
-        graph = torch.cuda.CUDAGraph()
-        before = _launches()
-        with torch.cuda.graph(graph):
-            cap.out = self.fn(*cap.args)
-        after = _launches()
-        cap.launches = {k: after[k] - before[k] for k in after if after[k] != before[k]}
-        for k, w in kernel_wrappers().items():
-            w.launches = counts0[k]
-        cap.graph = graph
+
+    def _capture(self, cap: _Captured, device: torch.device) -> None:
+        counts0 = _counts()
+        self._warm_up(cap, device)
+        graph, cap.out, cap.launches = _capture_graph(lambda: self.fn(*cap.args))
+        cap.graphs = [graph]
+        _set_counts(counts0)
+
+
+class RankProgram(Program):
+    """One rank's step over ``group`` as one program (see the module
+    docstring): ``pre(*args) -> (send, carry)`` and ``post(recv, carry,
+    *args) -> outputs`` are device work, ``collective(group, send) -> recv``
+    is ``parallel.all_reduce_sum`` (in place) or ``parallel.all_gather_cat``
+    (which gathers into its ``out`` when it is given).  The program keeps
+    ``Program``'s contract: buffers per input, a cache keyed as jit's is,
+    static outputs, ``last_args``, and the counters ticked per call (the
+    collective's too)."""
+
+    def __init__(self, group, pre, collective, post):
+        super().__init__(self._run)
+        self.group, self.pre, self.collective, self.post = group, pre, collective, post
+        # the form, fixed here: one graph around an NCCL collective, two
+        # graphs around a host collective otherwise (gloo)
+        self.one_graph = group.backend == "nccl"
+
+    def _run(self, *args):
+        send, carry = self.pre(*args)
+        return self.post(self.collective(self.group, send), carry, *args)
+
+    def _capture(self, cap: _Captured, device: torch.device) -> None:
+        counts0 = _counts()
+        # the first warm-up call's collective creates the NCCL communicator
+        self._warm_up(cap, device)
+        if self.one_graph:
+            from gomavatar_tpu_torch.parallel.mesh import barrier
+
+            # nothing of the warm-up pending on any rank when capture begins
+            torch.cuda.synchronize(device)
+            barrier(self.group)
+            torch.cuda.synchronize(device)
+            # thread_local: ProcessGroupNCCL's watchdog thread queries its
+            # works' events while this thread captures, and under "global"
+            # a CUDA call from another thread invalidates the capture; the
+            # capturing thread itself is checked as strictly as before
+            graph, cap.out, cap.launches = _capture_graph(lambda: self.fn(*cap.args), mode="thread_local")
+            cap.graphs = [graph]
+        else:
+            pre, (cap.send, cap.carry), launches = _capture_graph(lambda: self.pre(*cap.args))
+            # the collective's static output (pre's own output when in place),
+            # made by one collective over the unreplayed buffer: every rank
+            # captures at the same call
+            cap.recv = self.collective(self.group, cap.send)
+            post, cap.out, post_launches = _capture_graph(lambda: self.post(cap.recv, cap.carry, *cap.args),
+                                                          pool=pre.pool())
+            for k, n in post_launches.items():
+                launches[k] = launches.get(k, 0) + n
+            cap.graphs, cap.launches = [pre, post], launches
+        _set_counts(counts0)
+
+    def _replay(self, cap: _Captured) -> None:
+        if self.one_graph:
+            super()._replay(cap)
+            return
+        pre, post = cap.graphs
+        pre.replay()
+        # gloo orders its copies of CUDA tensors after the current stream's
+        # work (pre's replay) and the current stream after them (post's)
+        if cap.recv is cap.send:
+            self.collective(self.group, cap.send)
+        else:
+            self.collective(self.group, cap.send, out=cap.recv)
+        post.replay()
+        _tick(cap.launches)

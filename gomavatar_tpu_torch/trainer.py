@@ -27,9 +27,11 @@ phase-0 model first, replay the stored number of subdivisions, then load.
 
 Under a rank group (``parallel/``) each rank steps on its own frame and the
 gradients and loss terms are averaged over the ranks between the backward
-and Adam (``parallel.step.make_data_parallel_train_step``); only rank 0
-saves.  That step runs eagerly: its all-reduce cannot be captured into a
-graph over gloo, and the rank path has no program yet.
+and Adam; only rank 0 saves.  That step is the rank's program
+(``parallel.step.make_data_parallel_program``, one per phase, with the same
+buffers and outputs): over NCCL one captured CUDA graph around the
+all-reduce, over gloo on CUDA two graphs with the all-reduce run on the
+host between their replays, on CPU tensors the same step eagerly.
 """
 
 from __future__ import annotations
@@ -124,20 +126,28 @@ def make_train_step(gom_cfg: GoMConfig, loss_cfg: dict, tx, reduce=None):
     return step
 
 
+def update_in_place(tx, params: dict, opt_state, grads: list) -> None:
+    """One Adam update of ``make_train_step``, its new params and Adam state
+    written into the tensors of ``params`` and ``opt_state`` (a program's
+    buffers, as optax's donated ones)."""
+    updates, new_state = tx.update(grads, opt_state)
+    with torch.no_grad():
+        new_params = apply_updates(params, updates)
+        torch._foreach_copy_(tree_leaves(params) + tree_leaves(list(opt_state)),
+                             tree_leaves(new_params) + tree_leaves(list(new_state)))
+
+
 def make_program_step(gom_cfg: GoMConfig, loss_cfg: dict, tx, statics: GoMStatics, lpips_params):
     """The train step as its program runs it: (params, opt_state, batch,
     i_iter) -> (params, opt_state, total, losses), where the new params and
-    Adam state are written into the tensors it was given (the program's
-    buffers, as optax's donated ones) and returned.  The statics and the
-    LPIPS trunk are read where they lie: the trainer never rebinds them
-    within a phase."""
-    step = make_train_step(gom_cfg, loss_cfg, tx)
+    Adam state are written into the tensors it was given
+    (:func:`update_in_place`) and returned.  The statics and the LPIPS
+    trunk are read where they lie: the trainer never rebinds them within a
+    phase."""
 
     def run(params, opt_state, batch, i_iter):
-        new_params, new_state, total, losses = step(params, opt_state, statics, lpips_params, batch, i_iter)
-        with torch.no_grad():
-            torch._foreach_copy_(tree_leaves(params) + tree_leaves(list(opt_state)),
-                                 tree_leaves(new_params) + tree_leaves(list(new_state)))
+        grads, total, losses = loss_and_grads(params, statics, gom_cfg, loss_cfg, lpips_params, batch, i_iter)
+        update_in_place(tx, params, opt_state, grads)
         return params, opt_state, total, losses
 
     return run
@@ -189,9 +199,10 @@ class Trainer:
             self._step_fn = Program(make_program_step(self.gom_cfg, self.loss_cfg, self.tx, self.statics,
                                                       self.lpips_params))
         else:
-            from gomavatar_tpu_torch.parallel.step import make_data_parallel_train_step
+            from gomavatar_tpu_torch.parallel.step import make_data_parallel_program
 
-            self._step_fn = make_data_parallel_train_step(self.group, self.gom_cfg, self.loss_cfg, self.tx)
+            self._step_fn = make_data_parallel_program(self.group, self.gom_cfg, self.loss_cfg, self.tx,
+                                                       self.statics, self.lpips_params)
 
     def _subdivide(self):
         log.info("subdividing at iter %d: %d -> %d faces", self.i_iter, self.gom_cfg.num_faces,
@@ -215,19 +226,14 @@ class Trainer:
         step's gradients and losses are the ranks' means: the rank-per-process
         form of JAX's ``step`` over a list of ``data_parallel`` frames.
 
-        Without a group the step is the phase's program: ``batch`` is
-        copied into its inputs, the state is updated in place in its
+        The step is the phase's program, with or without a group: ``batch``
+        is copied into its inputs, the state is updated in place in its
         buffers, and (total, losses) are its outputs, which the next step
         overwrites (clone what is kept longer)."""
         self.maybe_subdivide()
-        if self.group is None:
-            self.params, self.opt_state, total, losses = self._step_fn(
-                self.params, self.opt_state, batch, float(self.i_iter)
-            )
-        else:
-            self.params, self.opt_state, total, losses = self._step_fn(
-                self.params, self.opt_state, self.statics, self.lpips_params, batch, float(self.i_iter)
-            )
+        self.params, self.opt_state, total, losses = self._step_fn(
+            self.params, self.opt_state, batch, float(self.i_iter)
+        )
         if _DEBUG_BINNING:
             # float: under a rank group the counters are means over the ranks
             dropped = sum(float(losses[k]) for k in ("bin_drop_budget", "bin_drop_buffer", "bin_drop_ncmax"))

@@ -151,11 +151,13 @@ def trace(fn, *args):
     return t.ops
 
 
-def assert_same_trace(a, b, label):
+def assert_same_trace(a, b, label, least=100):
+    """The same ops with the same scalars, none of them FORBIDDEN, and more
+    than ``least`` of them (the step was recorded)."""
     names = {op for op, _, _ in a} | {op for op, _, _ in b}
     bad = sorted(n for n in names if n.startswith(FORBIDDEN))
     assert not bad, f"{label}: host reads or host data inside the step: {bad}"
-    assert len(a) > 100, f"{label}: only {len(a)} ops recorded"
+    assert len(a) > least, f"{label}: only {len(a)} ops recorded"
     for i, (x, y) in enumerate(zip(a, b)):
         assert x == y, f"{label}: op {i} differs:\n  {x}\n  {y}"
     assert len(a) == len(b), f"{label}: {len(a)} ops against {len(b)}"
