@@ -8,8 +8,9 @@ through its kernels, and agrees with its plain versions on the card.
 Phases, each fatal on failure:
   1. the card's name and power limit; build every CUDA kernel from the
      sources in gomavatar_tpu_torch/csrc (one nvcc per source, in parallel).
-  2. kernel B1 (its two launches B1a and B1b) against its plain PyTorch
-     version and against the plain twin of its two launches on the card,
+  2. kernel B1 (its two launches B1a and B1b) twice on the same inputs (the
+     same bits), against its plain PyTorch version and against the plain
+     twin of its two launches on the card,
      B1a's partials against the twin's, on the 64^2 gate scene (untrained,
      seed 0) and on the trained 512^2 frame, with and without the mesh pass,
      and with its slot arrays padded past 2,048 slots; then the whole
@@ -29,7 +30,8 @@ Phases, each fatal on failure:
      after 3 warm-up) with their device time and busy share
      (torch.profiler), and the program's memory pool.
   4. the train path:
-     a. kernels B2/B3 (splat blend) and B4/B5 (mesh raster) against their
+     a. kernels B2/B3 (splat blend) and B4/B5 (mesh raster) each twice on
+        the same inputs (the same bits) and against their
         plain versions on the card, forward outputs, the residuals B2 and B4
         save for the backward, and entry gradients for the cotangents of a
         real loss, on the gate scene and on the trained 512^2 frame; B2 and
@@ -49,12 +51,21 @@ Phases, each fatal on failure:
         after; B2a, B2b, B3a, B3b, B4a, B4b and B5 must launch once per
         step, nothing may be dropped and every loss, gradient and parameter
         must be finite; the program's memory pool; then, under torch's
-        deterministic algorithms, a fresh trainer's captured steps against
-        the eager step from the same state: params, Adam moments, counts
-        and the total bit-equal after each of 5 steps;
+        default algorithms, the same 5 steps by a second trainer from the
+        same state and by the eager step: params, Adam moments, counts and
+        the total bit-equal after each step (0 values may differ); the ops
+        one eager step reaches that torch names under
+        ``use_deterministic_algorithms(True, warn_only=True)``, and every
+        scatter op it reaches with its dtypes (none on float data); the
+        device ms of the step's index transposes (torch.profiler: the
+        gathers' backward through ``mesh_ops.gather_vjp``, the neighbour
+        sums, the per-frame entry table's build) and each table's bytes;
      d. the eager and the captured train step timed (median and p90 over 20
         steps after 3 warm-up) with their device time and busy share
-        (torch.profiler), and each kernel's work and bound.
+        (torch.profiler), and each kernel's work and bound; then the
+        captured step under torch's deterministic algorithms (captured under
+        them), under them without their fill of new memory, and the default
+        one, 20 steps each in turns, with their device ms (CUDA events).
   5. the drivers, in-process (``cli.train.main``, ``cli.evaluate.main``),
      each run with every launch count set to 0 just before and read just
      after:
@@ -77,7 +88,9 @@ Phases, each fatal on failure:
         CPU from the card's state, the loss terms and every leaf's gradient
         (from Adam's first moments) close at every step, the faces x4 from
         step 2 on, every train kernel once per step, and the train program
-        captured once in each phase (a new program at the subdivision).
+        captured once in each phase (a new program at the subdivision); a
+        second trainer on the card from the same init bit-equal to the
+        first after every step, across the subdivision.
   6. pose refinement and animation, each run with every launch count set
      to 0 just before and read just after:
      a. the gate scene's pose loss (``cli.train_pose.frame_loss``: rgb and
@@ -90,9 +103,10 @@ Phases, each fatal on failure:
         0) towards the port's render of the packed frame: B2a-B5 once per
         step (the pose program, captured once), 0 dropped entries, the best
         loss below the first; the first and best loss, the joint-angle and
-        posed-joint errors before and after; under deterministic algorithms
-        the captured refinement against the eager one from the same pose,
-        losses and best pose bit-equal; the captured and the eager step's
+        posed-joint errors before and after; the 30 captured steps again
+        from the same pose and the eager ones, losses and best pose
+        bit-equal to the first run's; every scatter op one eager pose step
+        reaches (none on float data); the captured and the eager step's
         mean (30 steps, one synchronize at the end) and s per test frame,
         and the captured median of 20 synchronised one-step calls;
      c. ``cli.train_pose --max_frames 2`` over the 5a test capture from
@@ -109,13 +123,10 @@ Phases, each fatal on failure:
      graph around the collective, over gloo on the card two graphs with the
      collective on the host between their replays), each path's launches
      and collectives counted on each rank through the replays (set to 0
-     just before it, read just after); the train step's bit-equality checks
-     run under torch's deterministic algorithms (a probe shows that two runs
-     of one step differ in the last bits otherwise: the gathers' backward
-     adds with atomics), each in a program of its own, its timed steps
-     under the default algorithms, and every phase under one cuBLAS
-     workspace config (``CUBLAS_WORKSPACE_CONFIG=:4096:8``, which they
-     need):
+     just before it, read just after); every bit check under torch's
+     default algorithms (the train step adds in a fixed order, 4c), and
+     every phase under one cuBLAS workspace config
+     (``CUBLAS_WORKSPACE_CONFIG=:4096:8``):
      a. the data-parallel step at world 1 over NCCL (``Trainer(group=...)``,
         one graph): 5 steps on the trained avatar, the params and Adam
         moments bit-equal to ``Trainer.step``'s and to the eager rank step's
@@ -159,7 +170,9 @@ Phases, each fatal on failure:
         stage ends, 0 dropped in the teacher renders, every logged step and
         every evaluation, the faces x4 at the split, B2a-B5 once per train
         and pose step and B1 once per render, and the exported avatar
-        reloaded by ``convert.load_trained`` renders evaluate's frame;
+        reloaded by ``convert.load_trained`` renders evaluate's frame; then
+        the chain again from the same capture into logs of its own: the
+        exported params bit-equal and every drop counter equal;
      c. B1 at the raw capture's 544^2 windows (1,156 tiles, x4 budgets, one
         binning band): the teacher's first raw frame from novel view 1 over
         8b's capture, its four windows through ``gom_forward(train=False)``
@@ -381,6 +394,20 @@ def counted(fn):
     return out, {k: w.launches for k, w in wrappers.items()}, seconds
 
 
+def same_bits(label: str, fn, view) -> None:
+    """A kernel's wrapper called twice on the same inputs: what its consumer
+    reads of the outputs (``view(outputs)``; slots a launch does not write
+    hold stale bytes) bit-equal.  The atomic tickets and pixel compactions
+    of B1-B3 order work, never sums."""
+    def flat(x):
+        return [x] if isinstance(x, torch.Tensor) else [t for v in x for t in flat(v)]
+
+    first, second = flat(view(clone_tree(fn()))), flat(view(fn()))
+    same = len(first) == len(second) and all(torch.equal(a, b) for a, b in zip(first, second))
+    print(f"  {label} twice on the same inputs: {'bit-equal' if same else 'apart'}")
+    require(same, f"{label}: two launches on the same inputs differ")
+
+
 def check_close(label: str, a: torch.Tensor, b: torch.Tensor) -> float:
     d = (a.float() - b.float()).abs()
     frac = float((d <= CLOSE_TOL).float().mean())
@@ -421,6 +448,9 @@ def compare_b1(label, table, bins, img_size):
         tw = FR.frame_split_plain(*args, with_mesh=with_mesh, stats=resweeps if with_mesh else None)
         torch.cuda.synchronize()
         tag = f"{label} {'mesh on' if with_mesh else 'mesh off'}"
+        n = int(bins.n_active)
+        same_bits(f"{tag} B1", lambda: FR.frame_sweep(*args, with_mesh=with_mesh),
+                  lambda out: [x[:n] for x in out if x is not None])
         for ref, name in ((p, "plain"), (tw, "twin")):
             for i, out in ((0, "rgb"), (1, "alpha")):
                 worst = max(worst, check_close(f"{tag} {out} vs {name}", FR.untile(k[i], bins, img_size),
@@ -719,6 +749,9 @@ def compare_b2b3(label, bins, entries, t_rgb, t_mask, timed: bool):
     C, TX, TY = 3, bins.num_tiles_x, bins.num_tiles_y
     start, count = bins.tile_start, bins.tile_count
     color_k, alpha_k, state_k = SK.splat_fwd(entries, start, count, C, TX)
+    owned = owned_slots(start, count, entries.shape[1])
+    same_bits(f"{label} B2", lambda: SK.splat_fwd(entries, start, count, C, TX),
+              lambda out: (*SK._untile(out[0], out[1], TX, TY, C), out[2][owned]))
     part_k, _ = SK.splat_fwd_partials(entries, start, count, C, TX)
     twin = {}
     with torch.no_grad():
@@ -732,7 +765,6 @@ def compare_b2b3(label, bins, entries, t_rgb, t_mask, timed: bool):
     worst2 = max(check_close(f"{label} B2 color", img_k, img_p), check_close(f"{label} B2 alpha", a_k, a_p))
     check_close(f"{label} B2 color vs twin", img_k, img_w)
     check_close(f"{label} B2 alpha vs twin", a_k, a_w)
-    owned = owned_slots(start, count, entries.shape[1])
     check_chunk_state(label, state_k, state_p, owned)
     check_chunk_state(f"{label} vs twin", state_k, state_w, owned)
     check_b2_partials(label, part_k, part_w, owned)
@@ -747,6 +779,8 @@ def compare_b2b3(label, bins, entries, t_rgb, t_mask, timed: bool):
     g_color_t, g_alpha_t = SK._retile(g_img, g_alpha, TX, TY, C)
     d_k = SK.select_d_entries(SK.splat_bwd(entries, start, count, state_k, g_color_t, g_alpha_t, C, TX),
                               bins.entry_valid, start, count, 6 + C)
+    same_bits(f"{label} B3", lambda: SK.splat_bwd(entries, start, count, state_k, g_color_t, g_alpha_t, C, TX),
+              lambda d: SK.select_d_entries(d, bins.entry_valid, start, count, 6 + C))
 
     def plain_outputs(leaf, counts):
         return SK.composite_plain_entries(leaf, start, counts, C, TX, TY)
@@ -859,6 +893,9 @@ def compare_b4b5(label, bins, entries, valid, sigma_px2, shadow, t_rgb, t_mask, 
     TX, TY = bins.num_tiles_x, bins.num_tiles_y
     start, count = bins.tile_start, bins.tile_count
     hard_k, soft_k, win_k, S_k, live_k = MK.mesh_fwd(entries, start, count, TX, True, sigma_px2)
+    busy = count > 0
+    same_bits(f"{label} B4", lambda: MK.mesh_fwd(entries, start, count, TX, True, sigma_px2),
+              lambda out: (*MK._untile_outputs(out[0], out[1], TX, TY), *(r[busy] for r in out[2:])))
     res = (win_k, S_k, live_k)
     with torch.no_grad():
         hard_p, soft_p = mesh_composite_plain(entries, start, count, TX, TY, True, sigma_px2)
@@ -881,6 +918,8 @@ def compare_b4b5(label, bins, entries, valid, sigma_px2, shadow, t_rgb, t_mask, 
     g_hard_t, g_soft_t = MK._retile_cotangents(g_normal, g_soft, TX, TY)
     d_k = MK.select_d_entries(MK.mesh_bwd(entries, start, count, g_hard_t, g_soft_t, *res, TX, True, sigma_px2),
                               valid, start, count, MK.NCH)
+    same_bits(f"{label} B5", lambda: MK.mesh_bwd(entries, start, count, g_hard_t, g_soft_t, *res, TX, True, sigma_px2),
+              lambda d: MK.select_d_entries(d, valid, start, count, MK.NCH))
 
     def plain_outputs(leaf, counts):
         return mesh_composite_plain(leaf, start, counts, TX, TY, True, sigma_px2)
@@ -1311,6 +1350,190 @@ def phase_train_kernels(trained):
     return results
 
 
+def state_diffs(a, b) -> list:
+    """The values that differ in each leaf of two ``train_state`` copies
+    (params, then Adam's moments)."""
+    return [int((x != y).sum()) for x, y in zip(a[0] + a[1], b[0] + b[1])]
+
+
+@contextlib.contextmanager
+def deterministic(warn_only: bool = False):
+    """torch's deterministic algorithms, which no bit check needs: the train
+    and pose steps add their index transposes by gathers in a fixed order
+    (``mesh_ops.gather_vjp``), so they give the same bits on every run under
+    the default algorithms (4c's probe).  4c lists the ops that torch still
+    names under them (``warn_only``), and 4d times the step under them.
+    cuBLAS needs the fixed workspace config that ``main`` sets for the whole
+    run."""
+    torch.use_deterministic_algorithms(True, warn_only=warn_only)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def nondeterministic_ops(trainer, eager, batch) -> dict:
+    """{op: warnings} of the ops that torch names as having no deterministic
+    implementation in one eager train step from the trainer's state (its
+    result dropped), run under ``torch.use_deterministic_algorithms(True,
+    warn_only=True)``."""
+    import warnings
+
+    i_dev = torch.full((), float(trainer.i_iter), device="cuda")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        with deterministic(warn_only=True):
+            eager(trainer.params, trainer.opt_state, trainer.statics, trainer.lpips_params, batch, i_dev)
+            torch.cuda.synchronize()
+    ops: dict = {}
+    for w in caught:
+        text = str(w.message)
+        if "deterministic" in text:
+            op = text.split(" does not have")[0]
+            ops[op] = ops.get(op, 0) + 1
+    print(f"  one eager step under torch.use_deterministic_algorithms(True, warn_only=True): "
+          f"{ops or 'no op'} named as having no deterministic implementation")
+    return ops
+
+
+# the profiler's events of the train step's index transposes (mesh_ops):
+# the gathers' backward and the neighbour sums of the Laplacian, each way;
+# and the backward nodes of the plain forms (index_select's and indexing's,
+# whose transposes scatter), which the step should no longer reach
+_NODE = "autograd::engine::evaluate_function: "
+TRANSPOSE_EVENTS = (_NODE + "GatherVJPBackward", _NODE + "_NeighborSumBackward", "_NeighborSum")
+PLAIN_EVENTS = (_NODE + "IndexSelectBackward", _NODE + "IndexAddBackward", _NODE + "IndexBackward",
+                _NODE + "IndexPutBackward")
+# the aten ops that add into an output by index: atomics on the card
+SCATTER_OPS = ("index_add", "index_put", "scatter_add", "scatter_reduce", "index_reduce", "put_",
+               "embedding_dense_backward", "_unsafe_index_put")
+
+
+def scatter_ops(label: str, step) -> dict:
+    """{op: sorted dtypes} of every op of SCATTER_OPS that ``step()`` (one
+    eager step) reaches, its backward included (a TorchDispatchMode sees
+    each aten op and its tensors, on the autograd engine's device thread
+    too: the ``*_backward`` ops it sees are counted and required); fails
+    on one that adds float data."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    seen: dict = {}
+    backward = [0]
+
+    class Scatters(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            name = str(func)
+            backward[0] += "_backward" in name
+            if any(op in name for op in SCATTER_OPS):
+                dtypes = {str(a.dtype) for a in args if isinstance(a, torch.Tensor)}
+                seen.setdefault(name, set()).update(dtypes)
+            return func(*args, **(kwargs or {}))
+
+    with Scatters():
+        step()
+    torch.cuda.synchronize()
+    out = {k: sorted(v) for k, v in seen.items()}
+    floats = {k: v for k, v in out.items() if any("float" in d for d in v)}
+    print(f"  scatter ops one eager {label} step reaches (op: dtypes): {out or 'none'}; {backward[0]} backward ops "
+          f"seen")
+    require(backward[0] > 0, f"the {label} step's backward was not seen")
+    require(not floats, f"the {label} step adds float data by index (atomics on the card): {floats}")
+    return out
+
+
+def transpose_costs(trainer, eager, batch) -> dict:
+    """The device ms per step of the step's index transposes (torch.profiler
+    over PROFILE_WINDOW eager steps from the trainer's state: the device
+    time under each event of TRANSPOSE_EVENTS, and of the per-frame
+    entry table's build, profiled alone), and the bytes of every table."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gomavatar_tpu_torch.models.gom import posed_vertices, train_geometry
+    from gomavatar_tpu_torch.ops.mesh_ops import entry_dual_index
+    from gomavatar_tpu_torch.profile_eval import measure
+
+    def dev_ms(evt):
+        us = getattr(evt, "device_time_total", None)
+        return (evt.cuda_time_total if us is None else us) / 1e3 / PROFILE_WINDOW
+
+    i_dev = torch.full((), float(trainer.i_iter), device="cuda")
+    step = lambda: eager(trainer.params, trainer.opt_state, trainer.statics, trainer.lpips_params, batch, i_dev)  # noqa: E731
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_WINDOW):
+            step()
+        torch.cuda.synchronize()
+    nodes, plain = {}, {}
+    for evt in prof.key_averages():
+        if evt.key in TRANSPOSE_EVENTS:
+            nodes[evt.key.replace(_NODE, "")] = dev_ms(evt)
+        elif evt.key.startswith(PLAIN_EVENTS):
+            plain[evt.key.replace(_NODE, "")] = dev_ms(evt)
+    st, cfg = trainer.statics, trainer.gom_cfg
+    f = batch
+    with torch.no_grad():
+        verts = posed_vertices(trainer.params, st, cfg, f["cnl_gtfms"], f["dst_Rs"], f["dst_Ts"], f["dst_posevec"])
+        bins = train_geometry(trainer.params, st, cfg, verts, f["K"], f["E"])["bins"]
+    build = measure(lambda: entry_dual_index(bins.entry_gauss, bins.entry_valid, cfg.num_faces,
+                                             cfg.max_tiles_per_gaussian), 2, warmup=1, window=PROFILE_WINDOW)
+    def nbytes(table):
+        return sum(getattr(table, f.name).nbytes for f in dataclasses.fields(table))
+
+    tables = {k: nbytes(getattr(st, k)) for k in ("dual_faces", "dual_nc", "dual_conn", "dual_vfinc", "nbr_table")}
+    tables["entry_dual"] = nbytes(bins.entry_dual)
+    widths = {k: list(getattr(st, k).pos.shape) + list(getattr(st, k).ov_tab.shape)
+              for k in ("dual_faces", "dual_nc", "dual_conn", "dual_vfinc")}
+    widths["nbr_table"] = list(st.nbr_table.nbr.shape) + list(st.nbr_table.ov_tab.shape)
+    widths["entry_dual"] = list(bins.entry_dual.pos.shape)
+    total = sum(nodes.values()) + build["device_ms"]
+    print(f"  the step's index transposes, device ms per step (torch.profiler, {PROFILE_WINDOW} eager steps): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in sorted(nodes.items()))
+          + f"; the entry table's build {build['device_ms']:.4f} (alone); together {total:.4f} ms; the plain "
+          f"forms' nodes {plain or 'none'}")
+    print(f"  table bytes: " + ", ".join(f"{k} {v} ({widths[k]})" for k, v in tables.items())
+          + f"; the static tables together {sum(v for k, v in tables.items() if k != 'entry_dual')} bytes")
+    return {"nodes_ms": nodes, "entry_table_ms": build["device_ms"], "total_ms": total, "plain_nodes_ms": plain,
+            "table_bytes": tables, "table_shapes": widths}
+
+
+def deterministic_cost(params, statics, cfg, i_iter, trainer, batch) -> dict:
+    """The captured step under torch's deterministic algorithms (a program
+    of its own, captured under them: its replays run their kernels), and
+    under them without their fill of new memory
+    (``torch.utils.deterministic.fill_uninitialized_memory``), against the
+    trainer's captured step: TRAIN_ITERS synchronised steps of each in
+    turns after TRAIN_WARMUP, then each one's device ms by CUDA events
+    around TRAIN_ITERS back-to-back replays (torch.profiler is left out
+    here: replaying under it after these captures crashed the process in
+    two runs)."""
+    import torch.utils.deterministic as det_flags
+
+    ways = {"default": lambda i: trainer.step(batch)}
+    for name, fill in (("deterministic", True), ("deterministic, no fill", False)):
+        det_flags.fill_uninitialized_memory = fill
+        try:
+            with deterministic():
+                tr = make_trainer(params, statics, cfg, i_iter, "cuda")
+                tr.step(batch)  # the warm-up and the capture
+        finally:
+            det_flags.fill_uninitialized_memory = True
+        ways[name] = lambda i, tr=tr: tr.step(batch)
+    in_turns(ways, TRAIN_WARMUP)
+    per_step = in_turns(ways, TRAIN_ITERS)
+    out = {}
+    for k, fn in ways.items():
+        out[k] = dict(spread(per_step[k]), device_ms=cuda_ms(lambda: fn(0), TRAIN_ITERS))
+        print(f"  captured step, {k} algorithms: median {out[k]['median_ms']:.3f} ms, p90 {out[k]['p90_ms']:.3f} "
+              f"over {TRAIN_ITERS} steps in turns; device {out[k]['device_ms']:.3f} ms (events around back-to-back "
+              f"replays)")
+    out["ratio"] = out["deterministic"]["median_ms"] / out["default"]["median_ms"]
+    out["ratio_no_fill"] = out["deterministic, no fill"]["median_ms"] / out["default"]["median_ms"]
+    print(f"  the step under deterministic algorithms: {out['ratio']:.3f}x the default's median, "
+          f"{out['ratio_no_fill']:.3f}x without the fill of new memory")
+    return out
+
+
 def phase_train_path(trained, card):
     """Phases 4b-4d: the gate step card vs CPU, the main path with its
     launch counts, the train-step timings.  Returns (launches, timings)."""
@@ -1329,10 +1552,19 @@ def phase_train_path(trained, card):
     batches = [train_batch(params, statics, cfg, f, f) for f in frames]
     trainer = make_trainer(params, statics, cfg, i_iter, "cuda")
     before = [p.clone() for p in tree_leaves(trainer.params)]
+    start = clone_tree(trainer.params), clone_tree(trainer.opt_state)
     reserved0 = torch.cuda.memory_reserved()
-    # each step's outputs are the program's, overwritten by the next step
-    steps, launches, _ = counted(lambda: [clone_tree(trainer.step(batches[i % len(batches)]))
-                                          for i in range(TRAIN_STEPS)])
+    snaps = []
+
+    def run():
+        out = []
+        for i in range(TRAIN_STEPS):
+            # each step's outputs are the program's, overwritten by the next step
+            out.append(clone_tree(trainer.step(batches[i % len(batches)])))
+            snaps.append(train_state(trainer))
+        return out
+
+    steps, launches, _ = counted(run)
     for i, (total, losses) in enumerate(steps):
         terms = {k: float(v) for k, v in losses.items()}
         print(f"  step {i}: total {float(total):.6g}, " + ", ".join(f"{k} {v:.5g}" for k, v in terms.items()))
@@ -1357,29 +1589,36 @@ def phase_train_path(trained, card):
           f"(the card's reserved memory grew by {(torch.cuda.memory_reserved() - reserved0) / 2**20:.1f} MiB over "
           f"the capture and the steps)")
 
-    print(f"[4c] the captured step against the eager one from the same state, {TRAIN_STEPS} steps, deterministic "
-          f"algorithms")
-    det_ms = []
-    with deterministic():
-        captured = make_trainer(params, statics, cfg, i_iter, "cuda")
-        eager = make_train_step(captured.gom_cfg, captured.loss_cfg, captured.tx)
-        p, o = clone_tree(captured.params), clone_tree(captured.opt_state)
-        for i in range(TRAIN_STEPS):
-            b = batches[i % len(batches)]
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            total, _ = captured.step(b)
-            torch.cuda.synchronize()
-            det_ms.append((time.perf_counter() - t0) * 1e3)
-            p, o, total_e, _ = eager(p, o, captured.statics, captured.lpips_params, b,
-                                     torch.full((), float(i_iter + i), device="cuda"))
-            same_p = leaves_equal(tree_leaves(captured.params), tree_leaves(p))
-            same_m = leaves_equal(list(captured.opt_state.mu) + list(captured.opt_state.nu), list(o.mu) + list(o.nu))
-            require(same_p and same_m and torch.equal(total, total_e) and int(captured.opt_state.count) == int(o.count),
-                    f"4c step {i}: the captured step differs from the eager one under deterministic algorithms")
-    det_med = statistics.median(det_ms[1:])  # the first step holds the capture
-    print(f"  params, Adam moments, counts and the total loss bit-equal to the eager step's after every step; the "
-          f"captured step under deterministic algorithms {det_med:.3f} ms (median of steps 1-{TRAIN_STEPS - 1})")
+    print(f"[4c] the same {TRAIN_STEPS} steps again from the same state, torch's default algorithms: a second "
+          f"trainer's captured steps and the eager step")
+    twice = make_trainer(params, statics, cfg, i_iter, "cuda")
+    eager = make_train_step(twice.gom_cfg, twice.loss_cfg, twice.tx)
+    p, o = start
+    probe = {"leaves": len(snaps[0][0]) + len(snaps[0][1]), "values_differing": [], "leaves_differing": []}
+    for i in range(TRAIN_STEPS):
+        b = batches[i % len(batches)]
+        total, _ = twice.step(b)
+        again = train_state(twice)
+        diffs = state_diffs(snaps[i], again)
+        probe["values_differing"].append(sum(diffs))
+        probe["leaves_differing"].append(sum(d > 0 for d in diffs))
+        require(sum(diffs) == 0 and again[2] == snaps[i][2] and torch.equal(total, steps[i][0]),
+                f"4c step {i}: {sum(diffs)} values in {sum(d > 0 for d in diffs)} leaves differ between two runs of "
+                f"Trainer.step from one state")
+        p, o, total_e, _ = eager(p, o, twice.statics, twice.lpips_params, b,
+                                 torch.full((), float(i_iter + i), device="cuda"))
+        same = (leaves_equal(tree_leaves(p), snaps[i][0]) and leaves_equal(list(o.mu) + list(o.nu), snaps[i][1])
+                and int(o.count) == snaps[i][2] and torch.equal(total_e, steps[i][0]))
+        require(same, f"4c step {i}: the captured step differs from the eager one")
+    print(f"  after each of {TRAIN_STEPS} steps: 0 of the {probe['leaves']} params and Adam moments differ in any "
+          f"value between the two runs (values differing per step {probe['values_differing']}); counts and the "
+          f"total equal; the eager step from the same state bit-equal too")
+    del twice
+    unlisted = nondeterministic_ops(trainer, eager, batches[0])
+    i_dev = torch.full((), float(trainer.i_iter), device="cuda")
+    scatters = scatter_ops("train", lambda: eager(trainer.params, trainer.opt_state, trainer.statics,
+                                                  trainer.lpips_params, batches[0], i_dev))
+    transposes = transpose_costs(trainer, eager, batches[0])
 
     print(f"[4d] train step timed, eager and captured, over {TRAIN_ITERS} steps after {TRAIN_WARMUP} warm-up steps")
     i_dev = torch.full((), float(trainer.i_iter), device="cuda")
@@ -1390,9 +1629,12 @@ def phase_train_path(trained, card):
         "captured": lambda: trainer.step(batches[0]),
     }, TRAIN_ITERS, "step", card)
     cap = timed["captured"]
+    det = deterministic_cost(params, statics, cfg, i_iter, trainer, batches[0])
     return launches, dict(timed, median_ms=cap["median_ms"], p90_ms=cap["p90_ms"],
                           steps_per_s=1e3 / cap["median_ms"], steps=TRAIN_ITERS, pool_mib=pool_mib,
-                          bit_equal_deterministic=True, deterministic_captured_ms=det_med)
+                          bit_equal_default=True, probe_default_algorithms=probe, nondeterministic_ops=unlisted,
+                          scatter_ops=scatters,
+                          transposes=transposes, deterministic=det)
 
 
 # ---- phase 5: the drivers ------------------------------------------------------
@@ -1656,7 +1898,10 @@ def phase_change_on_card(device="cuda"):
     gradient is read from Adam's first moments, which both sides update
     from the same moments: mu' = 0.9 mu + 0.1 g.  Each step starts from the
     card's state because the free-running four-step trajectories parted
-    past rtol 1e-3 in one run (step 3's rgb loss, after the subdivision)."""
+    past rtol 1e-3 in one run (step 3's rgb loss, after the subdivision).
+    A second card trainer from the same init runs the same steps free, under
+    torch's default algorithms: its params and Adam moments bit-equal to the
+    first's after every step, across the subdivision."""
     from gomavatar_tpu_torch.models.lpips import load_lpips
     from gomavatar_tpu_torch.models.smpl import synthetic_body
     from gomavatar_tpu_torch.optim import B1
@@ -1670,7 +1915,7 @@ def phase_change_on_card(device="cuda"):
         randomize_faces(tr.params, tr.gom_cfg.num_faces, dev)
         return tr
 
-    card, host = fresh(device), fresh("cpu")
+    card, host, again = fresh(device), fresh("cpu"), fresh(device)
     faces0 = card.gom_cfg.num_faces
     frame = gate_frame(info, device=device)
     batch = train_batch(card.params, card.statics, card.gom_cfg, frame, perturbed_frames(frame)[1])
@@ -1679,15 +1924,21 @@ def phase_change_on_card(device="cuda"):
     def losses_of(total, losses):
         return {"total": float(total), **{k: float(v) for k, v in losses.items()}}
 
-    worst_grad, programs = [], []
+    worst_grad, programs, differing = [], [], []
     for i in range(PHASE_STEPS):
         card.maybe_subdivide()
         host.maybe_subdivide()
+        again.maybe_subdivide()
         copy_train_state(card, host)
         mu0 = host.opt_state.mu
         (total, losses), launches, _ = counted(lambda: card.step(batch))
         if not programs or programs[-1] is not card._step_fn:
             programs.append(card._step_fn)
+        total2, _ = again.step(batch)
+        diffs = state_diffs(train_state(card), train_state(again))
+        differing.append(sum(diffs))
+        require(sum(diffs) == 0 and torch.equal(total, total2),
+                f"phase change, step {i}: {sum(diffs)} values differ between two runs from one init on the card")
         for k in ("B2a", "B2b", "B3a", "B3b", "B4a", "B4b", "B5"):
             require(launches[k] == 1, f"phase change, step {i}: {k} launched {launches[k]} times")
         lc, fc = losses_of(total, losses), card.gom_cfg.num_faces
@@ -1718,9 +1969,10 @@ def phase_change_on_card(device="cuda"):
             "phase change: the train step was not captured once per phase")
     print(f"  the phase change ran on the card at step {PHASE_AT}: {faces0} -> {4 * faces0} faces, each loss term "
           f"within rtol {STEP_RTOL:g} (LPIPS and the total {STEP_LPIPS_RTOL:g}) and each leaf's gradient within "
-          f"{STEP_GRAD_REL:g} of its norm of the CPU's step from the card's state at every step")
+          f"{STEP_GRAD_REL:g} of its norm of the CPU's step from the card's state at every step; a second run on "
+          f"the card from the same init bit-equal after every step (values differing {differing})")
     return {"faces": [faces0, 4 * faces0], "steps": PHASE_STEPS, "worst_grad_rel": worst_grad,
-            "programs": len(programs)}
+            "programs": len(programs), "twice_values_differing": differing}
 
 
 def phase_drivers(device="cuda"):
@@ -1769,27 +2021,18 @@ ANIM_SCENES, ANIM_FRAMES, ANIM_MDM_FRAMES = 2, 4, 2
 TRAIN_KERNELS = ("B2a", "B2b", "B3a", "B3b", "B4a", "B4b", "B5")
 
 
-def so3_log_np(R: np.ndarray) -> np.ndarray:
-    """Axis-angle of a rotation matrix (principal branch, angle < pi)."""
-    R = np.asarray(R, np.float64)
-    angle = np.arccos(np.clip((np.trace(R) - 1.0) / 2.0, -1.0, 1.0))
-    if angle < 1e-8:
-        return np.zeros(3)
-    w = np.array([R[2, 1] - R[1, 2], R[0, 2] - R[2, 0], R[1, 0] - R[0, 1]])
-    return w * angle / (2.0 * np.sin(angle))
-
-
 def packed_pose(frame):
     """The 72-d pose and the T-pose joints (24, 3) behind a frame's dst_Rs,
     dst_Ts and dst_posevec: the root angle from dst_Rs[0], the joint angles
     dst_posevec - 0.01, the joints summed down the chain from dst_Ts; checked
     against the frame through body_pose_to_body_RTs."""
     from gomavatar_tpu_torch.ops.skeleton import SMPL_PARENT, body_pose_to_body_RTs
+    from gomavatar_tpu_torch.ops.transforms import so3_log
 
     Rs = frame["dst_Rs"].cpu().numpy()
     Ts = frame["dst_Ts"].cpu().numpy().astype(np.float64)
     pose = np.zeros(72, np.float32)
-    pose[:3] = so3_log_np(Rs[0])
+    pose[:3] = so3_log(torch.as_tensor(Rs[0], dtype=torch.float64)).numpy()
     pose[3:] = frame["dst_posevec"].cpu().numpy() - np.float32(1e-2)
     joints = np.zeros((24, 3))
     joints[0] = Ts[0]
@@ -1891,7 +2134,8 @@ def pose_on_trained(trained, device="cuda"):
     optimize = make_pose_optimizer(cfg, loss_cfg, pose_cfg, POSE_STEPS)
     start = torch.as_tensor(pose0, device=device)
     (best, best_loss, losses, dropped), launches, _ = counted(
-        lambda: optimize(params, statics, lpips_params, batch, start))
+        lambda: clone_tree(optimize(params, statics, lpips_params, batch, start)))
+    first_run = (best, best_loss, losses)
     losses, dropped = losses.cpu().numpy(), dropped.cpu().numpy()
     best_pose = best["poses"].cpu().numpy()
     err0 = float(np.abs(pose0[3:] - pose_true[3:]).mean())
@@ -1927,18 +2171,27 @@ def pose_on_trained(trained, device="cuda"):
             step(params, statics, lpips_params, batch, carry, i_iter)
         return carry
 
-    # the captured refinement against the eager one from the same pose,
-    # under deterministic algorithms (a fresh program, captured under them)
-    with deterministic():
-        det = make_pose_optimizer(cfg, loss_cfg, pose_cfg, POSE_STEPS)
-        c_best, c_loss, c_losses, _ = det(params, statics, lpips_params, batch, start)
-        e = eager_refine()
-    same = (torch.equal(c_losses, e.losses) and torch.equal(c_loss, e.best_loss)
-            and all(torch.equal(c_best[k], b) for k, b in zip(POSE_KEYS, e.best)))
+    def same_refinement(best, best_loss, losses, other):
+        o_best, o_loss, o_losses = other
+        return (torch.equal(losses, o_losses) and torch.equal(best_loss, o_loss)
+                and all(torch.equal(best[k], o_best[k]) for k in POSE_KEYS))
+
+    # the captured refinement again from the same pose, and the eager one,
+    # under torch's default algorithms
+    c_best, c_loss, c_losses, _ = optimize(params, statics, lpips_params, batch, start)
+    twice = same_refinement(c_best, c_loss, c_losses, first_run)
+    e = eager_refine()
+    same = same_refinement(c_best, c_loss, c_losses, (dict(zip(POSE_KEYS, e.best)), e.best_loss, e.losses))
     rel = float(((c_losses - e.losses).abs() / e.losses.abs()).max())
-    print(f"  captured against eager, {POSE_STEPS} steps from the same pose (deterministic algorithms): losses and "
-          f"best pose {'bit-equal' if same else 'apart'} (worst loss rel {rel:.3g})")
-    require(same, "pose refinement: the captured steps differ from the eager ones under deterministic algorithms")
+    print(f"  {POSE_STEPS} steps from the same pose again (default algorithms): losses and best pose "
+          f"{'bit-equal' if twice else 'apart'} between two runs of the program, and "
+          f"{'bit-equal' if same else 'apart'} to the eager steps' (worst loss rel {rel:.3g})")
+    require(twice, "pose refinement: two runs of the pose program from one pose differ")
+    require(same, "pose refinement: the captured steps differ from the eager ones")
+    tx = PoseAdam(pose_cfg)
+    step, carry = make_pose_step(cfg, loss_cfg, tx), init_pose_carry(tx, start, POSE_STEPS)
+    i_dev = torch.full((), 1e7, device=device)
+    scatters = scatter_ops("pose", lambda: step(params, statics, lpips_params, batch, carry, i_dev))
 
     # ms per step: POSE_STEPS steps with one synchronize at the end, each way
     per_step = {}
@@ -1969,7 +2222,7 @@ def pose_on_trained(trained, device="cuda"):
             "step_median_ms": med, "seconds_per_frame_300": mean_ms * PROTOCOL_STEPS / 1e3,
             "eager_step_mean_ms": per_step["eager"],
             "eager_seconds_per_frame_300": per_step["eager"] * PROTOCOL_STEPS / 1e3,
-            "bit_equal_deterministic": same, "launches": launches}
+            "bit_equal_default": same and twice, "scatter_ops": scatters, "launches": launches}
 
 
 def pose_yaml(cfg_path: str, it: int) -> str:
@@ -2129,21 +2382,6 @@ RANK_CALLS, RANK_TIMED = 2, 20
 SHARD_SPLITS, TILE_WORLDS, SCENE_WORLDS = (2, 4, 8), (1, 2, 4), (1, 2)
 
 
-@contextlib.contextmanager
-def deterministic():
-    """torch's deterministic algorithms, for the train step's bit-equality
-    checks: the backward of the train path's gathers is an ``index_add``,
-    whose CUDA atomics add each row's terms in no fixed order, so two runs
-    of one step may differ in the last bits unless torch takes its sorted
-    path (7a's probe measures it).  cuBLAS then needs the fixed workspace
-    config that ``main`` sets for the whole run."""
-    torch.use_deterministic_algorithms(True)
-    try:
-        yield
-    finally:
-        torch.use_deterministic_algorithms(False)
-
-
 def in_turns(ways: dict, iters: int) -> dict:
     """{way: ms of each of its ``iters`` synchronised calls}, the ways
     called in turns (``fn(i)`` in round i), so that all see the same host."""
@@ -2229,49 +2467,35 @@ def dp_world1(trained, group, batches, i_iter, train_median, card):
 
     params, statics, cfg, _ = trained
     t0 = time.perf_counter()
-    # the probe: the plain step twice from one state, torch's default algorithms
-    a, b = (make_trainer(params, statics, cfg, i_iter, "cuda") for _ in range(2))
-    a.step(batches[0])
-    b.step(batches[0])
-    diffs = [(x - y).abs() for x, y in zip(tree_leaves(a.params), tree_leaves(b.params))]
-    probe = {"leaves_differing": sum(bool((d > 0).any()) for d in diffs),
-             "values_differing": sum(int((d > 0).sum()) for d in diffs), "max_abs": max(float(d.max()) for d in diffs)}
-    print(f"  probe: one Trainer.step run twice from one state with torch's default algorithms: "
-          f"{probe['values_differing']} values in {probe['leaves_differing']} of {len(diffs)} leaves differ, "
-          f"worst {probe['max_abs']:.3g} ({time.perf_counter() - t0:.1f} s)")
-    del a, b
-    t0 = time.perf_counter()
+    ref = make_trainer(params, statics, cfg, i_iter, "cuda")
+    dp = make_trainer(params, statics, cfg, i_iter, "cuda", group)
+    eager = make_data_parallel_train_step(group, dp.gom_cfg, dp.loss_cfg, dp.tx)
+    p, o = clone_tree(dp.params), clone_tree(dp.opt_state)
+    snaps = []
 
-    with deterministic():
-        ref = make_trainer(params, statics, cfg, i_iter, "cuda")
-        dp = make_trainer(params, statics, cfg, i_iter, "cuda", group)
-        eager = make_data_parallel_train_step(group, dp.gom_cfg, dp.loss_cfg, dp.tx)
-        p, o = clone_tree(dp.params), clone_tree(dp.opt_state)
-        snaps = []
-
-        def run():
-            out = []
-            for i in range(DP_STEPS):
-                out.append(clone_tree(dp.step(batches[i % 3])))
-                snaps.append(train_state(dp))
-            return out
-
-        calls = all_reduce_sum.calls
-        steps, launches, _ = counted(run)
-        reduces = all_reduce_sum.calls - calls
+    def run():
+        out = []
         for i in range(DP_STEPS):
-            ref.step(batches[i % 3])
-            st = train_state(ref)
-            require(leaves_equal(st[0], snaps[i][0]) and leaves_equal(st[1], snaps[i][1]) and st[2] == snaps[i][2],
-                    f"7a step {i}: the world-1 data-parallel program differs from Trainer.step")
-            p, o, total, _ = eager(p, o, dp.statics, dp.lpips_params, batches[i % 3],
-                                   torch.full((), float(i_iter + i), device="cuda"))
-            same = (leaves_equal(tree_leaves(p), snaps[i][0])
-                    and leaves_equal(list(o.mu) + list(o.nu), snaps[i][1]) and int(o.count) == snaps[i][2])
-            require(same and torch.equal(total, steps[i][0]),
-                    f"7a step {i}: the data-parallel program differs from the eager rank step")
+            out.append(clone_tree(dp.step(batches[i % 3])))
+            snaps.append(train_state(dp))
+        return out
+
+    calls = all_reduce_sum.calls
+    steps, launches, _ = counted(run)
+    reduces = all_reduce_sum.calls - calls
+    for i in range(DP_STEPS):
+        ref.step(batches[i % 3])
+        st = train_state(ref)
+        require(leaves_equal(st[0], snaps[i][0]) and leaves_equal(st[1], snaps[i][1]) and st[2] == snaps[i][2],
+                f"7a step {i}: the world-1 data-parallel program differs from Trainer.step")
+        p, o, total, _ = eager(p, o, dp.statics, dp.lpips_params, batches[i % 3],
+                               torch.full((), float(i_iter + i), device="cuda"))
+        same = (leaves_equal(tree_leaves(p), snaps[i][0])
+                and leaves_equal(list(o.mu) + list(o.nu), snaps[i][1]) and int(o.count) == snaps[i][2])
+        require(same and torch.equal(total, steps[i][0]),
+                f"7a step {i}: the data-parallel program differs from the eager rank step")
     check_dp_losses("7a", steps)
-    print(f"  {DP_STEPS} steps (deterministic algorithms): params and Adam moments bit-equal to Trainer.step's and "
+    print(f"  {DP_STEPS} steps (default algorithms): params and Adam moments bit-equal to Trainer.step's and "
           f"to the eager rank step's after every step; launches {launches}; {reduces} all-reduces (the replays); "
           f"{dp._step_fn.captures} capture ({type(dp._step_fn).__name__}, one graph: {dp._step_fn.one_graph}; "
           f"{time.perf_counter() - t0:.1f} s)")
@@ -2280,15 +2504,11 @@ def dp_world1(trained, group, batches, i_iter, train_median, card):
     require(launches["B1a"] == launches["B1b"] == 0, "7a: the train step launched the eval kernel")
     require(reduces == DP_STEPS, "7a: not one all-reduce per step")
     require(dp._step_fn.captures == 1 and dp._step_fn.one_graph, "7a: not one captured graph in the phase")
-    del ref, dp, snaps
+    del snaps
     t0 = time.perf_counter()
 
-    # timed under torch's default algorithms (programs of their own: a graph
-    # captured under the deterministic ones replays their kernels), the three
-    # in turns, each step synchronised; then the reducer alone
-    ref = make_trainer(params, statics, cfg, i_iter, "cuda")
-    dp = make_trainer(params, statics, cfg, i_iter, "cuda", group)
-    eager = make_data_parallel_train_step(group, dp.gom_cfg, dp.loss_cfg, dp.tx)
+    # the same three timed in turns, each step synchronised; then the
+    # reducer alone
     i_dev = torch.full((), float(i_iter), device="cuda")
     ways = {
         "plain": lambda i: ref.step(batches[i % 3]),
@@ -2301,7 +2521,7 @@ def dp_world1(trained, group, batches, i_iter, train_median, card):
     print(f"  {DP_TIMED} steps of each in turns after {TRAIN_WARMUP} and the captures: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     out = {"steps": DP_STEPS, "bit_equal": True, "launches": launches, "all_reduces": reduces,
-           "captures": 1, "probe_default_algorithms": probe, "train_4d_median_ms": train_median}
+           "captures": 1, "train_4d_median_ms": train_median}
     for k, fn in ways.items():
         m = spread(per_step[k])
         m["device_ms"] = profiled_ms(lambda: fn(0))
@@ -2344,33 +2564,29 @@ def reducer_ms(group, trainer, batch, i_iter) -> float:
 
 def rank_dp(group, trained, batches, i_iter):
     """One rank of 7b: DP2_STEPS steps of the rank's program on its frame of
-    each pair (deterministic algorithms), each step's params copied to the
-    CPU; then DP2_TIMED timed steps of a fresh program and of the eager
-    rank step."""
+    each pair, each step's params copied to the CPU; then DP2_TIMED timed
+    steps of the program and of the eager rank step."""
     from gomavatar_tpu_torch.optim import tree_leaves
     from gomavatar_tpu_torch.parallel import all_reduce_sum, make_data_parallel_train_step
 
     params, statics, cfg, _ = trained
     pairs = dp_pairs(DP2_STEPS)
     snaps = []
-    with deterministic():
-        trainer = make_trainer(params, statics, cfg, i_iter, group.device, group)
-
-        def run():
-            out = []
-            for pair in pairs:
-                out.append(clone_tree(trainer.step(batches[pair[group.rank]])))
-                snaps.append([p.detach().cpu() for p in tree_leaves(trainer.params)])
-            return out
-
-        calls = all_reduce_sum.calls
-        steps, launches, _ = counted(run)
-        reduces = all_reduce_sum.calls - calls
-    check_dp_losses(f"7b rank {group.rank}", steps)
-    captures, one_graph = trainer._step_fn.captures, trainer._step_fn.one_graph
-    del trainer
-    order = dp_pairs(DP2_TIMED + TRAIN_WARMUP)
     timed = make_trainer(params, statics, cfg, i_iter, group.device, group)
+
+    def run():
+        out = []
+        for pair in pairs:
+            out.append(clone_tree(timed.step(batches[pair[group.rank]])))
+            snaps.append([p.detach().cpu() for p in tree_leaves(timed.params)])
+        return out
+
+    calls = all_reduce_sum.calls
+    steps, launches, _ = counted(run)
+    reduces = all_reduce_sum.calls - calls
+    check_dp_losses(f"7b rank {group.rank}", steps)
+    captures, one_graph = timed._step_fn.captures, timed._step_fn.one_graph
+    order = dp_pairs(DP2_TIMED + TRAIN_WARMUP)
     cap_ms, cap_wall = timed_steps(lambda i: timed.step(batches[order[i][group.rank]]), DP2_TIMED)
     eager = make_data_parallel_train_step(group, timed.gom_cfg, timed.loss_cfg, timed.tx)
     state = [timed.params, timed.opt_state]
@@ -2389,7 +2605,7 @@ def rank_dp(group, trained, batches, i_iter):
 
 def dp_reference(trained, batches, i_iter):
     """7b's one-process reference on the card: the mean-gradient step over
-    each pair (deterministic algorithms); the params after each step."""
+    each pair; the params after each step."""
     from gomavatar_tpu_torch.optim import tree_leaves
     from gomavatar_tpu_torch.parallel import make_mean_gradient_step
 
@@ -2397,10 +2613,9 @@ def dp_reference(trained, batches, i_iter):
     ref = make_trainer(params, statics, cfg, i_iter, "cuda")
     step = make_mean_gradient_step(ref.gom_cfg, ref.loss_cfg, ref.tx)
     p, o, out = ref.params, ref.opt_state, []
-    with deterministic():
-        for s, pair in enumerate(dp_pairs(DP2_STEPS)):
-            p, o, _, _ = step(p, o, ref.statics, ref.lpips_params, [batches[j] for j in pair], float(i_iter + s))
-            out.append([x.cpu() for x in tree_leaves(p)])
+    for s, pair in enumerate(dp_pairs(DP2_STEPS)):
+        p, o, _, _ = step(p, o, ref.statics, ref.lpips_params, [batches[j] for j in pair], float(i_iter + s))
+        out.append([x.cpu() for x in tree_leaves(p)])
     return out
 
 
@@ -2418,7 +2633,7 @@ def check_dp_ranks(label, ranks, reference, world1):
     launches = [{k: r["launches"][k] for k in TRAIN_KERNELS} for r in ranks]
     reduces = [r["all_reduces"] for r in ranks]
     forms = ["one graph" if r["one_graph"] else "two graphs around a host all-reduce" for r in ranks]
-    print(f"  {DP2_STEPS} steps on frame pairs (deterministic algorithms): both replicas bit-equal after every step, "
+    print(f"  {DP2_STEPS} steps on frame pairs (default algorithms): both replicas bit-equal after every step, "
           f"rank 0 bit-equal to the one-process (g_a + g_b) / 2 step; launches per rank {launches}; all-reduces "
           f"{reduces} (per call); one capture per rank ({forms[0]}); pools "
           f"{', '.join('%.1f' % r['pool_mib'] for r in ranks)} MiB")
@@ -2883,6 +3098,38 @@ def e2e_window_b1(data_dir: str, img, device="cuda"):
             "launches": launches}
 
 
+def e2e_drops(res) -> dict:
+    """run_e2e's drop counters: the logged train steps', each evaluation's
+    and the pose refinement's."""
+    return {"train_steps": res["report"]["drops"], "pose": res["pose"]["dropped"],
+            **{tag: r["dropped"] for tag, r in res["evals"].items()}}
+
+
+def e2e_again(res, art, cfg_path, device="cuda") -> dict:
+    """Phase 8b's chain run a second time in the same process, from the
+    same capture (its datagen skipped) into logs and an export of its own:
+    the exported params bit-equal to the first run's and every drop counter
+    equal."""
+    from gomavatar_tpu_torch.tools import run_e2e
+
+    art2 = f"{E2E_DIR}/e2e_trained_again.npz"
+    print("  run_e2e again from the same capture and yaml, its logs and export apart")
+    res2, _, seconds = counted(lambda: run_e2e.main([
+        "--cfg", cfg_path, "--log_dir", f"{E2E_DIR}/log_again", "--data", f"{E2E_DIR}/data", "--art", art2,
+        "--resume_iters", str(E2E_ITERS + E2E_RESUME), "--freeview_frames", str(E2E_CLIP),
+        "--pose_frames", str(E2E_POSE_FRAMES), "--control", "0", "--device", device]))
+    a, b = np.load(art), np.load(art2)
+    keys = [k for k in a.files if k.startswith("params/")]
+    differing = {k: int((a[k] != b[k]).sum()) for k in keys if not np.array_equal(a[k], b[k])}
+    drops, drops2 = e2e_drops(res), e2e_drops(res2)
+    print(f"  the second chain: {seconds:.2f} s; its exported params against the first's: "
+          f"{'all ' + str(len(keys)) + ' arrays bit-equal' if not differing else differing}; drop counters "
+          f"{drops2} (first run {drops})")
+    require(set(b.files) >= set(keys) and not differing, "8b: two runs of the chain export different params")
+    require(drops == drops2, "8b: two runs of the chain drop different entries")
+    return {"seconds": seconds, "params_arrays": len(keys), "params_differing": differing, "drops": drops2}
+
+
 def phase_e2e(device="cuda"):
     """Phase 8: the end-to-end demonstration chain on the card: 8a the
     learning check at its defaults, 8b ``run_e2e`` on a short schedule."""
@@ -2959,6 +3206,7 @@ def phase_e2e(device="cuda"):
     out["8b"] = {"seconds": seconds, "stages": res["seconds"], "decode": res["decode"], "launches": launches,
                  "metrics": {tag: r["metrics"] for tag, r in res["evals"].items()}, "pose": res["pose"]["metrics"],
                  "export": e2e_export_render(art, cfg["save_dir"], cfg["bgcolor"], device)}
+    out["8b"]["again"] = e2e_again(res, art, cfg_path, device)
     print(f"  phase 8b: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -3067,11 +3315,16 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test runs on an NVIDIA GPU", file=sys.stderr)
         return 1
+    import faulthandler
+
     from gomavatar_tpu_torch import cuda_build
 
+    # a crash still leaves every line printed before it, and the Python stack
+    sys.stdout.reconfigure(line_buffering=True)
+    faulthandler.enable()
     # one cuBLAS workspace config for every phase and every spawned rank,
-    # set before cuBLAS starts: phase 7's bit checks need it for torch's
-    # deterministic algorithms, and 4d's and 7a's timed steps run under it alike
+    # set before cuBLAS starts: torch's deterministic algorithms (4c's
+    # listing, 4d's timing) need it, and every other step runs under it alike
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     t_start = time.perf_counter()
     card = card_line()

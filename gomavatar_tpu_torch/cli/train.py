@@ -4,7 +4,9 @@
         [--resume] [--max_iters N] [--device cpu] [--data_parallel N]
 
 The loop: the iter-0 checkpoint, a frame order per epoch (pose-balanced
-under ``train.pose_balanced_sampling``), the thread ``Prefetcher``, one
+under ``train.pose_balanced_sampling``), the thread ``Prefetcher`` (each
+item's random background and crop drawn from its epoch, rank and position,
+so two runs of one config see the same batches), one
 ``Trainer.step`` per frame (on the card one replay of the phase's captured
 train program), and at their cadences the log line, TensorBoard, a
 checkpoint and the periodic eval; then a final checkpoint.  The host reads
@@ -278,12 +280,17 @@ def train(args, device: torch.device, group=None) -> Trainer:
     if tcfg.get("pose_balanced_sampling", False):
         balanced_Es = dataset.get_all_Es()
         logging.info("pose-balanced frame sampling ON (%d frames)", len(balanced_Es))
+    epoch = 0
     while trainer.i_iter < total_iters:
         if balanced_Es is not None:
             order = balanced_order(balanced_Es, len(dataset), rng)
         else:
             order = rng.permutation(len(dataset))
-        for item in Prefetcher(dataset, order=rank_items(order, world, rank)):
+        # each item's random background and crop from (epoch, rank, its
+        # position), not from the order the decode threads take items in:
+        # two runs of one config train on the same batches
+        epoch += 1
+        for item in Prefetcher(dataset, order=rank_items(order, world, rank), seed=(epoch, rank)):
             if trainer.i_iter >= total_iters:
                 break
             batch = to_device(item, device)

@@ -241,7 +241,7 @@ class TrainDataset(_ArtifactsMixin):
             )
         return img, alpha
 
-    def _random_crop(self, img, alpha, K):
+    def _random_crop(self, img, alpha, K, rng):
         """Random crop around the subject."""
         crop_w, crop_h = self.crop_size
         h, w = img.shape[:2]
@@ -252,8 +252,8 @@ class TrainDataset(_ArtifactsMixin):
         h_left = h_center - crop_h // 2
         w_left = w_center - crop_w // 2
         for _ in range(100):
-            rand_w = self.rng.integers(max(0, w_left - 50), min(w_left + 50, w - crop_w) + 1)
-            rand_h = self.rng.integers(max(0, h_left - 50), min(h_left + 50, h - crop_h) + 1)
+            rand_w = rng.integers(max(0, w_left - 50), min(w_left + 50, w - crop_w) + 1)
+            rand_h = rng.integers(max(0, h_left - 50), min(h_left + 50, h - crop_h) + 1)
             m = alpha[rand_h : rand_h + crop_h, rand_w : rand_w + crop_w]
             if np.sum(m) >= 20:
                 break
@@ -267,9 +267,15 @@ class TrainDataset(_ArtifactsMixin):
         )
 
     def __getitem__(self, idx):
+        return self.item(idx, self.rng)
+
+    def item(self, idx, rng):
+        """Frame ``idx`` with its random draws (the background color under
+        ``bgcolor=None``, the crop) taken from ``rng``; ``dataset[idx]``
+        takes them from the dataset's own stream."""
         frame_name = self.framelist[idx]
         if self.bgcolor is None:
-            bgcolor = (self.rng.random(3) * 255.0).astype(np.float32)
+            bgcolor = (rng.random(3) * 255.0).astype(np.float32)
         else:
             bgcolor = np.asarray(self.bgcolor, np.float32)
 
@@ -308,7 +314,7 @@ class TrainDataset(_ArtifactsMixin):
             self.cameras[frame_name]["extrinsics"], skel["Rh"], skel["Th"], return_global_tfms=True
         )
         if self.crop_size != (-1, -1):
-            img, alpha, K = self._random_crop(img, alpha, K)
+            img, alpha, K = self._random_crop(img, alpha, K, rng)
 
         out = {
             "frame_name": frame_name,
@@ -621,10 +627,18 @@ class Prefetcher:
     release the GIL) and the consumer receives them IN ORDER.  ``depth``
     bounds the number of decoded but unconsumed items (backpressure).  A
     worker's exception is re-raised in the consumer from ``__iter__``; a
-    consumer that stops early releases the workers."""
+    consumer that stops early releases the workers.
 
-    def __init__(self, dataset, order=None, depth: int | None = None, workers: int | None = None):
+    The items' random draws come from the dataset's own stream, in the
+    order the workers happen to take them; with a ``seed`` (a tuple of
+    ints) the item at position ``pos`` draws from
+    ``np.random.default_rng((*seed, pos))`` (``dataset.item``), so they do
+    not depend on which worker takes which item."""
+
+    def __init__(self, dataset, order=None, depth: int | None = None, workers: int | None = None,
+                 seed: tuple | None = None):
         self.dataset = dataset
+        self.seed = seed
         self.order = list(order) if order is not None else list(range(len(dataset)))
         if workers is None:
             # decode threads pay off only with real cores (on one core they
@@ -653,7 +667,10 @@ class Prefetcher:
             except queue.Empty:
                 return
             try:
-                item = self.dataset[i]
+                if self.seed is None:
+                    item = self.dataset[i]
+                else:
+                    item = self.dataset.item(i, np.random.default_rng((*self.seed, pos)))
             except BaseException as exc:  # noqa: BLE001 - forwarded to consumer
                 item = _PrefetchError(exc)
             with self._cv:

@@ -19,7 +19,7 @@ from gomavatar_tpu_torch.ops.mesh_ops import (
     abs_l1,
     color_consistency_loss,
     normal_consistency_loss,
-    uniform_laplacian_loss,
+    uniform_laplacian_loss_nbr,
 )
 
 
@@ -59,18 +59,19 @@ def compute_loss(
     for name, verts_key in (("canonical", "verts_cnl"), ("observation", "verts_obs")):
         coeff = lap[f"coeff_{name}"]
         if coeff > 0:
-            add(f"laplacian_{name}", uniform_laplacian_loss(aux[verts_key], statics.edges, statics.vertex_degree), coeff)
+            add(f"laplacian_{name}", uniform_laplacian_loss_nbr(aux[verts_key], statics.nbr_table, statics.vertex_degree),
+                coeff)
 
     nrm = loss_cfg["normal"]
     if nrm["coeff_mask"] > 0:
         gt = dilate_mask(mask_gt, nrm.get("kernel_size", 7)) if nrm.get("mask_dilate", False) else mask_gt
         add("normal_mask", torch.mean(abs_l1(aux["normal_mask"] - gt)), nrm["coeff_mask"])
     if nrm["coeff_consist"] > 0:
-        add("normal_consist", normal_consistency_loss(aux["verts_obs"], statics.nc_quads), nrm["coeff_consist"])
+        add("normal_consist", normal_consistency_loss(aux["verts_obs"], statics.nc_quads, statics.dual_nc), nrm["coeff_consist"])
 
     cc = loss_cfg["color_consist"]
     if cc["coeff"] > 0:
-        add("color_consist", color_consistency_loss(aux["colors"], statics.face_connectivity), cc["coeff"])
+        add("color_consist", color_consistency_loss(aux["colors"], statics.face_connectivity, statics.dual_conn), cc["coeff"])
     return total, losses
 
 

@@ -4,8 +4,9 @@ gomavatar_tpu/models/gom.py).
 State is split three ways, as in the reference:
   * ``params``: learnable tensors in a plain dict (vertices, per-face
     so3/scale, appearance colors, MLP weights, optionally lbs logits);
-  * ``GoMStatics``: per-phase non-learnable tensors (faces, mesh topology,
-    target edge lengths, fixed lbs weights);
+  * ``GoMStatics``: per-phase non-learnable tensors (faces, mesh topology
+    and the gather tables of its index transposes, target edge lengths,
+    fixed lbs weights);
   * ``GoMConfig``: static Python scalars.
 
 Both paths start with pose refinement -> non-rigid offsets -> FK + LBS.
@@ -31,8 +32,12 @@ from gomavatar_tpu_torch.ops.frame_render import NCMAX, render_frame_sorted
 from gomavatar_tpu_torch.ops.fused_render import frame_union_bins
 from gomavatar_tpu_torch.ops.geometry import frame_geometry
 from gomavatar_tpu_torch.ops.mesh_ops import (
+    DualIndex,
     MeshTopology,
+    NeighborTable,
+    entry_dual_index,
     gather_rows,
+    gather_vjp,
     replicate_face_attribute,
     subdivide_mesh,
     vertex_normals_from_tri,
@@ -46,7 +51,9 @@ from gomavatar_tpu_torch.ops.transforms import mm, so3_exp
 
 
 class GoMStatics(NamedTuple):
-    """Per-phase non-learnable tensors."""
+    """Per-phase non-learnable tensors.  The gather tables transpose the
+    train step's static index gathers by gathers (``mesh_ops.gather_vjp``),
+    so its backward adds in a fixed order."""
 
     faces: torch.Tensor  # (F, 3) int64
     vf_incidence: torch.Tensor  # (N, maxdeg) int64 incident faces per vertex
@@ -57,6 +64,11 @@ class GoMStatics(NamedTuple):
     face_connectivity: torch.Tensor  # (Q, 2) int64 faces sharing an edge
     vertex_degree: torch.Tensor  # (N,) f32
     target_edge_length: torch.Tensor  # (E,) f32 canonical edge lengths
+    dual_faces: DualIndex  # faces over vertices
+    dual_nc: DualIndex  # nc_quads over vertices
+    dual_conn: DualIndex  # face_connectivity over faces
+    dual_vfinc: DualIndex  # the masked vf_incidence over faces
+    nbr_table: NeighborTable  # vertex neighbours (the Laplacian)
 
 
 # The default tile budgets (16 per primitive, entry buffer factor 4) were
@@ -168,6 +180,11 @@ def _build_statics(faces: np.ndarray, vertices: np.ndarray, lbs_weights: np.ndar
         face_connectivity=dev(topo.face_connectivity, np.int64),
         vertex_degree=dev(topo.vertex_degree, np.float32),
         target_edge_length=dev(tel),
+        dual_faces=topo.dual_faces.to(device),
+        dual_nc=topo.dual_nc.to(device),
+        dual_conn=topo.dual_conn.to(device),
+        dual_vfinc=topo.dual_vfinc.to(device),
+        nbr_table=topo.nbr_table.to(device),
     )
 
 
@@ -344,12 +361,14 @@ def train_geometry(params: dict, statics: GoMStatics, cfg: GoMConfig, verts_obs:
                    K: torch.Tensor, E: torch.Tensor) -> dict:
     """The per-frame inputs of the train renderers: the gathered triangles,
     Steiner covariances, centroids, colors, camera-space vertex normals, and
-    the shared union binning (integers only, built without autograd)."""
+    the shared union binning with the DualIndex of its entries (integers
+    only, built without autograd)."""
     faces = statics.faces
-    tri = gather_rows(verts_obs, faces)  # (F, 3, 3): one gather for every consumer
+    # one gather for every consumer, transposed by a gather
+    tri = gather_vjp(verts_obs, faces, statics.dual_faces)  # (F, 3, 3)
     cov = face_covariances_tri(tri, params["so3"], params["scale"], cfg.sigma)
     centroids = tri.mean(dim=1)
-    normals = vertex_normals_from_tri(tri, statics.vf_incidence, statics.vf_valid)
+    normals = vertex_normals_from_tri(tri, statics.vf_incidence, statics.vf_valid, statics.dual_vfinc)
     W, H = cfg.img_size
     # the soft silhouette's blur radius in pixels (NDC spans 2 over the
     # short side), plus one pixel
@@ -360,9 +379,14 @@ def train_geometry(params: dict, statics: GoMStatics, cfg: GoMConfig, verts_obs:
             blur_margin_px=blur_margin_px,
             max_tiles_per_primitive=cfg.max_tiles_per_gaussian,
             buffer_factor=cfg.buffer_factor,
+            dual_faces=statics.dual_faces,
             band0=cfg.binning_band0_train,
             overflow_cap=max(faces.shape[0] // 8, 2048),
         )[4]
+        # the splat and the mesh entries gather per-face rows by entry_gauss:
+        # one table transposes both
+        bins = bins._replace(entry_dual=entry_dual_index(
+            bins.entry_gauss, bins.entry_valid, cfg.num_faces, cfg.max_tiles_per_gaussian))
     return {
         "cov": cov,
         "centroids": centroids,
@@ -393,6 +417,7 @@ def render_frame_train(params: dict, statics: GoMStatics, cfg: GoMConfig, verts_
         blur_sigma=cfg.normal_renderer_sigma,
         max_tiles_per_face=cfg.max_tiles_per_face,
         bins=bins,
+        dual_faces=statics.dual_faces,
         active_cap=cfg.train_active_tile_cap,
     )
     if cfg.shadow is not None:

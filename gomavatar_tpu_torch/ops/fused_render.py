@@ -28,13 +28,15 @@ def frame_union_bins(
     blur_margin_px: float = 0.0,
     max_tiles_per_primitive: int = 16,
     buffer_factor: int = 4,
+    dual_faces=None,
     band0=None,
     overflow_cap=None,
 ):
-    """One union-box binning serving the splat blend and the mesh passes.
-    Returns (proj, tris_xy, tris_z, in_front, bins)."""
+    """One union-box binning serving the splat blend and the mesh passes;
+    ``dual_faces`` as in ``mesh_raster.project_faces``.  Returns (proj,
+    tris_xy, tris_z, in_front, bins)."""
     proj = project_gaussians(centroids, cov3d, K, E, img_size)
-    tris_xy, tris_z, in_front = project_faces(verts, faces, K, E)
+    tris_xy, tris_z, in_front = project_faces(verts, faces, K, E, dual_faces)
 
     r = torch.where(proj.valid, proj.radius, torch.zeros_like(proj.radius))
     m = blur_margin_px

@@ -27,7 +27,7 @@ from typing import NamedTuple
 
 import torch
 
-from gomavatar_tpu_torch.ops.mesh_ops import gather_rows
+from gomavatar_tpu_torch.ops.mesh_ops import gather_rows, gather_vjp
 from gomavatar_tpu_torch.ops.splat.binning import CHUNK, bin_bboxes
 from gomavatar_tpu_torch.ops.splat.tiled_jnp import NCMAX, P, tile_pixels
 from gomavatar_tpu_torch.ops.transforms import mm
@@ -57,13 +57,18 @@ def project_mesh(verts: torch.Tensor, K: torch.Tensor, E: torch.Tensor):
     return torch.stack([x, y], dim=-1), z
 
 
-def project_faces(verts: torch.Tensor, faces: torch.Tensor, K: torch.Tensor, E: torch.Tensor):
+def project_faces(verts: torch.Tensor, faces: torch.Tensor, K: torch.Tensor, E: torch.Tensor, dual_faces=None):
     """(pixel xy (F, 3, 2), camera z (F, 3), in front (F,) bool) of each
     face's vertices; a face is in front when all three lie past the near
-    plane."""
+    plane.  ``dual_faces`` (the DualIndex of ``faces`` over the vertices)
+    transposes the one vertex gather by a gather."""
     xy, z = project_mesh(verts, K, E)
-    tris_z = gather_rows(z, faces)
-    return gather_rows(xy, faces), tris_z, torch.all(tris_z > _Z_NEAR, dim=-1)
+    if dual_faces is None:
+        tris_xy, tris_z = gather_rows(xy, faces), gather_rows(z, faces)
+    else:
+        trip = gather_vjp(torch.cat([xy, z[:, None]], dim=-1), faces, dual_faces)  # (F, 3, 3)
+        tris_xy, tris_z = trip[..., :2], trip[..., 2]
+    return tris_xy, tris_z, torch.all(tris_z > _Z_NEAR, dim=-1)
 
 
 def np_log_blur(blur_sigma: float) -> float:
@@ -315,6 +320,7 @@ def rasterize_mesh(
     max_tiles_per_face: int = 16,
     buffer_factor: int = 8,
     bins=None,
+    dual_faces=None,
     active_cap: int | None = None,
 ) -> MeshRasterOut:
     """Rasterize the mesh: verts (N, 3) in world space, vertex_normals (N, 3)
@@ -322,12 +328,14 @@ def rasterize_mesh(
     multiples of 16.  ``soft_mask`` adds the sigmoid silhouette (training
     only); ``sigma`` is its temperature in NDC^2 and ``blur_sigma`` sets the
     blur radius, log(1/1e-4 - 1) * blur_sigma in NDC^2.  ``bins`` (a
-    TileBinning) replaces the binning of the triangle boxes."""
+    TileBinning) replaces the binning of the triangle boxes; ``dual_faces``
+    (the DualIndex of ``faces`` over the vertices) transposes the vertex
+    gathers by gathers."""
     from gomavatar_tpu_torch.ops.mesh_raster_pallas import mesh_composite
     from gomavatar_tpu_torch.ops.splat.render import cap_active_tiles
 
     W, H = img_size
-    tris_xy, tris_z, in_front = project_faces(verts, faces, K, E)
+    tris_xy, tris_z, in_front = project_faces(verts, faces, K, E, dual_faces)
 
     if bins is None:
         # NDC spans 2 over the short side
@@ -344,7 +352,7 @@ def rasterize_mesh(
                 buffer_factor=buffer_factor,
             )
 
-    entries, ent_valid = mesh_entries(tris_xy, tris_z, in_front, vertex_normals, faces, bins)
+    entries, ent_valid = mesh_entries(tris_xy, tris_z, in_front, vertex_normals, faces, bins, dual_faces)
     normal, mask, soft = mesh_composite(
         entries, ent_valid, bins.tile_start, cap_active_tiles(bins.tile_count, active_cap),
         bins.num_tiles_x, bins.num_tiles_y, soft_mask, soft_sigma_px2(sigma, img_size),
@@ -359,13 +367,17 @@ def soft_sigma_px2(sigma: float, img_size: tuple[int, int]) -> float:
     return float(sigma) / (ndc_per_px * ndc_per_px)
 
 
-def mesh_entries(tris_xy, tris_z, in_front, vertex_normals, faces, bins):
+def mesh_entries(tris_xy, tris_z, in_front, vertex_normals, faces, bins, dual_faces=None):
     """(entries (16, Dp), entry validity (Dp,)) of kernels B4/B5: per entry
     the face's three pixel-space vertices, their depths, the summed vertex
     normal and the validity row, which holds the entry's mesh flag (keeping
     the mesh pass inside its own boxes under a union binning) times the
-    face's in-front flag."""
-    nsum = gather_rows(vertex_normals, faces).sum(dim=1)
+    face's in-front flag.  The entry gather is ``splat.render.entry_rows``;
+    ``dual_faces`` as in :func:`project_faces`."""
+    from gomavatar_tpu_torch.ops.splat.render import entry_rows
+
+    nsum = (gather_rows(vertex_normals, faces) if dual_faces is None
+            else gather_vjp(vertex_normals, faces, dual_faces)).sum(dim=1)
     F = faces.shape[0]
     per_face = torch.cat(
         [tris_xy.reshape(-1, 6), tris_z, nsum,
@@ -374,5 +386,5 @@ def mesh_entries(tris_xy, tris_z, in_front, vertex_normals, faces, bins):
         dim=-1,
     )
     ent_valid = bins.entry_mesh * in_front[bins.entry_gauss].to(torch.float32)
-    entries = gather_rows(per_face, bins.entry_gauss).T
+    entries = entry_rows(per_face, bins).T
     return torch.cat([entries[:12], entries[12:13] * ent_valid, entries[13:]]), ent_valid

@@ -24,7 +24,7 @@ sentinel entries would sort FIRST instead of last.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Any, NamedTuple
 
 import torch
 
@@ -128,6 +128,9 @@ class TileBinning(NamedTuple):
     num_tiles_x: int
     num_tiles_y: int
     telemetry: BinningTelemetry
+    # mesh_ops.DualIndex of entry_gauss over the primitives, pads left out:
+    # the train path sets it to transpose its entry gathers by a gather
+    entry_dual: Any = None
 
 
 class SortedBinning(NamedTuple):

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from gomavatar_tpu_torch.ops.mesh_ops import gather_rows
+from gomavatar_tpu_torch.ops.mesh_ops import gather_rows, gather_vjp
 from gomavatar_tpu_torch.ops.splat import binning as _binning
 from gomavatar_tpu_torch.ops.splat.pallas_kernel import composite_tiles, pack_gaussian_channels
 from gomavatar_tpu_torch.ops.splat.projection import project_gaussians
@@ -28,14 +28,23 @@ def cap_active_tiles(tile_count: torch.Tensor, active_cap: int | None) -> torch.
     return torch.where(rank < active_cap, tile_count, torch.zeros_like(tile_count))
 
 
+def entry_rows(per_prim: torch.Tensor, bins) -> torch.Tensor:
+    """(Dp, C) rows of ``per_prim`` (N, C) by ``bins.entry_gauss``: their
+    transpose (each primitive's sum of its entries' gradients) is a gather
+    over ``bins.entry_dual`` where the binning has one, else an
+    ``index_add``."""
+    if bins.entry_dual is None:
+        return gather_rows(per_prim, bins.entry_gauss)
+    return gather_vjp(per_prim, bins.entry_gauss, bins.entry_dual)
+
+
 def gaussian_entries(proj, colors: torch.Tensor, opacity: torch.Tensor, bins) -> torch.Tensor:
     """The (NCH_pad, Dp) entry matrix of kernels B2/B3: the per-gaussian
-    channels gathered per entry (autograd turns the gather into the sum of
-    entry gradients onto gaussians), the opacity row gated by the entry's
-    splat flag, so a union binning keeps the splat pass inside its own
-    radius boxes."""
+    channels gathered per entry (:func:`entry_rows`), the opacity row gated
+    by the entry's splat flag, so a union binning keeps the splat pass
+    inside its own radius boxes."""
     op_eff = torch.where(proj.valid, opacity, torch.zeros_like(opacity))
-    entries = gather_rows(pack_gaussian_channels(proj.mean2d, proj.conic, op_eff, colors), bins.entry_gauss).T
+    entries = entry_rows(pack_gaussian_channels(proj.mean2d, proj.conic, op_eff, colors), bins).T
     return torch.cat([entries[:5], entries[5:6] * bins.entry_splat, entries[6:]])
 
 

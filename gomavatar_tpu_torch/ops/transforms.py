@@ -60,3 +60,27 @@ def construct_G(R: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
     G[..., :3, 3] = T
     G[..., 3, 3].fill_(1.0)  # a fill on the device: a Python scalar assigned would be copied from the host
     return G
+
+
+def so3_log(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix (..., 3, 3) -> axis-angle (..., 3), principal branch
+    (the angle's cosine clipped to 1e-7 inside [-1, 1])."""
+    trace = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    theta = torch.arccos(torch.clamp((trace - 1.0) / 2.0, -1.0 + 1e-7, 1.0 - 1e-7))
+    w = torch.stack([R[..., 2, 1] - R[..., 1, 2], R[..., 0, 2] - R[..., 2, 0], R[..., 1, 0] - R[..., 0, 1]], dim=-1)
+    scale = torch.where(theta < 1e-4, 0.5 + theta * theta / 12.0,
+                        theta / (2.0 * torch.clamp_min(torch.sin(theta), 1e-8)))
+    return w * scale[..., None]
+
+
+def quat_to_mat(q: torch.Tensor) -> torch.Tensor:
+    """Quaternion (..., 4) [w, x, y, z], normalised here -> rotation matrix
+    (..., 3, 3)."""
+    q = q / torch.linalg.norm(q, dim=-1, keepdim=True)
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    rows = [
+        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)], dim=-1),
+        torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)], dim=-1),
+        torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)], dim=-1),
+    ]
+    return torch.stack(rows, dim=-2)

@@ -21,6 +21,7 @@ from gomavatar_tpu_torch.data.synthetic import (
     write_synthetic_mdm_poses,
     write_synthetic_zju_raw,
 )
+from gomavatar_tpu_torch.optim import tree_leaves
 from torch_threads import one_torch_thread  # noqa: F401
 
 HW = (48, 48)
@@ -203,6 +204,26 @@ def test_evaluate_on_composites_over_the_item_bgcolor(monkeypatch):
 
     train_cli.evaluate_on(StubTrainer(), DS(), NullTB(), "test_on_train", True)
     np.testing.assert_allclose(captured["pred"], captured["gt"], atol=1e-5)
+
+
+def test_train_twice_under_random_backgrounds_gives_the_same_params(workspace, tmp_path):
+    """Each item's random background is drawn from its epoch, rank and
+    position, not from the order the decode threads take items in: two
+    runs of one config through the phase change end with the same bits."""
+    with open(workspace["cfg_path"]) as f:
+        cfg = yaml.safe_load(f)
+    cfg["random_bgcolor"] = True
+    cfg["train"].update(total_iters=3, eval_freq=100, tb_freq=100, save_freq=100)
+    runs = []
+    for name in ("a", "b"):
+        cfg["log_dir"] = str(tmp_path / name)
+        path = str(tmp_path / f"{name}.yaml")
+        with open(path, "w") as f:
+            yaml.safe_dump(cfg, f)
+        runs.append(train_cli.main(["--cfg", path, "--device", "cpu"]))
+    a, b = (tree_leaves(r.params) for r in runs)
+    assert runs[0].phase == runs[1].phase == 1
+    assert len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 def test_train_fails_fast_on_a_non_finite_loss(workspace, tmp_path, monkeypatch):

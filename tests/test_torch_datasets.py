@@ -208,6 +208,22 @@ def test_threaded_getitem_keeps_the_random_stream_intact(data_dir):
         assert np.isfinite(it["bgcolor"]).all() and (it["bgcolor"] >= 0).all() and (it["bgcolor"] <= 1).all()
 
 
+def test_seeded_prefetcher_draws_do_not_depend_on_the_workers(data_dir):
+    """With a seed, item ``pos`` draws its background from (seed, pos): the
+    same items on 1 and 8 workers and on every run, each equal to
+    ``dataset.item`` with that generator."""
+    ds = TD.TrainDataset(data_dir, bgcolor=None)
+    order = list(range(4)) * 4
+    runs = [list(TD.Prefetcher(ds, order=order, workers=w, seed=(3, 0))) for w in (1, 8, 8)]
+    for items in runs[1:]:
+        for a, b in zip(runs[0], items):
+            np.testing.assert_array_equal(a["bgcolor"], b["bgcolor"])
+            np.testing.assert_array_equal(a["target_rgbs"], b["target_rgbs"])
+    want = ds.item(order[5], np.random.default_rng((3, 0, 5)))
+    np.testing.assert_array_equal(runs[0][5]["bgcolor"], want["bgcolor"])
+    assert len({tuple(it["bgcolor"]) for it in runs[0]}) == len(order)
+
+
 def test_prefetcher_early_break_releases_workers():
     class Slow:
         def __len__(self):

@@ -73,17 +73,17 @@ def test_mesh_losses_match_jax(mesh):
     verts, verts_obs, faces, jt, tt = mesh
     j_statics = {k: jnp.asarray(getattr(jt, k)) for k in ("edges", "nc_quads", "face_connectivity", "vertex_degree")}
     t_statics = {k: torch.as_tensor(getattr(tt, k)) for k in ("edges", "nc_quads", "face_connectivity", "vertex_degree")}
-    # the JAX train step takes the neighbour-table Laplacian; the port's is
-    # the same sum with index_add
+    # both train steps take the neighbour-table Laplacian and the quads'
+    # dual; the plain forms are held below
     j, t = _value_and_grad_both(
         lambda v: JM.uniform_laplacian_loss_nbr(v, jt.nbr_table, j_statics["vertex_degree"]),
-        lambda v: TM.uniform_laplacian_loss(v, t_statics["edges"], t_statics["vertex_degree"]),
+        lambda v: TM.uniform_laplacian_loss_nbr(v, tt.nbr_table, t_statics["vertex_degree"]),
         verts_obs,
     )
     _assert_value_and_grads(j, t, "laplacian")
     j, t = _value_and_grad_both(
         lambda v: JM.normal_consistency_loss(v, j_statics["nc_quads"], jt.dual_nc),
-        lambda v: TM.normal_consistency_loss(v, t_statics["nc_quads"]),
+        lambda v: TM.normal_consistency_loss(v, t_statics["nc_quads"], tt.dual_nc),
         verts_obs,
     )
     _assert_value_and_grads(j, t, "normal consistency")
@@ -98,8 +98,27 @@ def test_mesh_losses_match_jax(mesh):
     j_n = JM.vertex_normals_from_tri(jnp.asarray(tri), jnp.asarray(jt.vf_incidence), jnp.asarray(jt.vf_valid),
                                      jt.dual_vfinc)
     t_n = TM.vertex_normals_from_tri(torch.as_tensor(tri), torch.as_tensor(tt.vf_incidence),
-                                     torch.as_tensor(tt.vf_valid))
+                                     torch.as_tensor(tt.vf_valid), tt.dual_vfinc)
     np.testing.assert_allclose(t_n.numpy(), np.asarray(j_n), rtol=RTOL, atol=1e-6)
+
+
+def test_plain_mesh_losses_match_jax(mesh):
+    """The plain forms the eval path and the tests keep: the Laplacian as
+    edge scatters (index_add) and the normal consistency through a plain
+    gather, against JAX's train-step forms."""
+    _, verts_obs, _, jt, tt = mesh
+    j, t = _value_and_grad_both(
+        lambda v: JM.uniform_laplacian_loss_nbr(v, jt.nbr_table, jnp.asarray(jt.vertex_degree)),
+        lambda v: TM.uniform_laplacian_loss(v, torch.as_tensor(tt.edges), torch.as_tensor(tt.vertex_degree)),
+        verts_obs,
+    )
+    _assert_value_and_grads(j, t, "laplacian")
+    j, t = _value_and_grad_both(
+        lambda v: JM.normal_consistency_loss(v, jnp.asarray(jt.nc_quads), jt.dual_nc),
+        lambda v: TM.normal_consistency_loss(v, torch.as_tensor(tt.nc_quads)),
+        verts_obs,
+    )
+    _assert_value_and_grads(j, t, "normal consistency")
 
 
 @pytest.mark.parametrize("equal", [False, True])
@@ -111,7 +130,7 @@ def test_color_consistency_matches_jax(mesh, equal):
     colors = np.full((len(faces), 3), 0.5, np.float32) if equal else rng.random((len(faces), 3), np.float32)
     j, t = _value_and_grad_both(
         lambda c: JM.color_consistency_loss(c, jnp.asarray(jt.face_connectivity), jt.dual_conn),
-        lambda c: TM.color_consistency_loss(c, torch.as_tensor(tt.face_connectivity)),
+        lambda c: TM.color_consistency_loss(c, torch.as_tensor(tt.face_connectivity), tt.dual_conn),
         colors,
     )
     _assert_value_and_grads(j, t, "color consistency")
@@ -142,8 +161,7 @@ class _Statics:
         conv = jnp.asarray if lib == "jax" else torch.as_tensor
         for name in ("edges", "nc_quads", "face_connectivity", "vertex_degree"):
             setattr(self, name, conv(getattr(topo, name)))
-        if lib == "jax":
-            self.nbr_table, self.dual_nc, self.dual_conn = topo.nbr_table, topo.dual_nc, topo.dual_conn
+        self.nbr_table, self.dual_nc, self.dual_conn = topo.nbr_table, topo.dual_nc, topo.dual_conn
 
 
 def test_compute_loss_terms_match_jax(mesh):

@@ -30,6 +30,20 @@ def test_so3_exp_at_zero_is_identity():
     np.testing.assert_array_equal(R.numpy(), np.broadcast_to(np.eye(3, dtype=np.float32), (2, 3, 3)))
 
 
+@pytest.mark.parametrize("scale", [1e-5, 0.5, 2.0, 3.0])  # 1e-5: Taylor branch; 3.0: near pi
+def test_so3_log(scale):
+    rng = np.random.default_rng(7)
+    axis = rng.standard_normal((64, 3))
+    rvec = (scale * axis / np.linalg.norm(axis, axis=-1, keepdims=True)).astype(np.float32)
+    R = np.asarray(JT.so3_exp(jnp.asarray(rvec)))
+    _close(TT.so3_log(torch.as_tensor(R)), JT.so3_log(jnp.asarray(R)))
+
+
+def test_quat_to_mat():
+    q = (2.0 * np.random.default_rng(8).standard_normal((64, 4))).astype(np.float32)  # normalised inside
+    _close(TT.quat_to_mat(torch.as_tensor(q)), JT.quat_to_mat(jnp.asarray(q)))
+
+
 def test_construct_G():
     rng = np.random.default_rng(1)
     R = rng.standard_normal((5, 3, 3)).astype(np.float32)
