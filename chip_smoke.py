@@ -193,18 +193,47 @@ Phases, each fatal on failure:
         the budgets 32, 40 and 48, with every launch count set to 0 just
         before and read just after: each setting's counters (0 dropped
         required) and forward median and p90, B1a and B1b once per forward.
+ 10. calibrated LPIPS (``models.lpips.load_torch_{vgg16,alexnet,heads}``,
+     ``save_npz``, ``tools/calibrate_lpips``), each run with every launch
+     count set to 0 just before and read just after:
+     a. VGG16 and AlexNet state dicts in torchvision's layout drawn from
+        numpy seed 0 (He-scaled weights, nonzero biases, a few small
+        ``classifier.*`` keys) and LPIPS head files with negative entries,
+        converted by ``tools/calibrate_lpips.main``; ``load_lpips`` on the
+        card reports both CALIBRATED, the params exactly the state dicts'
+        tensors (the heads clamped at 0);
+     b. both trunks' LPIPS on the card against the CPU, the trained
+        avatar's 512^2 frame against a copy with N(0, 0.05) added: float32
+        within rtol 1e-4, bfloat16 within rtol 1e-2; the VGG loss's input
+        gradient in float32 and bfloat16 on each device against the float64
+        gradient on the CPU, the card's no farther from it than the CPU's
+        plus 5 % of its norm (the card against the CPU, and the card at the
+        input moved by one ulp, printed beside);
+     c. with GOMAVATAR_LPIPS_DIR (``WEIGHTS_DIR``) at the converted files,
+        from the trained avatar's checkpoint: ``cli.evaluate --type train``
+        (VGG) and ``--type view`` (AlexNet) report ``lpips``, not
+        ``lpips_uncalibrated``, B1a and B1b once per frame, the first
+        frame's lpips within rtol 1e-2 of the CPU's on the same arrays;
+        ``cli.train --resume`` for 3 steps trains with the calibrated trunk,
+        a finite lpips term and B2a-B5 once per step;
+     d. 3 captured ``Trainer.step`` calls with the converted VGG trunk as
+        the loss, bit-equal to the eager step from the same state under
+        the default algorithms, B2a-B5 once per step; then the captured
+        step with the converted and with the random trunk timed in turns
+        (20 steps each after 3, CUDA events).
 The programs' warm-up and capture are set-up: the launches they count are
 taken back, and every replay adds the captured call's launches, so a count
 is one per frame or step on every path, as the eager paths gave it.
 Kernel times are CUDA events around back-to-back calls after a warm-up;
 each part of a two-launch kernel also prints its device time (the calls
 queued behind a device-side sleep) beside it, as a diagnostic.
-Each phase prints its seconds. The last ten lines are phase 9's numbers as
-JSON, phase 8's numbers as JSON, phase 7's numbers as JSON, the pose and
+Each phase prints its seconds. The last eleven lines are phase 10's numbers
+as JSON, phase 9's numbers as JSON, phase 8's numbers as JSON, phase 7's numbers as JSON, the pose and
 animation numbers as JSON, the drivers' numbers as JSON, the forward
 timings as JSON, the train-step timings as JSON, the kernels JSON line
 (each kernel's launches on phase 7's paths under ``parallel_launches``, on
-phase 8's under ``e2e_launches``, in 9d under ``sweep_launches``), the card
+phase 8's under ``e2e_launches``, in 9d under ``sweep_launches``, in 10c
+and 10d under ``calibrated_launches``), the card
 line and the result JSON. Without a CUDA card it exits non-zero and prints
 no result.
 """
@@ -1089,19 +1118,22 @@ def train_batch(params, statics, cfg, frame, target_frame):
 _LPIPS: dict = {}
 
 
-def make_trainer(params, statics, cfg, i_iter, device, group=None):
+def make_trainer(params, statics, cfg, i_iter, device, group=None, lpips_params=None):
     """A Trainer of the trained avatar's train config, started from
     (params, statics, cfg) at ``i_iter`` with no subdivision left to do; a
-    rank of a data-parallel run under ``group``."""
+    rank of a data-parallel run under ``group``; its LPIPS trunk
+    ``lpips_params`` (a converted one, 10d) or the package's default."""
     from gomavatar_tpu_torch.models.lpips import load_lpips
     from gomavatar_tpu_torch.scene import trained_train_cfg
     from gomavatar_tpu_torch.trainer import Trainer
 
     train_cfg = trained_train_cfg()
     phase = len(train_cfg["model"]["subdivide_iters"])
-    if str(device) not in _LPIPS:
-        _LPIPS[str(device)] = load_lpips(device=device)[0]
-    return Trainer(train_cfg, lpips_params=_LPIPS[str(device)], device=device,
+    if lpips_params is None:
+        if str(device) not in _LPIPS:
+            _LPIPS[str(device)] = load_lpips(device=device)[0]
+        lpips_params = _LPIPS[str(device)]
+    return Trainer(train_cfg, lpips_params=lpips_params, device=device,
                    state=(params, statics, cfg, i_iter, phase), group=group)
 
 
@@ -2824,10 +2856,10 @@ def parallel_rank(group, jobs):
     return out
 
 
-def dp_cli_yaml(cfg_path: str, it: int) -> str:
-    """A copy of the drivers' exp yaml under its own experiment name, with
-    checkpoint iter_{it} of the drivers' experiment copied into its
-    checkpoints."""
+def exp_copy(cfg_path: str, it: int, name: str, **train) -> str:
+    """A copy of the drivers' exp yaml as experiment ``name``, its train
+    section updated by ``train``, with checkpoint iter_{it} of the drivers'
+    experiment copied into its checkpoints."""
     import shutil
 
     import yaml
@@ -2836,8 +2868,9 @@ def dp_cli_yaml(cfg_path: str, it: int) -> str:
 
     with open(cfg_path) as f:
         cfg = yaml.safe_load(f)
-    cfg["exp_name"] = "data_parallel"
-    path = cfg_path.replace(".yaml", "_dp.yaml")
+    cfg["exp_name"] = name
+    cfg["train"].update(train)
+    path = cfg_path.replace(".yaml", f"_{name}.yaml")
     with open(path, "w") as f:
         yaml.safe_dump(cfg, f)
     src, dst = make_cfg(cfg_path)["save_dir"], make_cfg(path)["save_dir"]
@@ -2915,7 +2948,7 @@ def phase_parallel(trained, train_median, forward_median, cfg_path: str, card):
         e["dp"] = check_dp_ranks("7e", [r["dp"] for r in two_cards], reference, out["7a"])
         e["tile"] = check_tile("7e tile", 2, [r["tile"] for r in two_cards], want_frame)
         e["scenes"] = check_scenes("7e scenes", 2, [r["scenes"] for r in two_cards], want_scenes)
-        path = dp_cli_yaml(cfg_path, i_iter)
+        path = exp_copy(cfg_path, i_iter, "data_parallel")
         ranks = train_cli.main(["--cfg", path, "--resume", "--max_iters", str(i_iter + 2), "--data_parallel", "2"])
         require([r["i_iter"] for r in ranks] == [i_iter + 2] * 2, "7e: cli.train --data_parallel 2 ended elsewhere")
         from gomavatar_tpu_torch.config import make_cfg
@@ -3291,6 +3324,396 @@ def phase_seeded_draws(device="cuda"):
     return out
 
 
+# ---- phase 10: calibrated LPIPS on the card --------------------------------------
+
+# 10b: LPIPS on the card against the CPU, float32 within rtol 1e-4 and
+# bfloat16 within rtol 1e-2 (tests/test_torch_metrics.py's bound: cuDNN and
+# the CPU round bfloat16 convolutions differently); the perturbed copy adds
+# N(0, CAL_NOISE) per value (numpy seed 0).  The VGG loss's input gradient
+# on this frame is ill-conditioned: ~88 % of it is flat black background,
+# whose max-pool ties and near-zero feature vectors let rounding alone move
+# the gradient (on an H100 80GB HBM3 at 700 W, 10b printed the card's
+# float32 gradient moved 4.2 % of its norm by a 1-ulp change of the input,
+# and each device's bfloat16 one 28 % from the float64 gradient).  So each
+# device's gradient is held to the float64 gradient on the CPU: the card's
+# no farther from it than the CPU's plus STEP_GRAD_REL of its norm, in
+# float32 and in bfloat16
+LPIPS_F32_RTOL, LPIPS_BF16_RTOL, CAL_NOISE = 1e-4, 1e-2, 0.05
+# 10c: cli.train steps from the trained avatar's checkpoint; 10d: captured
+# steps against the eager step
+CAL_TRAIN_STEPS, CAL_STEPS = 3, 3
+CAL_DIR = "build/smoke_lpips"  # under the checkout, gitignored
+
+
+def write_torchvision_checkpoints(root: str, seed: int = 0) -> dict:
+    """Phase 10a: VGG16 and AlexNet state dicts in torchvision's layout
+    (``features.{i}.{weight,bias}`` at torchvision's conv positions, the
+    weights He-scaled, the biases N(0, 0.05); a few small ``classifier.*``
+    keys) and LPIPS head files (``lin{i}.model.1.weight`` uniform in
+    [-0.05, 0.2), so some negative), drawn from numpy ``seed`` and written
+    by ``torch.save``.  Returns {trunk: (trunk path, heads path, trunk
+    state dict, heads state dict)}."""
+    from gomavatar_tpu_torch.models import lpips
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(root, exist_ok=True)
+    out = {}
+    for trunk, shapes, channels in (("vgg", lpips.vgg_shapes(), lpips._TAP_CHANNELS),
+                                    ("alex", lpips.alex_shapes(), lpips._ALEX_TAP_CHANNELS)):
+        sd = {}
+        for idx, (kh, kw, c_in, c) in zip(lpips.torch_conv_indices(trunk), shapes):
+            w = rng.standard_normal((c, c_in, kh, kw)) * np.sqrt(2.0 / (c_in * kh * kw))
+            sd[f"features.{idx}.weight"] = torch.from_numpy(w.astype(np.float32))
+            sd[f"features.{idx}.bias"] = torch.from_numpy(rng.normal(0.0, 0.05, c).astype(np.float32))
+        for k in (0, 3, 6):
+            sd[f"classifier.{k}.weight"] = torch.from_numpy(rng.standard_normal((4, 8)).astype(np.float32))
+            sd[f"classifier.{k}.bias"] = torch.from_numpy(rng.standard_normal(4).astype(np.float32))
+        heads = {f"lin{i}.model.1.weight": torch.from_numpy(rng.uniform(-0.05, 0.2, (1, c, 1, 1)).astype(np.float32))
+                 for i, c in enumerate(channels)}
+        paths = f"{root}/{trunk}_trunk.pth", f"{root}/{trunk}_heads.pth"
+        torch.save(sd, paths[0])
+        torch.save(heads, paths[1])
+        out[trunk] = (*paths, sd, heads)
+    return out
+
+
+def converted_equal(params, trunk: str, sd: dict, heads: dict) -> bool:
+    """The loaded params on the card hold exactly the state dicts' tensors:
+    the convs at torchvision's positions, the heads clamped at 0."""
+    from gomavatar_tpu_torch.models.lpips import torch_conv_indices
+
+    idx = torch_conv_indices(trunk)
+    leaves = [c[k] for c in params["convs"] for k in ("w", "b")] + list(params["heads"])
+    ok = len(params["convs"]) == len(idx) and ("alex" in params) == (trunk == "alex")
+    ok = ok and all(t.is_cuda for t in leaves)
+    ok = ok and all(torch.equal(c["w"].cpu(), sd[f"features.{i}.weight"]) and
+                    torch.equal(c["b"].cpu(), sd[f"features.{i}.bias"]) for c, i in zip(params["convs"], idx))
+    return ok and all(torch.equal(h.cpu(), heads[f"lin{i}.model.1.weight"].reshape(-1, 1).clamp_min(0.0))
+                      for i, h in enumerate(params["heads"]))
+
+
+def vgg_lpips_f64(params, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """VGG-LPIPS in float64 on the CPU, written from torch's functional ops
+    (scaling, conv + bias + ReLU, 2x2 max pools, unit-normalised taps,
+    clamped heads, spatial mean): the exact gradient of 10b."""
+    import torch.nn.functional as F
+
+    from gomavatar_tpu_torch.models import lpips
+
+    def taps(img):
+        shift, scale = (torch.tensor(v, dtype=torch.float64) for v in (lpips._SHIFT, lpips._SCALE))
+        h, out, i = ((img - shift) / scale).permute(2, 0, 1)[None], [], 0
+        for c in lpips._VGG_CFG:
+            if c == "M":
+                h = F.max_pool2d(h, 2)
+                continue
+            conv = params["convs"][i]
+            h = torch.relu(F.conv2d(h, conv["w"].double(), padding=1) + conv["b"].double()[None, :, None, None])
+            if i in lpips._TAPS:
+                out.append(h)
+            i += 1
+        return out
+
+    total = torch.zeros((), dtype=torch.float64)
+    for a, b, head in zip(taps(x), taps(y), params["heads"]):
+        na, nb = (f * torch.rsqrt((f * f).sum(1, keepdim=True) + 1e-20) for f in (a, b))
+        total = total + ((na - nb) ** 2 * head.double()[:, 0].clamp_min(0.0)[None, :, None, None]).sum(1).mean()
+    return total
+
+
+def lpips_grads(p: dict, pred: np.ndarray, gt: np.ndarray, background: np.ndarray) -> dict:
+    """10b's gradient: the VGG loss's input gradient on the card and on the
+    CPU in float32 and bfloat16, each against the float64 gradient on the
+    CPU (the card's distance from it at most the CPU's plus STEP_GRAD_REL of
+    its norm), with the card against the CPU, the share of that difference
+    on the (H, W) ``background`` pixels, and the card's gradient at the
+    input moved by one ulp (how far rounding alone moves it) printed
+    beside."""
+    from gomavatar_tpu_torch.models.lpips import lpips
+
+    def grad(fn, x):
+        x = x.requires_grad_(True)
+        fn(x).backward()
+        return x.grad.detach().cpu().double()
+
+    def rel(a, b):
+        return float(torch.linalg.norm(a - b) / torch.clamp_min(torch.linalg.norm(b), 1e-30))
+
+    nudged = np.nextafter(pred, np.float32(2.0)).astype(np.float32)
+    exact = grad(lambda x: vgg_lpips_f64(p["cpu"], x, torch.as_tensor(gt, dtype=torch.float64)),
+                 torch.as_tensor(pred, dtype=torch.float64))
+    out = {}
+    for bf16 in (False, True):
+        g = {}
+        for dev, x in (("cuda", pred), ("cpu", pred), ("cuda nudged", nudged)):
+            d = dev.split()[0]
+            g[dev] = grad(lambda v: lpips(p[d], v, torch.as_tensor(gt, device=d), bf16=bf16),
+                          torch.as_tensor(x, device=d))
+        d2 = ((g["cuda"] - g["cpu"]) ** 2).sum(-1).numpy()
+        r = {"card_exact": rel(g["cuda"], exact), "cpu_exact": rel(g["cpu"], exact),
+             "card_cpu": rel(g["cuda"], g["cpu"]),
+             "card_cpu_background": float(d2[background].sum() / max(float(d2.sum()), 1e-30)),
+             "card_nudged": rel(g["cuda nudged"], g["cuda"])}
+        name = "bf16" if bf16 else "f32"
+        print(f"  the VGG loss's {name} input gradient against the float64 one: card {r['card_exact']:.4g}, CPU "
+              f"{r['cpu_exact']:.4g} of its norm (limit: the CPU's + {STEP_GRAD_REL:g}); card against CPU "
+              f"{r['card_cpu']:.4g} ({r['card_cpu_background']:.3f} of it, squared, on the background's "
+              f"{background.mean():.3f} of the pixels), the card's at the input moved by one ulp "
+              f"{r['card_nudged']:.4g}")
+        require(bool(torch.isfinite(g["cuda"]).all()) and float(exact.abs().max()) > 0
+                and r["card_exact"] <= r["cpu_exact"] + STEP_GRAD_REL,
+                f"10b: the card's {name} VGG LPIPS gradient is farther from the float64 gradient than the CPU's")
+        out[name] = r
+    return out
+
+
+def lpips_card_vs_cpu(trained, cal_dir: str) -> dict:
+    """Phase 10b: both converted trunks' LPIPS on the card against the CPU,
+    float32 and bfloat16, between the trained avatar's 512^2 render of its
+    packed frame and a perturbed copy; the VGG loss's input gradient
+    (:func:`lpips_grads`)."""
+    from gomavatar_tpu_torch.losses import unpack
+    from gomavatar_tpu_torch.models.lpips import load_lpips, lpips
+
+    params, statics, cfg, frame = trained
+    with torch.no_grad():
+        rgb, mask, _ = forward(params, statics, cfg, frame)
+    img = unpack(rgb, mask, torch.zeros(3, device="cuda"), clamp=True).cpu().numpy()
+    noisy = np.clip(img + np.random.default_rng(0).normal(0.0, CAL_NOISE, img.shape), 0.0, 1.0)
+    pred, gt = (np.asarray(2.0 * x - 1.0, np.float32) for x in (img, noisy))
+    require(img.shape == (*cfg.img_size, 3) and img.mean() > 0.01, "10b: the render is empty")
+    out = {}
+    for trunk in ("vgg", "alex"):
+        p = {dev: load_lpips(trunk, weights_dir=cal_dir, quiet=True, device=dev)[0] for dev in ("cuda", "cpu")}
+        for bf16, rtol in ((False, LPIPS_F32_RTOL), (True, LPIPS_BF16_RTOL)):
+            v = {dev: float(lpips(p[dev], torch.as_tensor(pred, device=dev), torch.as_tensor(gt, device=dev),
+                                  bf16=bf16)) for dev in p}
+            rel = abs(v["cuda"] - v["cpu"]) / abs(v["cpu"])
+            name = f"{trunk} {'bf16' if bf16 else 'f32'}"
+            print(f"  LPIPS {name} at {img.shape[0]}^2: card {v['cuda']:.7g}, CPU {v['cpu']:.7g}, relative "
+                  f"difference {rel:.3g} (limit {rtol:g})")
+            require(np.isfinite(v["cuda"]) and v["cpu"] > 0 and rel <= rtol,
+                    f"10b: LPIPS {name} differs between the card and the CPU by more than rtol {rtol:g}")
+            out[name] = {"card": v["cuda"], "cpu": v["cpu"], "rel": rel}
+        if trunk == "vgg":
+            out["vgg grad"] = lpips_grads(p, pred, gt, mask.cpu().numpy().reshape(img.shape[:2]) == 0)
+    return out
+
+
+def calibrated_eval(path: str, exp, t: str, trunk: str, cal_dir: str, device="cuda") -> dict:
+    """Phase 10c, one protocol: cli.evaluate --type ``t`` with the converted
+    trunks; the metric reported as ``lpips``, B1a and B1b once per frame,
+    and the first frame's LPIPS (``metric_{t}.npy``) against the CPU's on
+    the same prediction (its PNG: the evaluator's uint8 image) and ground
+    truth."""
+    import argparse
+
+    from PIL import Image
+
+    from gomavatar_tpu_torch.cli import evaluate
+    from gomavatar_tpu_torch.eval_lib import to_8b_image
+    from gomavatar_tpu_torch.models.lpips import load_lpips, lpips
+
+    result, launches, seconds = counted(lambda: evaluate.main(["--cfg", path, "--type", t, "--device", device]))
+    metrics = result["metrics"]
+    frames = result["frames"]
+    print(f"  cli.evaluate --type {t} ({trunk}): {frames} frames in {seconds:.2f} s, dropped {result['dropped']}, "
+          f"launches {launches}, metrics {metrics}")
+    require("lpips" in metrics and "lpips_uncalibrated" not in metrics and np.isfinite(metrics["lpips"]),
+            f"10c: cli.evaluate --type {t} did not report a calibrated lpips")
+    require(launches["B1a"] == launches["B1b"] == frames, f"10c: --type {t} did not launch B1a and B1b once per frame")
+    require(all(v == 0 for k, v in launches.items() if not k.startswith("B1")),
+            f"10c: --type {t} launched a train kernel")
+    require(result["dropped"] == 0, f"10c: --type {t} dropped entries")
+    dataset, _ = evaluate.build_dataset(exp, argparse.Namespace(type=t, dataset_path=None, frame_idx=0, n_frames=100,
+                                                                pose_path=None))
+    item = dataset[0]
+    pred = np.asarray(Image.open(f"{result['out_dir']}/{item['frame_name']}.png")) / 255.0
+    gt = to_8b_image(np.asarray(item["target_rgbs"])) / 255.0
+    cpu_params = load_lpips(trunk, weights_dir=cal_dir, quiet=True, device="cpu")[0]
+    scale = 1000.0 if t == "train" else 1.0  # the ZJU protocol reports LPIPS x 1000
+    want = scale * float(lpips(cpu_params, torch.as_tensor(np.asarray(pred * 2.0 - 1.0, np.float32)),
+                               torch.as_tensor(np.asarray(gt * 2.0 - 1.0, np.float32))))
+    got = float(np.load(f"{exp['save_dir']}/eval/metric_{t}.npy", allow_pickle=True).item()["lpips"][0])
+    rel = abs(got - want) / abs(want)
+    print(f"  {item['frame_name']}: lpips on the card {got:.7g}, the CPU's on the same arrays {want:.7g}, relative "
+          f"difference {rel:.3g} (limit {LPIPS_BF16_RTOL:g})")
+    require(rel <= LPIPS_BF16_RTOL, f"10c: --type {t}'s first frame's lpips differs from the CPU's")
+    return {"frames": frames, "seconds": seconds, "launches": launches, "metrics": metrics,
+            "first_frame": {"card": got, "cpu": want, "rel": rel}}
+
+
+def calibrated_drivers(cfg_path: str, cal_dir: str, device="cuda") -> dict:
+    """Phase 10c: cli.evaluate --type train (VGG) and --type view (AlexNet)
+    and CAL_TRAIN_STEPS steps of cli.train --resume from the trained
+    avatar's checkpoint, with GOMAVATAR_LPIPS_DIR (and so ``WEIGHTS_DIR``)
+    pointing at the converted trunks."""
+    from gomavatar_tpu_torch.cli import train as train_cli
+    from gomavatar_tpu_torch.config import make_cfg
+    from gomavatar_tpu_torch.convert import trained_meta
+    from gomavatar_tpu_torch.models import lpips
+
+    it = int(trained_meta()["iter"])
+    path = exp_copy(cfg_path, it, "lpips_calibrated", log_freq=1, tb_freq=10**9, save_freq=10**9, eval_freq=10**9)
+    exp = make_cfg(path)
+    require(exp["train"]["losses"]["lpips"]["coeff"] > 0, "10c: the train config has no LPIPS term")
+    # the module reads the variable once, at import; a user's process starts
+    # with it set
+    saved = os.environ.get("GOMAVATAR_LPIPS_DIR"), lpips.WEIGHTS_DIR
+    os.environ["GOMAVATAR_LPIPS_DIR"] = lpips.WEIGHTS_DIR = cal_dir
+    try:
+        out = {f"evaluate_{t}": calibrated_eval(path, exp, t, trunk, cal_dir, device)
+               for t, trunk in (("train", "vgg"), ("view", "alex"))}
+        stop = it + CAL_TRAIN_STEPS
+        trainer, launches, seconds = counted(
+            lambda: train_cli.main(["--cfg", path, "--resume", "--max_iters", str(stop), "--device", device]))
+    finally:
+        if saved[0] is None:
+            os.environ.pop("GOMAVATAR_LPIPS_DIR")
+        else:
+            os.environ["GOMAVATAR_LPIPS_DIR"] = saved[0]
+        lpips.WEIGHTS_DIR = saved[1]
+    logged = [line for line in log_lines(f"{exp['save_dir']}/log.txt", " it/s)")
+              if int(line.split("iter ")[1].split(" ")[0]) > it]
+    terms = [float(line.split("lpips: ")[1].split(",")[0].rstrip(")")) for line in logged]
+    print(f"  cli.train --resume --max_iters {stop}: {seconds:.2f} s, iteration {trainer.i_iter}, lpips calibrated "
+          f"{trainer.lpips_calibrated}, the lpips term per step {terms}, launches {launches}")
+    require(trainer.i_iter == stop and trainer.lpips_calibrated,
+            "10c: cli.train did not train with the converted trunk")
+    require(len(terms) == CAL_TRAIN_STEPS and all(np.isfinite(v) and v > 0 for v in terms),
+            "10c: cli.train's lpips term is missing or not finite")
+    for k in ("B2a", "B2b", "B3a", "B3b", "B4a", "B4b", "B5"):
+        require(launches[k] == CAL_TRAIN_STEPS, f"10c: cli.train did not launch {k} once per step")
+    out["train"] = {"steps": CAL_TRAIN_STEPS, "seconds": seconds, "lpips": terms, "launches": launches}
+    return out
+
+
+def events_in_turns(ways: dict, iters: int) -> dict:
+    """{way: ms of each of its ``iters`` calls by CUDA events around the
+    call}, the ways called in turns, each call synchronised."""
+    per_call = {k: [] for k in ways}
+    for _ in range(iters):
+        for k, fn in ways.items():
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            per_call[k].append(start.elapsed_time(end))
+    return per_call
+
+
+def calibrated_steps(trained, cal_dir: str, card: str) -> dict:
+    """Phase 10d: CAL_STEPS captured Trainer.steps on the trained avatar with
+    the converted VGG trunk as the loss, bit-equal to the eager step from
+    the same state (torch's default algorithms), B2a-B5 once per step; then
+    the captured step with the converted and with the random trunk timed
+    in turns."""
+    from gomavatar_tpu_torch.convert import trained_meta
+    from gomavatar_tpu_torch.models.lpips import load_lpips
+    from gomavatar_tpu_torch.optim import tree_leaves
+    from gomavatar_tpu_torch.trainer import make_train_step
+
+    params, statics, cfg, _ = trained
+    i_iter = int(trained_meta()["iter"])
+    batches = dp_batches(trained)
+    cal_params, calibrated, _ = load_lpips("vgg", weights_dir=cal_dir, quiet=True, device="cuda")
+    require(calibrated, "10d: the converted VGG trunk did not load")
+    trainer = make_trainer(params, statics, cfg, i_iter, "cuda", lpips_params=cal_params)
+    start = clone_tree(trainer.params), clone_tree(trainer.opt_state)
+
+    def run():
+        out = []
+        for i in range(CAL_STEPS):
+            total, losses = clone_tree(trainer.step(batches[i % len(batches)]))
+            out.append((total, losses, train_state(trainer)))
+        return out
+
+    steps, launches, _ = counted(run)
+    for k in ("B2a", "B2b", "B3a", "B3b", "B4a", "B4b", "B5"):
+        require(launches[k] == CAL_STEPS, f"10d: {k} not launched once per step")
+    require(trainer._step_fn.captures == 1, "10d: the train program captured more than once")
+    eager = make_train_step(trainer.gom_cfg, trainer.loss_cfg, trainer.tx)
+    p, o = start
+    lp = []
+    for i, (total, losses, snap) in enumerate(steps):
+        p, o, total_e, _ = eager(p, o, trainer.statics, cal_params, batches[i % len(batches)],
+                                 torch.full((), float(i_iter + i), device="cuda"))
+        same = (leaves_equal(tree_leaves(p), snap[0]) and leaves_equal(list(o.mu) + list(o.nu), snap[1])
+                and int(o.count) == snap[2] and torch.equal(total_e, total))
+        lp.append(float(losses["lpips"]))
+        require(same, f"10d step {i}: the captured step with the converted trunk differs from the eager one")
+        require(np.isfinite(lp[-1]) and lp[-1] > 0, f"10d step {i}: the lpips term is not finite")
+    print(f"  {CAL_STEPS} captured steps with the converted VGG trunk: lpips {lp}, launches {launches}; params, Adam "
+          f"moments, counts and the total bit-equal to the eager step's after each")
+
+    random_trunk = make_trainer(params, statics, cfg, i_iter, "cuda")
+    ways = {"converted": lambda: trainer.step(batches[0]), "random": lambda: random_trunk.step(batches[0])}
+    events_in_turns(ways, TRAIN_WARMUP)
+    timed = {k: spread(v) for k, v in events_in_turns(ways, TRAIN_ITERS).items()}
+    ratio = timed["converted"]["median_ms"] / timed["random"]["median_ms"]
+    for k, v in timed.items():
+        print(f"  captured step, {k} VGG trunk: median {v['median_ms']:.3f} ms, p90 {v['p90_ms']:.3f} over "
+              f"{TRAIN_ITERS} steps in turns after {TRAIN_WARMUP} (CUDA events; {card})")
+    print(f"  converted over random: {ratio:.4f}x the median (predicted within 1 +- 0.02)")
+    return {"steps": CAL_STEPS, "lpips": lp, "launches": launches, "bit_equal_eager": True, "timed": timed,
+            "ratio": ratio}
+
+
+def phase_calibrated_lpips(trained, cfg_path: str, card: str) -> dict:
+    """Phase 10: calibrated LPIPS on the card, from torchvision-layout
+    checkpoints through the port's converter to the drivers and the
+    captured train step."""
+    from gomavatar_tpu_torch.models.lpips import load_lpips
+    from gomavatar_tpu_torch.tools import calibrate_lpips
+
+    out = {}
+    t0 = time.perf_counter()
+    print("[10a] seeded VGG16 and AlexNet state dicts in torchvision's layout (nonzero biases, classifier keys) and "
+          "LPIPS heads (some negative), converted by tools/calibrate_lpips")
+    ckpts = write_torchvision_checkpoints(f"{CAL_DIR}/pth")
+    cal_dir = f"{CAL_DIR}/weights"
+    v, a = ckpts["vgg"], ckpts["alex"]
+    wrote = calibrate_lpips.main(["--vgg16", v[0], "--vgg_heads", v[1], "--alexnet", a[0], "--alex_heads", a[1],
+                                  "--out_dir", cal_dir])
+    require([cal for _, cal in wrote] == [True, True], "10a: the converter did not write two calibrated trunks")
+    out["10a"] = {}
+    for trunk, (_, _, sd, heads) in ckpts.items():
+        params, calibrated, status = load_lpips(trunk, weights_dir=cal_dir, quiet=True, device="cuda")
+        equal = converted_equal(params, trunk, sd, heads)
+        negative = sum(int((h < 0).sum()) for h in heads.values())
+        print(f"  {status}; params on the card equal to the state dicts' tensors: {equal} ({negative} negative head "
+              f"entries clamped)")
+        require(calibrated and "CALIBRATED" in status, f"10a: load_lpips({trunk}) does not report CALIBRATED")
+        require(equal and negative > 0, f"10a: the {trunk} params on the card differ from the state dicts")
+        out["10a"][trunk] = {"calibrated": calibrated, "equal": equal, "negative_heads": negative}
+    print(f"  phase 10a: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    print("[10b] LPIPS of both converted trunks on the card against the CPU: the trained avatar's 512^2 frame against "
+          "a perturbed copy")
+    out["10b"] = lpips_card_vs_cpu(trained, cal_dir)
+    print(f"  phase 10b: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    print("[10c] cli.evaluate --type train and --type view, and cli.train --resume, with GOMAVATAR_LPIPS_DIR at the "
+          "converted trunks")
+    out["10c"] = calibrated_drivers(cfg_path, cal_dir)
+    print(f"  phase 10c: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    print(f"[10d] {CAL_STEPS} captured Trainer.steps with the converted VGG trunk against the eager step; the "
+          f"captured step timed with the converted and the random trunk")
+    out["10d"] = calibrated_steps(trained, cal_dir, card)
+    print(f"  phase 10d: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def calibrated_launches(k: str, cal: dict) -> dict:
+    """Kernel ``k``'s launches (its parts' sum) in 10c's runs and in 10d."""
+    parts = [k] if k == "B5" else [f"{k}a", f"{k}b"]
+    runs = {**{r: cal["10c"][r]["launches"] for r in ("evaluate_train", "evaluate_view", "train")},
+            "10d": cal["10d"]["launches"]}
+    return {r: sum(launches[q] for q in parts) for r, launches in runs.items()}
+
+
 def e2e_launches(k: str, e2e: dict) -> dict:
     """Kernel ``k``'s launches (its parts' sum) in 8a, 8b and 8c."""
     parts = [k] if k == "B5" else [f"{k}a", f"{k}b"]
@@ -3375,6 +3798,9 @@ def main() -> int:
     t0 = time.perf_counter()
     draws = phase_seeded_draws()
     done(9, t0)
+    t0 = time.perf_counter()
+    calibrated = phase_calibrated_lpips(trained, f"{DRIVER_DIR}/exp.yaml", card)
+    done(10, t0)
 
     measured = {"B1": dict(b1, launches=b1_launches["B1"])}
     for k in ("B2", "B3", "B4", "B5"):
@@ -3399,7 +3825,9 @@ def main() -> int:
         entry["parallel_launches"] = parallel_launches(k, parallel["launches"])
         entry["e2e_launches"] = e2e_launches(k, e2e)
         entry["sweep_launches"] = sum(draws["9d"]["launches"][q] for q in ([k] if k == "B5" else [f"{k}a", f"{k}b"]))
+        entry["calibrated_launches"] = calibrated_launches(k, calibrated)
         result["kernels"].append(entry)
+    print(json.dumps({"calibrated_lpips": calibrated}))
     print(json.dumps({"seeded_draws": draws}))
     print(json.dumps({"e2e": e2e}))
     print(json.dumps({"parallel": parallel}))

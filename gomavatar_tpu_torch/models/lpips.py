@@ -11,8 +11,12 @@ Weights: :func:`load_lpips` picks the best available, in the JAX package's
 order, from ``WEIGHTS_DIR`` (this package's ``weights/``, or
 ``GOMAVATAR_LPIPS_DIR`` when set):
   * ``lpips_{vgg,alex}.npz``, a converted pretrained trunk with its heads in
-    the JAX package's format (``tools/calibrate_lpips.py`` writes it): the
-    values are CALIBRATED, comparable with published LPIPS numbers;
+    the JAX package's format: the values are CALIBRATED, comparable with
+    published LPIPS numbers.  ``python -m
+    gomavatar_tpu_torch.tools.calibrate_lpips`` writes it from torchvision's
+    VGG16 or AlexNet state dict and LPIPS's linear heads
+    (:func:`load_torch_vgg16`, :func:`load_torch_alexnet`,
+    :func:`load_torch_heads`, :func:`save_npz`);
   * vgg only: the reference's five linear heads (``lpips_vgg_heads.npz``,
     7 KB, shipped with this package) on a random trunk;
   * a random trunk with uniform heads.
@@ -119,6 +123,24 @@ def init_lpips_alex(heads=None, device="cuda"):
     calibrated=False); the ``"alex"`` key marks the trunk."""
     return {"alex": (), "convs": _convs(4321, alex_shapes(), device),
             "heads": _heads(heads, _ALEX_TAP_CHANNELS, device)}, False
+
+
+def save_npz(path: str, params) -> None:
+    """Write LPIPS params as a flat npz in the JAX package's format
+    (``conv_w_{i}`` HWIO float32, ``conv_b_{i}``, ``head_{i}``, and an
+    ``alex`` marker for the AlexNet trunk), which both packages load."""
+    def host(t):
+        return t.detach().cpu().numpy().astype(np.float32)
+
+    flat = {}
+    for i, c in enumerate(params["convs"]):
+        flat[f"conv_w_{i}"] = np.ascontiguousarray(host(c["w"]).transpose(2, 3, 1, 0))
+        flat[f"conv_b_{i}"] = host(c["b"])
+    for i, h in enumerate(params["heads"]):
+        flat[f"head_{i}"] = host(h)
+    if "alex" in params:
+        flat["alex"] = np.zeros(())
+    np.savez(path, **flat)
 
 
 def load_npz(path: str, device="cuda"):
@@ -242,3 +264,59 @@ def lpips(params, pred: torch.Tensor, gt: torch.Tensor, bf16: bool = True) -> to
         w = torch.clamp_min(head[:, 0], 0.0)[None, :, None, None]
         total = total + torch.mean(torch.sum(d * w, dim=1))
     return total
+
+
+def torch_conv_indices(trunk: str) -> list[int]:
+    """The conv layers' positions in torchvision's ``features`` (each conv
+    is followed by a ReLU, each "M" or pool_before is a pool): VGG16 0, 2,
+    5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28; AlexNet 0, 3, 6, 8, 10."""
+    idx, out = 0, []
+    if trunk == "vgg":
+        for c in _VGG_CFG:
+            if c == "M":
+                idx += 1
+            else:
+                out.append(idx)
+                idx += 2
+    else:
+        for *_, pool_before in _ALEX_CONVS:
+            idx += int(pool_before)
+            out.append(idx)
+            idx += 2
+    return out
+
+
+def load_torch_heads(path: str) -> list[np.ndarray]:
+    """LPIPS's linear heads from its checkpoint (keys
+    ``lin{i}.model.1.weight``, shape (1, C, 1, 1)): five (C,) float32
+    arrays, clamped at >= 0 as LPIPS clamps them at use."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    return [np.maximum(sd[f"lin{i}.model.1.weight"].float().numpy().reshape(-1), np.float32(0.0))
+            for i in range(5)]
+
+
+def _load_torch_trunk(trunk: str, path: str, heads_path, channels, device):
+    """The convs of a torchvision state dict at ``torch_conv_indices(trunk)``
+    (weights stay OIHW; every other key, such as ``classifier.*``, is
+    ignored), with LPIPS heads from ``heads_path`` or uniform 1/C heads."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    convs = [{"w": sd[f"features.{i}.weight"].float().to(device), "b": sd[f"features.{i}.bias"].float().to(device)}
+             for i in torch_conv_indices(trunk)]
+    heads = load_torch_heads(heads_path) if heads_path is not None else None
+    return {"convs": convs, "heads": _heads(heads, channels, device)}, heads_path is not None
+
+
+def load_torch_vgg16(path: str, heads_path: str | None = None, device="cuda"):
+    """LPIPS params from torchvision's VGG16 state dict (``vgg16-*.pth``)
+    and, optionally, LPIPS's VGG heads (``vgg.pth``).  Returns (params,
+    calibrated): calibrated when the heads were given."""
+    return _load_torch_trunk("vgg", path, heads_path, _TAP_CHANNELS, device)
+
+
+def load_torch_alexnet(path: str, heads_path: str | None = None, device="cuda"):
+    """LPIPS params from torchvision's AlexNet state dict
+    (``alexnet-*.pth``) and, optionally, LPIPS's AlexNet heads
+    (``alex.pth``); the ``"alex"`` key marks the trunk.  Returns (params,
+    calibrated)."""
+    params, calibrated = _load_torch_trunk("alex", path, heads_path, _ALEX_TAP_CHANNELS, device)
+    return {"alex": (), **params}, calibrated
