@@ -65,7 +65,12 @@ Phases, each fatal on failure:
         (torch.profiler), and each kernel's work and bound; then the
         captured step under torch's deterministic algorithms (captured under
         them), under them without their fill of new memory, and the default
-        one, 20 steps each in turns, with their device ms (CUDA events).
+        one, 20 steps each in turns, with their device ms (CUDA events);
+        then phases 2-4d again in 3 child processes, one after another,
+        each profiling those three programs at its end (torch.profiler),
+        each required to exit with 0 (the profiler crashed such replays
+        while it kept CUPTI set up between its sessions; ``programs.py``
+        has it torn down).
   5. the drivers, in-process (``cli.train.main``, ``cli.evaluate.main``),
      each run with every launch count set to 0 just before and read just
      after:
@@ -90,7 +95,15 @@ Phases, each fatal on failure:
         step 2 on, every train kernel once per step, and the train program
         captured once in each phase (a new program at the subdivision); a
         second trainer on the card from the same init bit-equal to the
-        first after every step, across the subdivision.
+        first after every step, across the subdivision;
+     e. the gate scene's free trajectories from one init, 40 steps
+        subdividing at step 20, LPIPS in float32 on both devices: the card's
+        train program, a CPU trainer, and a CPU witness whose float params
+        are moved one float32 up before every step; each step's three total
+        losses and their differences from the CPU's; at the end of each
+        phase the card's change of the params over the phase parts from the
+        CPU's (relative L2 over all leaves) by at most 2x the witness's,
+        which must part.
   6. pose refinement and animation, each run with every launch count set
      to 0 just before and read just after:
      a. the gate scene's pose loss (``cli.train_pose.frame_loss``: rgb and
@@ -208,7 +221,11 @@ Phases, each fatal on failure:
         gradient in float32 and bfloat16 on each device against the float64
         gradient on the CPU, the card's no farther from it than the CPU's
         plus 5 % of its norm (the card against the CPU, and the card at the
-        input moved by one ulp, printed beside);
+        input moved by one ulp, printed beside), on the whole frame and on
+        the subject's crop (the mask's bounding box padded by 8 pixels, in
+        blocks of 16) of the same render over a seeded textured background,
+        where the card's float32 gradient must also lie within 5 % of its
+        norm of the CPU's;
      c. with GOMAVATAR_LPIPS_DIR (``WEIGHTS_DIR``) at the converted files,
         from the trained avatar's checkpoint: ``cli.evaluate --type train``
         (VGG) and ``--type view`` (AlexNet) report ``lpips``, not
@@ -243,6 +260,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -329,6 +347,8 @@ REPLAY_B3_OPS, REPLAY_B3_SFU, REPLAY_B5_HARD, REPLAY_B5_SOFT, REPLAY_B5_SFU = 10
 # steps after 3 warm-up steps
 FORWARD_ITERS, KERNEL_ITERS, PLAIN_ITERS = 100, 50, 5
 TRAIN_STEPS, TRAIN_WARMUP, TRAIN_ITERS = 5, 3, 20
+# 4d: the child processes that profile the deterministic-mode step
+DET_PROFILE_CHILDREN = 3
 # the calls of a torch.profiler window (device time and busy share): the
 # profiler's post-processing of an eager path's thousands of launches per
 # call grows with the window
@@ -1529,16 +1549,16 @@ def transpose_costs(trainer, eager, batch) -> dict:
             "table_bytes": tables, "table_shapes": widths}
 
 
-def deterministic_cost(params, statics, cfg, i_iter, trainer, batch) -> dict:
+def deterministic_cost(params, statics, cfg, i_iter, trainer, batch, profiled: bool = False) -> dict:
     """The captured step under torch's deterministic algorithms (a program
     of its own, captured under them: its replays run their kernels), and
     under them without their fill of new memory
     (``torch.utils.deterministic.fill_uninitialized_memory``), against the
     trainer's captured step: TRAIN_ITERS synchronised steps of each in
     turns after TRAIN_WARMUP, then each one's device ms by CUDA events
-    around TRAIN_ITERS back-to-back replays (torch.profiler is left out
-    here: replaying under it after these captures crashed the process in
-    two runs)."""
+    around TRAIN_ITERS back-to-back replays; with ``profiled``, then each
+    one's device ms by torch.profiler too (the replays after which the
+    profiler crashed a process: :func:`deterministic_profile_child`)."""
     import torch.utils.deterministic as det_flags
 
     ways = {"default": lambda i: trainer.step(batch)}
@@ -1563,12 +1583,87 @@ def deterministic_cost(params, statics, cfg, i_iter, trainer, batch) -> dict:
     out["ratio_no_fill"] = out["deterministic, no fill"]["median_ms"] / out["default"]["median_ms"]
     print(f"  the step under deterministic algorithms: {out['ratio']:.3f}x the default's median, "
           f"{out['ratio_no_fill']:.3f}x without the fill of new memory")
+    if profiled:
+        out["profiled_ms"] = {k: profiled_ms(lambda: fn(0)) for k, fn in ways.items()}
     return out
 
 
-def phase_train_path(trained, card):
+def deterministic_profile_child() -> None:
+    """One child process of :func:`deterministic_profiles` (``python3 -c
+    "import chip_smoke; chip_smoke.deterministic_profile_child()"`` from the
+    checkout): this script's phases 2-4d, whose profiler sessions and
+    captures are the history after which torch.profiler crashed a replay
+    of 4d's programs (``programs.py``'s docstring), then those programs
+    profiled (:func:`deterministic_cost` with ``profiled``).  Its last line
+    is their device ms as JSON."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    card = card_line()
+    trained, _ = phase_kernels_b1(card)
+    phase_eval_path(trained, card)
+    phase_train_kernels(trained)
+    _, timings = phase_train_path(trained, card, child=True)
+    print(json.dumps(timings["deterministic"]["profiled_ms"]))
+
+
+def child_runs(env: dict, count: int) -> list:
+    """``count`` :func:`deterministic_profile_child` processes run together,
+    with ``env`` as their environment: [(exit code, stdout, stderr)]."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs = [subprocess.Popen([sys.executable, "-c", "import chip_smoke; chip_smoke.deterministic_profile_child()"],
+                              cwd=here, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for _ in range(count)]
+    outs = [p.communicate(timeout=900) for p in procs]
+    return [(p.returncode, out, err) for p, (out, err) in zip(procs, outs)]
+
+
+def deterministic_profiles() -> dict:
+    """4d's device ms of the captured step under deterministic algorithms
+    (and without their fill, and the default) by torch.profiler, from
+    DET_PROFILE_CHILDREN child processes run one after another, each alone
+    on the card (:func:`deterministic_profile_child`): every child must
+    exit with 0, so a crash under the profiler fails the smoke.  Returns
+    {"exit_codes", "device_ms": {way: per child}}."""
+    runs = [child_runs(dict(os.environ), 1)[0] for _ in range(DET_PROFILE_CHILDREN)]
+    rcs = [rc for rc, _, _ in runs]
+    print(f"  phases 2-4d again in {len(runs)} child processes, then 4d's three programs profiled: exit codes {rcs}")
+    for rc, out, err in runs:
+        if rc != 0:
+            print("    " + "\n    ".join((out + err).splitlines()[-30:]))
+    require(all(rc == 0 for rc in rcs), f"4d: a child profiling the captured steps exited with {rcs} (a crash under "
+                                        f"torch.profiler: programs.py)")
+    ms = [json.loads([line for line in out.splitlines() if line.startswith("{")][-1]) for _, out, _ in runs]
+    device = {k: [m[k] for m in ms] for k in ms[0]}
+    for k, v in device.items():
+        print(f"  captured step, {k} algorithms: device " + ", ".join(f"{x:.3f}" for x in v)
+              + f" ms (torch.profiler, {PROFILE_WINDOW} steps, one child each)")
+    return {"exit_codes": rcs, "device_ms": device}
+
+
+def profiler_crash_rates() -> dict:
+    """How often :func:`deterministic_profile_child` crashes with
+    ``TEARDOWN_CUPTI`` as ``programs.py`` sets it (None: not in the child's
+    environment) and at 0 (CUPTI kept set up between profiler sessions):
+    10 children of each, DET_PROFILE_CHILDREN at a time.  On the card:
+    ``python3 -c "import chip_smoke; chip_smoke.profiler_crash_rates()"``."""
+    rates, n = {}, 10
+    for value in (None, "0"):
+        env = {k: v for k, v in os.environ.items() if k != "TEARDOWN_CUPTI"}
+        if value is not None:
+            env["TEARDOWN_CUPTI"] = value
+        rcs = []
+        while len(rcs) < n:
+            rcs += [rc for rc, _, _ in child_runs(env, min(DET_PROFILE_CHILDREN, n - len(rcs)))]
+        rates[str(value)] = {"exit_codes": rcs, "crashes": sum(rc != 0 for rc in rcs)}
+        print(f"TEARDOWN_CUPTI={value}: {rates[str(value)]['crashes']} of {n} children crashed, exit codes {rcs}")
+    print(json.dumps(rates))
+    return rates
+
+
+def phase_train_path(trained, card, child: bool = False):
     """Phases 4b-4d: the gate step card vs CPU, the main path with its
-    launch counts, the train-step timings.  Returns (launches, timings)."""
+    launch counts, the train-step timings.  Returns (launches, timings).
+    In a :func:`deterministic_profile_child` (``child``) 4d profiles its
+    deterministic programs in that process."""
     from gomavatar_tpu_torch.convert import trained_meta
     from gomavatar_tpu_torch.optim import tree_leaves
     from gomavatar_tpu_torch.trainer import make_train_step
@@ -1661,7 +1756,9 @@ def phase_train_path(trained, card):
         "captured": lambda: trainer.step(batches[0]),
     }, TRAIN_ITERS, "step", card)
     cap = timed["captured"]
-    det = deterministic_cost(params, statics, cfg, i_iter, trainer, batches[0])
+    det = deterministic_cost(params, statics, cfg, i_iter, trainer, batches[0], profiled=child)
+    if not child:
+        det["profiled"] = deterministic_profiles()
     return launches, dict(timed, median_ms=cap["median_ms"], p90_ms=cap["p90_ms"],
                           steps_per_s=1e3 / cap["median_ms"], steps=TRAIN_ITERS, pool_mib=pool_mib,
                           bit_equal_default=True, probe_default_algorithms=probe, nondeterministic_ops=unlisted,
@@ -1678,6 +1775,16 @@ def phase_train_path(trained, card):
 DRIVER_IMG, DRIVER_FRAMES, DRIVER_TEST_FRAMES, RESUME_STEPS = 512, 6, 2, 3
 # the gate-scene phase change: PHASE_STEPS steps, subdividing at PHASE_AT
 PHASE_STEPS, PHASE_AT = 4, 2
+# 5e: the gate scene's free trajectories over TRAJ_STEPS steps, subdividing
+# at TRAJ_SPLIT, LPIPS in float32 on both devices: the card's change of the
+# params over each phase parts from the CPU's by at most TRAJ_K times what a
+# CPU witness's does, whose float params are moved one float32 up before
+# every step (rounding alone; the witness must part).  K was fixed on the
+# CPU before any card run, from a second witness moved one float32 down:
+# the two witnesses' partings differed by a ratio of 1.018 and 1.043 at the
+# two phase ends, not above 2, so K stays at 2, the multiple of
+# tests/test_torch_e2e_parity.py
+TRAJ_STEPS, TRAJ_SPLIT, TRAJ_K = 40, 20, 2.0
 # the steady driver loop: LOOP_WINDOWS logged windows of LOOP_LOG steps after
 # a first window that the resume point cuts short; no eval, no save, no sync
 # but the log line's
@@ -1920,6 +2027,32 @@ def copy_train_state(src, dst):
     dst.i_iter = src.i_iter
 
 
+def gate_phase_trainer(device, split: int):
+    """A fresh gate-scene Trainer from seed 0 (its per-face so3, scale and
+    colors from numpy seed 0) with the trained avatar's train config,
+    subdividing at iteration ``split``."""
+    from gomavatar_tpu_torch.models.lpips import load_lpips
+    from gomavatar_tpu_torch.models.smpl import synthetic_body
+    from gomavatar_tpu_torch.scene import gate_model_cfg, trained_train_cfg
+    from gomavatar_tpu_torch.trainer import Trainer
+
+    info = synthetic_body(n_rings=16, n_seg=18)
+    cfg = {"model": dict(gate_model_cfg(), subdivide_iters=[split]), "train": trained_train_cfg()["train"]}
+    tr = Trainer(cfg, info, lpips_params=load_lpips(device=device, quiet=True)[0], device=device, seed=0)
+    randomize_faces(tr.params, tr.gom_cfg.num_faces, device)
+    return tr
+
+
+def gate_phase_batch(trainer):
+    """5d's batch: the gate frame, its targets the trainer's render of a
+    perturbed view (:func:`train_batch`)."""
+    from gomavatar_tpu_torch.models.smpl import synthetic_body
+    from gomavatar_tpu_torch.scene import gate_frame
+
+    frame = gate_frame(synthetic_body(n_rings=16, n_seg=18), device=trainer.device)
+    return train_batch(trainer.params, trainer.statics, trainer.gom_cfg, frame, perturbed_frames(frame)[1])
+
+
 def phase_change_on_card(device="cuda"):
     """Phase 5d: a fresh gate-scene Trainer (its per-face so3, scale and
     colors from numpy seed 0) with subdivide_iters [PHASE_AT], PHASE_STEPS
@@ -1930,27 +2063,17 @@ def phase_change_on_card(device="cuda"):
     gradient is read from Adam's first moments, which both sides update
     from the same moments: mu' = 0.9 mu + 0.1 g.  Each step starts from the
     card's state because the free-running four-step trajectories parted
-    past rtol 1e-3 in one run (step 3's rgb loss, after the subdivision).
+    past rtol 1e-3 in one run (step 3's rgb loss, after the subdivision),
+    as rounding alone parts them (5e holds the free trajectories to a
+    rounding witness).
     A second card trainer from the same init runs the same steps free, under
     torch's default algorithms: its params and Adam moments bit-equal to the
     first's after every step, across the subdivision."""
-    from gomavatar_tpu_torch.models.lpips import load_lpips
-    from gomavatar_tpu_torch.models.smpl import synthetic_body
     from gomavatar_tpu_torch.optim import B1
-    from gomavatar_tpu_torch.scene import gate_frame, gate_model_cfg, trained_train_cfg
-    from gomavatar_tpu_torch.trainer import Trainer
 
-    info = synthetic_body(n_rings=16, n_seg=18)
-    cfg = {"model": dict(gate_model_cfg(), subdivide_iters=[PHASE_AT]), "train": trained_train_cfg()["train"]}
-    def fresh(dev):
-        tr = Trainer(cfg, info, lpips_params=load_lpips(device=dev, quiet=True)[0], device=dev, seed=0)
-        randomize_faces(tr.params, tr.gom_cfg.num_faces, dev)
-        return tr
-
-    card, host, again = fresh(device), fresh("cpu"), fresh(device)
+    card, host, again = (gate_phase_trainer(d, PHASE_AT) for d in (device, "cpu", device))
     faces0 = card.gom_cfg.num_faces
-    frame = gate_frame(info, device=device)
-    batch = train_batch(card.params, card.statics, card.gom_cfg, frame, perturbed_frames(frame)[1])
+    batch = gate_phase_batch(card)
     host_batch = {k: v.to("cpu") for k, v in batch.items()}
 
     def losses_of(total, losses):
@@ -2007,6 +2130,121 @@ def phase_change_on_card(device="cuda"):
             "programs": len(programs), "twice_values_differing": differing}
 
 
+@contextlib.contextmanager
+def float32_lpips():
+    """The train loss's LPIPS term in float32 while the context lasts (a
+    one-ulp witness says nothing of bfloat16 convolutions, which cuDNN and
+    the CPU round differently); a program captured inside keeps it."""
+    from gomavatar_tpu_torch import losses
+    from gomavatar_tpu_torch.models.lpips import lpips
+
+    saved = losses.lpips_fn
+    losses.lpips_fn = lambda params, pred, gt: lpips(params, pred, gt, bf16=False)
+    try:
+        yield
+    finally:
+        losses.lpips_fn = saved
+
+
+def nudge_params(trainer, toward: float) -> None:
+    """Every float param leaf of ``trainer`` moved in place to its next
+    float32 toward ``toward`` (+inf or -inf)."""
+    from gomavatar_tpu_torch.optim import tree_leaves
+
+    with torch.no_grad():
+        for p in tree_leaves(trainer.params):
+            if p.is_floating_point():
+                p.copy_(torch.nextafter(p, torch.full_like(p, toward)))
+
+
+def parting(a: list, b: list) -> float:
+    """The relative L2 difference of two lists of leaves over all of them,
+    ``b`` the reference, in float64."""
+    num = sum(float(((x.double() - y.double()) ** 2).sum()) for x, y in zip(a, b))
+    den = sum(float((y.double() ** 2).sum()) for y in b)
+    return (num / max(den, 1e-300)) ** 0.5
+
+
+def phase_trajectory(devices=("cuda", "cpu"), steps: int = TRAJ_STEPS, split: int = TRAJ_SPLIT,
+                     witnesses=(("witness", math.inf),)) -> dict:
+    """Phase 5e: gate-scene trainers from one init (:func:`gate_phase_trainer`)
+    run free for ``steps`` steps, subdividing at ``split``, with LPIPS in
+    float32: "card" on ``devices[0]`` (its train program captured under
+    float32 LPIPS), "cpu" on ``devices[1]``, and each witness ``(name,
+    toward)`` on ``devices[1]`` with its float params moved one float32
+    toward ``toward`` before every step.  Each step prints the runs' total
+    losses and their relative differences from the CPU's, and how far each
+    run's change of the params since its phase began parts from the CPU's.
+    At each phase end (phase 0: from init to just before the split; phase 1:
+    from one step after it to the end, as tests/test_torch_e2e_parity.py
+    measures a phase) the card's parting of the change over all leaves is at
+    most TRAJ_K times the first witness's, which must be > 0."""
+    from gomavatar_tpu_torch.optim import tree_leaves
+
+    card_dev, host_dev = devices
+    with float32_lpips():
+        runs = {"card": gate_phase_trainer(card_dev, split), "cpu": gate_phase_trainer(host_dev, split)}
+        for name, _ in witnesses:
+            runs[name] = gate_phase_trainer(host_dev, split)
+        batch = gate_phase_batch(runs["card"])
+        batches = {name: {key: v.to(tr.device) for key, v in batch.items()} for name, tr in runs.items()}
+        faces0 = runs["card"].gom_cfg.num_faces
+
+        def snap():
+            return {name: [p.detach().to("cpu", copy=True) for p in tree_leaves(tr.params)]
+                    for name, tr in runs.items()}
+
+        bounds, losses, per_step = [snap()], {name: [] for name in runs}, []
+        start = bounds[0]
+        for i in range(steps):
+            if i == split:
+                bounds.append(snap())
+            for name, toward in witnesses:
+                nudge_params(runs[name], toward)
+            for name, tr in runs.items():
+                total, _ = tr.step(batches[name])
+                losses[name].append(float(total))
+            now = snap()
+            if i == split:
+                bounds.append(now)
+                start = now
+                require(all(tr.gom_cfg.num_faces == 4 * faces0 for tr in runs.values()),
+                        f"5e: the runs did not subdivide to {4 * faces0} faces at step {split}")
+            ref = [b - a for a, b in zip(start["cpu"], now["cpu"])]
+            params = {name: parting([b - a for a, b in zip(start[name], now[name])], ref)
+                      for name in runs if name != "cpu"} if i != split else {}
+            per_step.append(params)
+            lc = losses["cpu"][-1]
+            print(f"  step {i}: total " + ", ".join(f"{name} {v[-1]:.7g}" for name, v in losses.items())
+                  + "; relative to the CPU's " + ", ".join(f"{name} {abs(v[-1] - lc) / abs(lc):.3g}"
+                                                           for name, v in losses.items() if name != "cpu")
+                  + ("; the params' change since the phase began parts from the CPU's by " + ", ".join(
+                      f"{name} {v:.4g}" for name, v in params.items()) if params else "; the split step"))
+        bounds.append(snap())
+    out = {"steps": steps, "split": split, "k": TRAJ_K, "losses": losses, "param_parting_per_step": per_step,
+           "phases": []}
+    for phase, (a, b) in enumerate(((bounds[0], bounds[1]), (bounds[2], bounds[3]))):
+        change = {name: [y - x for x, y in zip(a[name], b[name])] for name in runs}
+        ref = change["cpu"]
+        require(max(float(d.abs().max()) for d in ref) > 0, f"5e: the CPU's params did not move in phase {phase}")
+        part = {name: parting(change[name], ref) for name in runs if name != "cpu"}
+        # a leaf that does not move on the CPU (a module not yet kicked in) has no parting: None
+        leaves = {name: [parting([x], [y]) if float(y.abs().max()) > 0 else None for x, y in zip(change[name], ref)]
+                  for name in part}
+        print(f"  phase {phase} ({'init to the split' if phase == 0 else 'one step after the split to the end'}): "
+              f"the change of the params parts from the CPU's by " + ", ".join(f"{n} {v:.4g}" for n, v in part.items())
+              + f" (relative L2 over all {len(ref)} leaves; limit: the card at most {TRAJ_K:g}x the witness's)")
+        for name, v in leaves.items():
+            print(f"    per leaf, {name}: " + " ".join("-" if r is None else f"{r:.3g}" for r in v))
+        witness = part[witnesses[0][0]]
+        require(witness > 0, f"5e: phase {phase}: the witness did not part from the CPU's run")
+        require(part["card"] <= TRAJ_K * witness,
+                f"5e: phase {phase}: the card's change of the params parts from the CPU's by {part['card']:.4g}, more "
+                f"than {TRAJ_K:g}x the witness's {witness:.4g}")
+        out["phases"].append({"parting": part, "per_leaf": leaves})
+    return out
+
+
 def phase_drivers(device="cuda"):
     """Phase 5: the drivers on the card (``device`` other than cuda: a
     rehearsal of the phase's code, whose launch checks then fail)."""
@@ -2033,6 +2271,11 @@ def phase_drivers(device="cuda"):
           f"steps on the card, each also on the CPU from the card's state")
     out["phase_change"] = phase_change_on_card(device)
     print(f"  phase 5d: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    print(f"[5e] the gate scene's free trajectories from one init, {TRAJ_STEPS} steps subdividing at {TRAJ_SPLIT}, "
+          f"float32 LPIPS: the card, the CPU, and a CPU witness moved one float32 up before every step")
+    out["trajectory"] = phase_trajectory((device, "cpu"))
+    print(f"  phase 5e: {time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -3339,6 +3582,13 @@ def phase_seeded_draws(device="cuda"):
 # no farther from it than the CPU's plus STEP_GRAD_REL of its norm, in
 # float32 and in bfloat16
 LPIPS_F32_RTOL, LPIPS_BF16_RTOL, CAL_NOISE = 1e-4, 1e-2, 0.05
+# 10b's crop: the subject's bounding box (the pixels the render's mask
+# covers) padded by CROP_PAD pixels and rounded outward to multiples of
+# CROP_MULTIPLE (VGG's four 2x2 pools), inside the frame.  There the float32
+# input gradient is well-conditioned (on the CPU a one-ulp change of the
+# input moves it by less than 1 % of its norm), so the card's is held to
+# the CPU's within STEP_GRAD_REL of its norm
+CROP_PAD, CROP_MULTIPLE = 8, 16
 # 10c: cli.train steps from the trained avatar's checkpoint; 10d: captured
 # steps against the eager step
 CAL_TRAIN_STEPS, CAL_STEPS = 3, 3
@@ -3375,6 +3625,21 @@ def write_torchvision_checkpoints(root: str, seed: int = 0) -> dict:
         torch.save(heads, paths[1])
         out[trunk] = (*paths, sd, heads)
     return out
+
+
+def converted_trunks(root: str = CAL_DIR) -> tuple:
+    """Phase 10a's files: :func:`write_torchvision_checkpoints` under
+    ``root``/pth, converted by ``tools/calibrate_lpips.main`` into
+    ``root``/weights.  Returns (the checkpoints, the converted files' dir)."""
+    from gomavatar_tpu_torch.tools import calibrate_lpips
+
+    ckpts = write_torchvision_checkpoints(f"{root}/pth")
+    cal_dir = f"{root}/weights"
+    v, a = ckpts["vgg"], ckpts["alex"]
+    wrote = calibrate_lpips.main(["--vgg16", v[0], "--vgg_heads", v[1], "--alexnet", a[0], "--alex_heads", a[1],
+                                  "--out_dir", cal_dir])
+    require([cal for _, cal in wrote] == [True, True], "10a: the converter did not write two calibrated trunks")
+    return ckpts, cal_dir
 
 
 def converted_equal(params, trunk: str, sd: dict, heads: dict) -> bool:
@@ -3421,15 +3686,18 @@ def vgg_lpips_f64(params, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return total
 
 
-def lpips_grads(p: dict, pred: np.ndarray, gt: np.ndarray, background: np.ndarray) -> dict:
+def lpips_grads(p: dict, pred: np.ndarray, gt: np.ndarray, background: np.ndarray,
+                devices=("cuda", "cpu")) -> dict:
     """10b's gradient: the VGG loss's input gradient on the card and on the
-    CPU in float32 and bfloat16, each against the float64 gradient on the
-    CPU (the card's distance from it at most the CPU's plus STEP_GRAD_REL of
-    its norm), with the card against the CPU, the share of that difference
-    on the (H, W) ``background`` pixels, and the card's gradient at the
-    input moved by one ulp (how far rounding alone moves it) printed
-    beside."""
+    CPU (``devices``; ``p`` holds each one's params by name) in float32 and
+    bfloat16, each against the float64 gradient on the CPU (the card's
+    distance from it at most the CPU's plus STEP_GRAD_REL of its norm),
+    with the card against the CPU, the share of that difference on the
+    (H, W) ``background`` pixels, and the card's gradient at the input moved
+    by one ulp (how far rounding alone moves it) printed beside."""
     from gomavatar_tpu_torch.models.lpips import lpips
+
+    card, host = devices
 
     def grad(fn, x):
         x = x.requires_grad_(True)
@@ -3440,63 +3708,124 @@ def lpips_grads(p: dict, pred: np.ndarray, gt: np.ndarray, background: np.ndarra
         return float(torch.linalg.norm(a - b) / torch.clamp_min(torch.linalg.norm(b), 1e-30))
 
     nudged = np.nextafter(pred, np.float32(2.0)).astype(np.float32)
-    exact = grad(lambda x: vgg_lpips_f64(p["cpu"], x, torch.as_tensor(gt, dtype=torch.float64)),
+    exact = grad(lambda x: vgg_lpips_f64(p[host], x, torch.as_tensor(gt, dtype=torch.float64)),
                  torch.as_tensor(pred, dtype=torch.float64))
     out = {}
     for bf16 in (False, True):
         g = {}
-        for dev, x in (("cuda", pred), ("cpu", pred), ("cuda nudged", nudged)):
-            d = dev.split()[0]
-            g[dev] = grad(lambda v: lpips(p[d], v, torch.as_tensor(gt, device=d), bf16=bf16),
+        for key, d, x in (("card", card, pred), ("cpu", host, pred), ("card nudged", card, nudged)):
+            g[key] = grad(lambda v: lpips(p[d], v, torch.as_tensor(gt, device=d), bf16=bf16),
                           torch.as_tensor(x, device=d))
-        d2 = ((g["cuda"] - g["cpu"]) ** 2).sum(-1).numpy()
-        r = {"card_exact": rel(g["cuda"], exact), "cpu_exact": rel(g["cpu"], exact),
-             "card_cpu": rel(g["cuda"], g["cpu"]),
+        d2 = ((g["card"] - g["cpu"]) ** 2).sum(-1).numpy()
+        r = {"card_exact": rel(g["card"], exact), "cpu_exact": rel(g["cpu"], exact),
+             "card_cpu": rel(g["card"], g["cpu"]),
              "card_cpu_background": float(d2[background].sum() / max(float(d2.sum()), 1e-30)),
-             "card_nudged": rel(g["cuda nudged"], g["cuda"])}
+             "card_nudged": rel(g["card nudged"], g["card"])}
         name = "bf16" if bf16 else "f32"
         print(f"  the VGG loss's {name} input gradient against the float64 one: card {r['card_exact']:.4g}, CPU "
               f"{r['cpu_exact']:.4g} of its norm (limit: the CPU's + {STEP_GRAD_REL:g}); card against CPU "
               f"{r['card_cpu']:.4g} ({r['card_cpu_background']:.3f} of it, squared, on the background's "
               f"{background.mean():.3f} of the pixels), the card's at the input moved by one ulp "
               f"{r['card_nudged']:.4g}")
-        require(bool(torch.isfinite(g["cuda"]).all()) and float(exact.abs().max()) > 0
+        require(bool(torch.isfinite(g["card"]).all()) and float(exact.abs().max()) > 0
                 and r["card_exact"] <= r["cpu_exact"] + STEP_GRAD_REL,
                 f"10b: the card's {name} VGG LPIPS gradient is farther from the float64 gradient than the CPU's")
         out[name] = r
     return out
 
 
-def lpips_card_vs_cpu(trained, cal_dir: str) -> dict:
-    """Phase 10b: both converted trunks' LPIPS on the card against the CPU,
-    float32 and bfloat16, between the trained avatar's 512^2 render of its
-    packed frame and a perturbed copy; the VGG loss's input gradient
-    (:func:`lpips_grads`)."""
+def subject_box(mask: np.ndarray) -> tuple:
+    """(y0, y1, x0, x1): the rows and columns of the pixels where the (H, W)
+    ``mask`` is nonzero, padded by CROP_PAD pixels and rounded outward to
+    multiples of CROP_MULTIPLE, clipped to the frame (whose sides are
+    multiples of CROP_MULTIPLE)."""
+    H, W, m = *mask.shape, CROP_MULTIPLE
+    require(H % m == 0 and W % m == 0, f"10b: a {H} x {W} frame is not in blocks of {m}")
+    ys, xs = np.nonzero(mask)
+    require(len(ys) > 0, "10b: the mask is empty")
+
+    def side(lo, hi, n):
+        return max(0, (lo - CROP_PAD) // m * m), min(n, -(-(hi + 1 + CROP_PAD) // m) * m)
+
+    return (*side(int(ys.min()), int(ys.max()), H), *side(int(xs.min()), int(xs.max()), W))
+
+
+def textured_background(h: int, w: int) -> np.ndarray:
+    """A smooth, textured (h, w, 3) background with no flat region: values
+    drawn from numpy seed 0 on grids every 32 pixels (uniform in [0.2,
+    0.8]) and every 8 pixels (uniform in [-0.1, 0.1]), each bilinearly
+    upsampled, summed."""
+    import torch.nn.functional as F
+
+    rng = np.random.default_rng(0)
+    out = np.zeros((h, w, 3))
+    for step, lo, hi in ((32, 0.2, 0.8), (8, -0.1, 0.1)):
+        grid = torch.as_tensor(rng.uniform(lo, hi, (1, 3, h // step + 1, w // step + 1)))
+        out += F.interpolate(grid, size=(h, w), mode="bilinear", align_corners=True)[0].permute(1, 2, 0).numpy()
+    return out.astype(np.float32)
+
+
+def crop_grads(p: dict, pred: np.ndarray, gt: np.ndarray, mask: np.ndarray, devices=("cuda", "cpu")) -> dict:
+    """10b on the subject's crop (:func:`subject_box` of the (H, W)
+    ``mask``) of ``pred`` and ``gt``: :func:`lpips_grads` there, and the
+    float32 gradient of the card within STEP_GRAD_REL of its norm of the
+    CPU's.  The crop's input must be well-conditioned: 10b composites the
+    subject over :func:`textured_background` (on the black one, half of the
+    crop is flat)."""
+    y0, y1, x0, x1 = subject_box(mask)
+    crop = lambda a: np.ascontiguousarray(a[y0:y1, x0:x1])  # noqa: E731
+    background = crop(mask) == 0
+    print(f"  the subject's crop: rows {y0}:{y1}, columns {x0}:{x1} ({y1 - y0} x {x1 - x0} of {mask.shape[0]} x "
+          f"{mask.shape[1]}; {background.mean():.3f} of it background)")
+    out = lpips_grads(p, crop(pred), crop(gt), background, devices)
+    r, b = out["f32"], out["bf16"]
+    print(f"  on the crop, the f32 input gradient card against CPU: {r['card_cpu']:.4g} of its norm (limit "
+          f"{STEP_GRAD_REL:g}); the bf16 one {b['card_cpu']:.4g}; the card's f32 one at the input moved by one ulp "
+          f"{r['card_nudged']:.4g}")
+    require(r["card_cpu"] <= STEP_GRAD_REL,
+            f"10b: on the crop the card's f32 VGG LPIPS gradient is {r['card_cpu']:.4g} of its norm from the CPU's")
+    return dict(out, box=[y0, y1, x0, x1])
+
+
+def lpips_card_vs_cpu(trained, cal_dir: str, devices=("cuda", "cpu")) -> dict:
+    """Phase 10b: both converted trunks' LPIPS on the card against the CPU
+    (``devices``), float32 and bfloat16, between the trained avatar's 512^2
+    render of its packed frame and a perturbed copy; the VGG loss's input
+    gradient on the whole frame (:func:`lpips_grads`) and on the subject's
+    crop (:func:`crop_grads`)."""
     from gomavatar_tpu_torch.losses import unpack
     from gomavatar_tpu_torch.models.lpips import load_lpips, lpips
 
+    card, host = devices
     params, statics, cfg, frame = trained
     with torch.no_grad():
-        rgb, mask, _ = forward(params, statics, cfg, frame)
-    img = unpack(rgb, mask, torch.zeros(3, device="cuda"), clamp=True).cpu().numpy()
-    noisy = np.clip(img + np.random.default_rng(0).normal(0.0, CAL_NOISE, img.shape), 0.0, 1.0)
-    pred, gt = (np.asarray(2.0 * x - 1.0, np.float32) for x in (img, noisy))
+        rgb, mask, _ = forward(params, statics, cfg, frame, device=card)
+    img = unpack(rgb, mask, torch.zeros(3, device=card), clamp=True).cpu().numpy()
     require(img.shape == (*cfg.img_size, 3) and img.mean() > 0.01, "10b: the render is empty")
+    noise = np.random.default_rng(0).normal(0.0, CAL_NOISE, img.shape)
+    noisy = np.clip(img + noise, 0.0, 1.0)
+    pred, gt = (np.asarray(2.0 * x - 1.0, np.float32) for x in (img, noisy))
+    # the crop's input: the same render over a textured background
+    textured = unpack(rgb, mask, torch.zeros(3, device=card), clamp=False).cpu().numpy()
+    mask = mask.cpu().numpy().reshape(img.shape[:2])
+    textured = np.clip(textured + (1.0 - mask)[..., None] * textured_background(*mask.shape), 0.0, 1.0)
+    pred_t, gt_t = (np.asarray(2.0 * x - 1.0, np.float32) for x in (textured, np.clip(textured + noise, 0.0, 1.0)))
     out = {}
     for trunk in ("vgg", "alex"):
-        p = {dev: load_lpips(trunk, weights_dir=cal_dir, quiet=True, device=dev)[0] for dev in ("cuda", "cpu")}
+        p = {dev: load_lpips(trunk, weights_dir=cal_dir, quiet=True, device=dev)[0] for dev in dict.fromkeys(devices)}
         for bf16, rtol in ((False, LPIPS_F32_RTOL), (True, LPIPS_BF16_RTOL)):
             v = {dev: float(lpips(p[dev], torch.as_tensor(pred, device=dev), torch.as_tensor(gt, device=dev),
                                   bf16=bf16)) for dev in p}
-            rel = abs(v["cuda"] - v["cpu"]) / abs(v["cpu"])
+            rel = abs(v[card] - v[host]) / abs(v[host])
             name = f"{trunk} {'bf16' if bf16 else 'f32'}"
-            print(f"  LPIPS {name} at {img.shape[0]}^2: card {v['cuda']:.7g}, CPU {v['cpu']:.7g}, relative "
+            print(f"  LPIPS {name} at {img.shape[0]}^2: card {v[card]:.7g}, CPU {v[host]:.7g}, relative "
                   f"difference {rel:.3g} (limit {rtol:g})")
-            require(np.isfinite(v["cuda"]) and v["cpu"] > 0 and rel <= rtol,
+            require(np.isfinite(v[card]) and v[host] > 0 and rel <= rtol,
                     f"10b: LPIPS {name} differs between the card and the CPU by more than rtol {rtol:g}")
-            out[name] = {"card": v["cuda"], "cpu": v["cpu"], "rel": rel}
+            out[name] = {"card": v[card], "cpu": v[host], "rel": rel}
         if trunk == "vgg":
-            out["vgg grad"] = lpips_grads(p, pred, gt, mask.cpu().numpy().reshape(img.shape[:2]) == 0)
+            out["vgg grad"] = lpips_grads(p, pred, gt, mask == 0, devices)
+            out["vgg grad crop"] = crop_grads(p, pred_t, gt_t, mask, devices)
     return out
 
 
@@ -3665,18 +3994,12 @@ def phase_calibrated_lpips(trained, cfg_path: str, card: str) -> dict:
     checkpoints through the port's converter to the drivers and the
     captured train step."""
     from gomavatar_tpu_torch.models.lpips import load_lpips
-    from gomavatar_tpu_torch.tools import calibrate_lpips
 
     out = {}
     t0 = time.perf_counter()
     print("[10a] seeded VGG16 and AlexNet state dicts in torchvision's layout (nonzero biases, classifier keys) and "
           "LPIPS heads (some negative), converted by tools/calibrate_lpips")
-    ckpts = write_torchvision_checkpoints(f"{CAL_DIR}/pth")
-    cal_dir = f"{CAL_DIR}/weights"
-    v, a = ckpts["vgg"], ckpts["alex"]
-    wrote = calibrate_lpips.main(["--vgg16", v[0], "--vgg_heads", v[1], "--alexnet", a[0], "--alex_heads", a[1],
-                                  "--out_dir", cal_dir])
-    require([cal for _, cal in wrote] == [True, True], "10a: the converter did not write two calibrated trunks")
+    ckpts, cal_dir = converted_trunks()
     out["10a"] = {}
     for trunk, (_, _, sd, heads) in ckpts.items():
         params, calibrated, status = load_lpips(trunk, weights_dir=cal_dir, quiet=True, device="cuda")

@@ -16,6 +16,8 @@ PyTorch version instead.
 
 import torch
 
+__version__ = "0.1.0"  # the JAX package's, whose port this is
+
 # The reference runs its MLPs and geometry matmuls at precision="highest"
 # (gomavatar_tpu/nn.py, ops/transforms.py).  TF32 keeps ~3 decimal digits,
 # so float32 matmuls and convolutions here run in full float32.

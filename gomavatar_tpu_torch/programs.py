@@ -54,12 +54,25 @@ device work.  Its form follows from the group's backend when it is built:
   the collective runs on the host between their replays, on ``pre``'s
   static output, once per call;
 * CPU tensors: the same function eagerly over the program's buffers.
+
+torch.profiler and captured graphs: on an H100 with torch 2.11 and CUDA
+12.8, where the profiler keeps CUPTI set up between its sessions (the
+default), a profiled replay of a graph segfaulted in ``CUDAGraph.replay``
+in 6 to 9 of 10 processes once that process had run several profiler
+sessions and captured graphs after them; with CUPTI torn down at the end
+of each session (``TEARDOWN_CUPTI=1``) in none of 10.  This module sets
+that when it is imported, before any profiler session of a process that
+captures graphs, unless the process set it already.
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
+
+os.environ.setdefault("TEARDOWN_CUPTI", "1")
 
 WARMUP_CALLS = 3
 

@@ -62,6 +62,17 @@ def test_package_imports_without_jax():
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
 
 
+def test_version_is_the_jax_packages():
+    """The port's ``__version__`` is the JAX package's, read from that
+    package's source, so this file loads nothing of it."""
+    import gomavatar_tpu_torch
+
+    tree = ast.parse((ROOT / "gomavatar_tpu" / "__init__.py").read_text())
+    versions = [node.value.value for node in tree.body if isinstance(node, ast.Assign)
+                and any(getattr(t, "id", None) == "__version__" for t in node.targets)]
+    assert versions == [gomavatar_tpu_torch.__version__] == ["0.1.0"]
+
+
 def _tiny_b1_inputs(device):
     """One active tile (of 4 slots) holding one splat centred on pixel
     (7.5, 7.5) and no triangle."""
