@@ -31,6 +31,7 @@ from gomavatar_tpu_torch.ops.camera import (
     rotate_camera_by_frame_idx,
 )
 from gomavatar_tpu_torch.ops.skeleton import SMPL_PARENT
+from gomavatar_tpu_torch.utils.profiling import count, span
 
 
 # numpy versions of pose -> RTs (host side; the tensor versions live in ops.skeleton)
@@ -212,33 +213,36 @@ class TrainDataset(_ArtifactsMixin):
         return len(self.framelist)
 
     def _load_raw(self, frame_name):
-        img = _load_image(os.path.join(self.image_dir, frame_name + ".png"))
-        alpha = _load_image(os.path.join(self.dataset_path, "masks", frame_name + ".png"))
+        with span("data.read"):
+            img = _load_image(os.path.join(self.image_dir, frame_name + ".png"))
+            alpha = _load_image(os.path.join(self.dataset_path, "masks", frame_name + ".png"))
         if alpha.ndim == 2:
             alpha = alpha[..., None].repeat(3, axis=-1)
         cam = self.cameras[frame_name]
         if "distortions" in cam and cv2 is not None:
             K = cam["intrinsics"]
             D = cam["distortions"]
-            img = cv2.undistort(img, K, D)
-            alpha = cv2.undistort(alpha, K, D)
+            with span("data.undistort"):
+                img = cv2.undistort(img, K, D)
+                alpha = cv2.undistort(alpha, K, D)
         return img, alpha / 255.0, img.shape[1], img.shape[0]
 
     def _composite_resize(self, img, alpha, bgcolor):
-        img = alpha * img + (1.0 - alpha) * bgcolor[None, None, :]
-        if self.target_size is not None:
-            w, h = self.target_size
-            img = cv2.resize(img, (w, h), interpolation=cv2.INTER_LANCZOS4)
-            alpha = cv2.resize(alpha, (w, h), interpolation=cv2.INTER_LINEAR)
-        elif self.resize_img_scale != 1.0:
-            img = cv2.resize(
-                img, None, fx=self.resize_img_scale[0], fy=self.resize_img_scale[1],
-                interpolation=cv2.INTER_LANCZOS4,
-            )
-            alpha = cv2.resize(
-                alpha, None, fx=self.resize_img_scale[0], fy=self.resize_img_scale[1],
-                interpolation=cv2.INTER_LINEAR,
-            )
+        with span("data.composite_resize"):
+            img = alpha * img + (1.0 - alpha) * bgcolor[None, None, :]
+            if self.target_size is not None:
+                w, h = self.target_size
+                img = cv2.resize(img, (w, h), interpolation=cv2.INTER_LANCZOS4)
+                alpha = cv2.resize(alpha, (w, h), interpolation=cv2.INTER_LINEAR)
+            elif self.resize_img_scale != 1.0:
+                img = cv2.resize(
+                    img, None, fx=self.resize_img_scale[0], fy=self.resize_img_scale[1],
+                    interpolation=cv2.INTER_LANCZOS4,
+                )
+                alpha = cv2.resize(
+                    alpha, None, fx=self.resize_img_scale[0], fy=self.resize_img_scale[1],
+                    interpolation=cv2.INTER_LINEAR,
+                )
         return img, alpha
 
     def _random_crop(self, img, alpha, K, rng):
@@ -292,10 +296,11 @@ class TrainDataset(_ArtifactsMixin):
                     int(orig_H * self.resize_img_scale[1]),
                     int(orig_W * self.resize_img_scale[0]),
                 )
-            img, alpha = self._native.load_frame(
-                img_path, mask_path, cam["intrinsics"][:3, :3],
-                cam.get("distortions"), bgcolor, out_hw,
-            )
+            with span("data.native_load"):
+                img, alpha = self._native.load_frame(
+                    img_path, mask_path, cam["intrinsics"][:3, :3],
+                    cam.get("distortions"), bgcolor, out_hw,
+                )
             alpha = alpha[..., None].repeat(3, -1)
         else:
             img, alpha, orig_W, orig_H = self._cache.get(frame_name) or self._load_raw(frame_name)
@@ -604,11 +609,12 @@ def to_device(batch: dict, device="cuda") -> dict:
     for it."""
     device = torch.device(device)
     out = {}
-    for k, v in batch.items():
-        if k in EXCLUDE_KEYS:
-            continue
-        t = torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32))
-        out[k] = t.pin_memory().to(device, non_blocking=True) if device.type == "cuda" else t.to(device)
+    with span("data.to_device"):
+        for k, v in batch.items():
+            if k in EXCLUDE_KEYS:
+                continue
+            t = torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32))
+            out[k] = t.pin_memory().to(device, non_blocking=True) if device.type == "cuda" else t.to(device)
     return out
 
 
@@ -633,7 +639,14 @@ class Prefetcher:
     order the workers happen to take them; with a ``seed`` (a tuple of
     ints) the item at position ``pos`` draws from
     ``np.random.default_rng((*seed, pos))`` (``dataset.item``), so they do
-    not depend on which worker takes which item."""
+    not depend on which worker takes which item.
+
+    Spans and counters (``utils.profiling``), each with the item's position
+    as its id: ``data.decode`` (a worker's ``dataset.item``),
+    ``data.backpressure`` (a worker held by ``depth``),
+    ``data.prefetch_wait`` (the consumer's wait for the next item, of zero
+    length when it is ready), ``data.prefetch_take`` and
+    ``data.prefetch_miss`` (a take that had to wait)."""
 
     def __init__(self, dataset, order=None, depth: int | None = None, workers: int | None = None,
                  seed: tuple | None = None):
@@ -660,6 +673,11 @@ class Prefetcher:
         for t in self._threads:
             t.start()
 
+    def _blocked(self, pos: int, item) -> bool:
+        """Backpressure: a decoded item may not run more than ``depth``
+        ahead of the consumer."""
+        return pos - self._next >= self.depth and not isinstance(item, _PrefetchError) and not self._closed
+
     def _work(self):
         while True:
             try:
@@ -667,20 +685,18 @@ class Prefetcher:
             except queue.Empty:
                 return
             try:
-                if self.seed is None:
-                    item = self.dataset[i]
-                else:
-                    item = self.dataset.item(i, np.random.default_rng((*self.seed, pos)))
+                with span("data.decode", pos, workers=self.workers):
+                    if self.seed is None:
+                        item = self.dataset[i]
+                    else:
+                        item = self.dataset.item(i, np.random.default_rng((*self.seed, pos)))
             except BaseException as exc:  # noqa: BLE001 - forwarded to consumer
                 item = _PrefetchError(exc)
             with self._cv:
-                # backpressure: don't run more than `depth` ahead of the consumer
-                while (
-                    pos - self._next >= self.depth
-                    and not isinstance(item, _PrefetchError)
-                    and not self._closed
-                ):
-                    self._cv.wait()
+                if self._blocked(pos, item):
+                    with span("data.backpressure", pos):
+                        while self._blocked(pos, item):
+                            self._cv.wait()
                 if self._closed:
                     return
                 self._results[pos] = item
@@ -689,12 +705,16 @@ class Prefetcher:
     def __iter__(self):
         try:
             for pos in range(len(self.order)):
-                with self._cv:
+                with span("data.prefetch_wait", pos), self._cv:
+                    missed = pos not in self._results
                     while pos not in self._results:
                         self._cv.wait()
                     item = self._results.pop(pos)
                     self._next = pos + 1
                     self._cv.notify_all()
+                count("data.prefetch_take")
+                if missed:
+                    count("data.prefetch_miss")
                 if isinstance(item, _PrefetchError):
                     raise RuntimeError("Prefetcher worker failed") from item.exc
                 yield item

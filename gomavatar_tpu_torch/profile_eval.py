@@ -34,6 +34,7 @@ from gomavatar_tpu_torch.models import modules as M
 from gomavatar_tpu_torch.ops import frame_render as FR
 from gomavatar_tpu_torch.ops.geometry import frame_geometry
 from gomavatar_tpu_torch.ops.splat.binning import bin_sorted
+from gomavatar_tpu_torch.utils import profiling
 
 
 def _host_times(fn, iters: int):
@@ -84,8 +85,8 @@ def measure(fn, iters: int, warmup: int = 3, window: int | None = None) -> dict:
         window_ms = (time.perf_counter() - t0) * 1e3
     kernels = []
     for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue  # host-side ops also carry their kernels' device time
+        if evt.device_type != torch.autograd.DeviceType.CUDA or evt.key.startswith(profiling.PREFIX):
+            continue  # host-side ops and the program's spans also carry their kernels' device time
         dev_us = getattr(evt, "self_device_time_total", None)
         if dev_us is None:
             dev_us = evt.self_cuda_time_total

@@ -55,6 +55,16 @@ device work.  Its form follows from the group's backend when it is built:
   static output, once per call;
 * CPU tensors: the same function eagerly over the program's buffers.
 
+Spans and counters (``utils.profiling``; recorded only while a profiler
+session or a ``recording()`` block is open), each with the program's call
+count as its id: ``program.call`` around a whole call (with the function's
+``__qualname__``), and inside it ``program.capture`` (a new key: its buffers,
+warm-up and capture), ``program.load`` (the arguments copied into the
+buffers) and ``program.launch`` (the replay and the counters' ticks, or on
+CPU tensors the eager call); on the gloo form of ``RankProgram``
+``program.collective`` around the host collective.  All of them are host
+work around the captured function, never inside it.
+
 torch.profiler and captured graphs: on an H100 with torch 2.11 and CUDA
 12.8, where the profiler keeps CUPTI set up between its sessions (the
 default), a profiled replay of a graph segfaulted in ``CUDAGraph.replay``
@@ -71,6 +81,8 @@ import os
 
 import numpy as np
 import torch
+
+from gomavatar_tpu_torch.utils.profiling import span
 
 os.environ.setdefault("TEARDOWN_CUPTI", "1")
 
@@ -222,6 +234,8 @@ class Program:
         self.fn = fn
         self._cache: dict = {}
         self.captures = 0  # keys seen so far: on CUDA tensors, graphs captured
+        self.calls = 0
+        self.name = getattr(fn, "__qualname__", type(fn).__name__)
         self.last_args = None
 
     def pool_bytes(self) -> int:
@@ -235,35 +249,39 @@ class Program:
                    if tuple(seg.get("segment_pool_id", ())) in pools)
 
     def __call__(self, *args):
-        leaves: list = []
-        spec = _flatten(args, leaves)
-        tensors = [x for x in leaves if isinstance(x, torch.Tensor)]
-        device = next((t.device for t in tensors if t.is_cuda), torch.device("cpu"))
-        key = (spec, device,
-               tuple(((), torch.float32) if isinstance(x, float) else (tuple(x.shape), x.dtype) for x in leaves))
-        cap = self._cache.get(key)
-        fresh = cap is None
-        if fresh:
-            cap = self._cache[key] = _Captured(spec, leaves, device)
-            self.captures += 1
-        else:
-            cap.load(leaves)
-        self.last_args = cap.args
-        if device.type != "cuda":
-            out = self.fn(*cap.args)
+        self.calls += 1
+        with span("program.call", self.calls, fn=self.name):
+            leaves: list = []
+            spec = _flatten(args, leaves)
+            tensors = [x for x in leaves if isinstance(x, torch.Tensor)]
+            device = next((t.device for t in tensors if t.is_cuda), torch.device("cpu"))
+            key = (spec, device,
+                   tuple(((), torch.float32) if isinstance(x, float) else (tuple(x.shape), x.dtype) for x in leaves))
+            cap = self._cache.get(key)
+            fresh = cap is None
             if fresh:
-                cap.out = out
+                with span("program.capture", self.calls):
+                    cap = self._cache[key] = _Captured(spec, leaves, device)
+                    self.captures += 1
+                    self.last_args = cap.args
+                    if device.type == "cuda":
+                        try:
+                            self._capture(cap, device)
+                        except BaseException:
+                            del self._cache[key]
+                            raise
             else:
-                self._copy_out(cap, out)
+                with span("program.load", self.calls):
+                    cap.load(leaves)
+                self.last_args = cap.args
+            with span("program.launch", self.calls):
+                if device.type == "cuda":
+                    self._replay(cap)
+                elif fresh:
+                    cap.out = self.fn(*cap.args)
+                else:
+                    self._copy_out(cap, self.fn(*cap.args))
             return cap.out
-        if fresh:
-            try:
-                self._capture(cap, device)
-            except BaseException:
-                del self._cache[key]
-                raise
-        self._replay(cap)
-        return cap.out
 
     def _replay(self, cap: _Captured) -> None:
         cap.graphs[0].replay()
@@ -359,9 +377,10 @@ class RankProgram(Program):
         pre.replay()
         # gloo orders its copies of CUDA tensors after the current stream's
         # work (pre's replay) and the current stream after them (post's)
-        if cap.recv is cap.send:
-            self.collective(self.group, cap.send)
-        else:
-            self.collective(self.group, cap.send, out=cap.recv)
+        with span("program.collective", self.calls):
+            if cap.recv is cap.send:
+                self.collective(self.group, cap.send)
+            else:
+                self.collective(self.group, cap.send, out=cap.recv)
         post.replay()
         _tick(cap.launches)

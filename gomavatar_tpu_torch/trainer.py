@@ -62,6 +62,7 @@ from gomavatar_tpu_torch.optim import (
 from gomavatar_tpu_torch.ops.splat.binning import CHUNK
 from gomavatar_tpu_torch.ops.splat.tiled_jnp import NCMAX
 from gomavatar_tpu_torch.programs import Program
+from gomavatar_tpu_torch.utils.profiling import span
 
 log = logging.getLogger(__name__)
 
@@ -207,9 +208,10 @@ class Trainer:
     def _subdivide(self):
         log.info("subdividing at iter %d: %d -> %d faces", self.i_iter, self.gom_cfg.num_faces,
                  self.gom_cfg.num_faces * 4)
-        self.params, self.statics, self.gom_cfg = subdivide_gom(self.params, self.statics, self.gom_cfg)
-        self.phase += 1
-        self._rebuild_optimizer()
+        with span("train.subdivide", self.i_iter):
+            self.params, self.statics, self.gom_cfg = subdivide_gom(self.params, self.statics, self.gom_cfg)
+            self.phase += 1
+            self._rebuild_optimizer()
 
     def maybe_subdivide(self) -> bool:
         """Subdivide on reaching the next milestone."""

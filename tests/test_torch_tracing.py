@@ -1,0 +1,269 @@
+"""The port's spans and counters (``gomavatar_tpu_torch/utils/profiling.py``)
+and where the data layer and the programs record them, on the CPU.
+
+Recording is off unless a torch.profiler session or a ``recording()`` block
+is open, and then costs one flag check: no clock, no buffer, no
+``record_function``.  When on, spans nest per thread, carry their item's id,
+land in one bounded buffer and, under the profiler, in its chrome trace as
+``gomavatar.`` ranges."""
+
+import json
+import threading
+import time
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from gomavatar_tpu_torch.data import dataset as TD
+from gomavatar_tpu_torch.data import synthetic as TS
+from gomavatar_tpu_torch.programs import Program
+from gomavatar_tpu_torch.utils import profiling as P
+
+
+def kept(since, kind=P.Span, name=None):
+    return [r for r in P.records(since) if isinstance(r, kind) and (name is None or r.name == name)]
+
+
+def names(since, kind=P.Span):
+    return [r.name for r in kept(since, kind)]
+
+
+def test_off_reads_no_clock_and_records_nothing(monkeypatch):
+    def boom(*a, **k):
+        raise AssertionError("called while recording is off")
+
+    assert not P.enabled()
+    before = len(P._records)
+    monkeypatch.setattr(P, "time", types.SimpleNamespace(perf_counter=boom))
+    monkeypatch.setattr(torch.profiler, "record_function", boom)
+    assert P.span("a", 1) is P.span("b", workers=4)  # one shared no-op
+    with P.span("data.decode", 3, workers=4):
+        with P.span("inner"):
+            pass
+    P.count("data.prefetch_take")
+    P.count("data.prefetch_miss", 2)
+    assert len(P._records) == before
+
+
+def test_profiler_flag_is_where_recording_looks():
+    """``torch.autograd.profiler._is_profiler_enabled`` is the switch: a torch
+    upgrade that moves it must fail here, not stop recording silently."""
+    import torch.autograd.profiler as AP
+
+    assert AP._is_profiler_enabled is False and not P.enabled()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        assert AP._is_profiler_enabled is True and P.enabled()
+    assert AP._is_profiler_enabled is False and not P.enabled()
+    with P.recording():
+        assert P.enabled()
+        with P.recording():
+            assert P.enabled()
+        assert P.enabled()
+    assert not P.enabled()
+
+
+def test_recording_nests_spans_per_thread():
+    t = time.perf_counter()
+    with P.recording():
+        with P.span("outer", 7, fn="f"):
+            with P.span("inner", 7):
+                P.count("ticks", 3)
+            other = threading.Thread(target=lambda: P.span("worker", 1).__enter__().__exit__(None, None, None))
+            other.start()
+            other.join()
+        with P.span("after"):
+            pass
+    spans = {s.name: s for s in kept(t)}
+    assert set(spans) == {"outer", "inner", "worker", "after"}
+    assert spans["inner"].parent == "outer" and spans["outer"].parent is None
+    assert spans["worker"].parent is None and spans["after"].parent is None
+    assert spans["outer"].id == spans["inner"].id == 7 and spans["outer"].attrs == {"fn": "f"}
+    assert spans["inner"].attrs is None
+    assert spans["outer"].thread == spans["inner"].thread == threading.get_ident() != spans["worker"].thread
+    assert spans["outer"].t0 <= spans["inner"].t0 <= spans["inner"].t1 <= spans["outer"].t1 <= spans["after"].t0
+    (c,) = kept(t, P.Count)
+    assert c.name == "ticks" and c.n == 3 and spans["inner"].t0 <= c.t <= spans["inner"].t1
+    assert kept(spans["after"].t0) == [spans["after"]]
+
+
+def test_buffer_keeps_the_newest_within_its_bound():
+    t = time.perf_counter()
+    with P.recording():
+        for i in range(P.MAX_RECORDS + 10):
+            P.count("n", i)
+    assert len(P._records) == P.MAX_RECORDS
+    got = [c.n for c in kept(t, P.Count)]
+    assert got == list(range(10, P.MAX_RECORDS + 10))
+
+
+def test_profiler_session_records_and_traces_the_spans(tmp_path):
+    path = tmp_path / "trace.json"
+    t = time.perf_counter()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU],
+                                on_trace_ready=lambda p: p.export_chrome_trace(str(path))):
+        with P.span("program.call", 1):
+            with P.span("program.launch", 1):
+                torch.ones(4).sum()
+    assert names(t) == ["program.launch", "program.call"]
+    assert kept(t, name="program.launch")[0].parent == "program.call"
+    events = {e["name"]: e for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("ph") == "X" and e.get("name", "").startswith(P.PREFIX)}
+    assert set(events) == {"gomavatar.program.call", "gomavatar.program.launch"}
+    call, launch = events["gomavatar.program.call"], events["gomavatar.program.launch"]
+    assert call["tid"] == launch["tid"]
+    assert call["ts"] <= launch["ts"] and launch["ts"] + launch["dur"] <= call["ts"] + call["dur"]
+
+
+class _Stub:
+    """Items {"i": i}, each taking ``delay`` seconds."""
+
+    def __init__(self, n, delay=0.0):
+        self.n, self.delay = n, delay
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        time.sleep(self.delay)
+        return {"i": i}
+
+    def item(self, i, rng):
+        return self[i]
+
+
+def test_prefetcher_decodes_each_item_once_under_its_position():
+    order = [5, 2, 7, 0, 3, 1]
+    t = time.perf_counter()
+    with P.recording():
+        got = [it["i"] for it in TD.Prefetcher(_Stub(8, 0.002), order=order, workers=3, seed=(1, 0))]
+    assert got == order
+    decode = kept(t, name="data.decode")
+    assert sorted(s.id for s in decode) == list(range(len(order)))
+    assert all(s.attrs == {"workers": 3} and s.thread != threading.get_ident() for s in decode)
+    waits = kept(t, name="data.prefetch_wait")
+    assert [s.id for s in waits] == list(range(len(order)))
+    assert all(s.thread == threading.get_ident() for s in waits)
+    assert sum(c.n for c in kept(t, P.Count) if c.name == "data.prefetch_take") == len(order)
+
+
+@pytest.mark.parametrize("slow", ["decode", "consumer"])
+def test_prefetch_miss_counts_the_takes_that_waited(slow):
+    """Against a slow decode every take waits; against a slow consumer,
+    which finds each item ready, none does, and the workers are held by
+    ``depth`` instead."""
+    n = 6
+    t = time.perf_counter()
+    with P.recording():
+        decode_s, workers = (0.02, 1) if slow == "decode" else (0.0, 2)
+        items = iter(TD.Prefetcher(_Stub(n, decode_s), workers=workers))
+        for k in range(n):
+            if slow == "consumer":
+                time.sleep(0.03)
+            assert next(items)["i"] == k
+        assert next(items, None) is None
+    counts = {}
+    for c in kept(t, P.Count):
+        counts[c.name] = counts.get(c.name, 0) + c.n
+    assert counts["data.prefetch_take"] == n
+    assert counts.get("data.prefetch_miss", 0) == (n if slow == "decode" else 0)
+    waits = kept(t, name="data.prefetch_wait")
+    assert len(waits) == n
+    if slow == "decode":
+        assert min(s.t1 - s.t0 for s in waits[1:]) > 0.005
+    else:
+        assert kept(t, name="data.backpressure")
+
+
+def test_train_items_record_their_decode_stages(tmp_path):
+    data_dir = TS.write_synthetic_dataset(str(tmp_path / "synth"), n_frames=3, img_hw=(32, 32))
+    ds = TD.TrainDataset(data_dir, bgcolor=None, target_size=(16, 16))
+    t = time.perf_counter()
+    with P.recording():
+        items = list(TD.Prefetcher(ds, workers=2, seed=(1, 0)))
+        batch = TD.to_device(items[0], "cpu")
+    by = {}
+    for s in kept(t):
+        by.setdefault(s.name, []).append(s)
+    assert len(by["data.decode"]) == len(by["data.read"]) == len(by["data.composite_resize"]) == 3
+    assert all(s.parent == "data.decode" for s in by["data.read"] + by["data.composite_resize"])
+    (dev,) = by["data.to_device"]
+    assert dev.parent is None and dev.thread == threading.get_ident()
+    assert batch["target_rgbs"].shape == (16, 16, 3)
+
+
+def test_program_records_capture_once_then_load_and_launch():
+    def fn(x, scale):
+        return {"y": x * scale + 1.0}
+
+    prog = Program(fn)
+    xs = [torch.arange(6, dtype=torch.float32) + k for k in range(3)]
+    t = time.perf_counter()
+    with P.recording():
+        outs = [prog(x, 2.0)["y"].clone() for x in xs]
+    for x, y in zip(xs, outs):
+        torch.testing.assert_close(y, x * 2.0 + 1.0, rtol=0, atol=0)
+    spans = kept(t)
+    calls = [s for s in spans if s.name == "program.call"]
+    assert [s.id for s in calls] == [1, 2, 3] and all(s.attrs == {"fn": fn.__qualname__} for s in calls)
+    by_call = {k: sorted(s.name for s in spans if s.id == k and s.name != "program.call") for k in (1, 2, 3)}
+    assert by_call == {1: ["program.capture", "program.launch"], 2: ["program.launch", "program.load"],
+                       3: ["program.launch", "program.load"]}
+    assert all(s.parent == "program.call" for s in spans if s.name != "program.call")
+    assert prog.captures == 1 and prog.calls == 3
+    # the same calls without recording give the same outputs
+    plain = Program(fn)
+    for x, y in zip(xs, outs):
+        torch.testing.assert_close(plain(x, 2.0)["y"], y, rtol=0, atol=0)
+
+
+def test_timer_section_is_also_a_span():
+    timer = P.Timer()
+    t = time.perf_counter()
+    with P.recording():
+        with timer.section("fk"):
+            with P.span("inside"):
+                np.zeros(4).sum()
+    assert timer.report()["fk"]["count"] == 1
+    spans = {s.name: s for s in kept(t)}
+    assert set(spans) == {"fk", "inside"} and spans["inside"].parent == "fk"
+    assert 1e3 * (spans["fk"].t1 - spans["fk"].t0) >= timer.report()["fk"]["mean_ms"] * 0.999
+
+
+def test_threads_record_every_span_under_fast_switching():
+    """More threads than cores, switching every microsecond: every span and
+    count is kept, each nested under its own thread's parent."""
+    import sys
+
+    n_threads, n_spans = 16, 500
+    t = time.perf_counter()
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    # every thread alive at once, so that no two share an id
+    together = threading.Barrier(n_threads, timeout=60)
+    try:
+        def work(k):
+            together.wait()
+            for i in range(n_spans):
+                with P.span("outer", k):
+                    with P.span("inner", k):
+                        P.count("c")
+            together.wait()
+
+        with P.recording():
+            threads = [threading.Thread(target=work, args=(k,)) for k in range(n_threads)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=60)
+        assert not any(th.is_alive() for th in threads)
+    finally:
+        sys.setswitchinterval(switch)
+    inner = kept(t, name="inner")
+    assert len(inner) == len(kept(t, name="outer")) == n_threads * n_spans
+    assert all(s.parent == "outer" for s in inner)
+    assert len({s.thread for s in inner}) == n_threads
+    for k in range(n_threads):
+        assert len({s.thread for s in inner if s.id == k}) == 1
+    assert len(kept(t, P.Count)) == n_threads * n_spans
