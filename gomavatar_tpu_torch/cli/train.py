@@ -171,7 +171,8 @@ def evaluate_test_split(trainer: Trainer, cfg, tb):
 
 def train_dataset(cfg) -> TrainDataset:
     """The train split of the exp config, native decode when asked for and
-    available."""
+    available; the loop reads every frame each epoch, so the dataset keeps
+    each frame's decoded pixels after its first read (``retain``)."""
     dcfg = cfg["dataset"]["train"]
     use_native = bool(dcfg.get("use_native", False))
     if use_native:
@@ -193,6 +194,7 @@ def train_dataset(cfg) -> TrainDataset:
         prefetch=dcfg["prefetch"],
         split_for_pose=dcfg["split_for_pose"],
         use_native=use_native,
+        retain=True,
     )
 
 

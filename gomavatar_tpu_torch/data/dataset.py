@@ -81,6 +81,11 @@ def _load_image(path):
     return np.array(Image.open(path))
 
 
+def _available_memory_bytes() -> int:
+    """The host's available physical memory now."""
+    return os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
+
+
 class _ThreadSafeRng:
     """Lock-guarded np.random.Generator: the Prefetcher worker pool calls
     ``__getitem__`` from several threads and Generator state updates are not
@@ -167,7 +172,20 @@ class _ArtifactsMixin:
 
 
 class TrainDataset(_ArtifactsMixin):
-    """Monocular training frames."""
+    """Monocular training frames.
+
+    The store: a frame's undistorted ``uint8`` image and mask (one channel
+    where its three are equal), kept after the frame's first read when the
+    caller re-reads frames epoch after epoch (``retain=True``, the training
+    loop), or read for every frame at construction (``prefetch=True``).
+    Each item of a stored frame starts from them and draws its background
+    and crop anew, so its arrays are those of a fresh read bit for bit.  A
+    frame is stored while the store stays under half of the host's
+    available physical memory at construction; past that, frames are read
+    each time, with no eviction.  Counters (``utils.profiling``) per item
+    of the cv2 path: ``data.decode_cache_hit`` or ``data.decode_cache_miss``
+    (a miss has the ``data.read`` and ``data.undistort`` spans, a hit
+    neither)."""
 
     def __init__(
         self,
@@ -181,11 +199,14 @@ class TrainDataset(_ArtifactsMixin):
         split_for_pose=False,
         rng=None,
         use_native=False,
+        retain=False,
     ):
         """``use_native=True`` routes decode through the fused C++ pipeline
         (native/gom_host.cpp: undistort, resize and composite in one
         bilinear pass) instead of the reference-parity cv2 path (undistort,
-        composite, Lanczos resize as three passes)."""
+        composite, Lanczos resize as three passes), which the store does
+        not serve.  ``retain=True`` fills the store as frames are first
+        read (for a caller that reads each frame many times)."""
         self._load_artifacts(dataset_path)
         self.use_native = use_native
         if use_native:
@@ -204,15 +225,21 @@ class TrainDataset(_ArtifactsMixin):
         self.rng = _ThreadSafeRng(rng or np.random.default_rng())
         self.resize_img_scale = (0.5, 0.5)
         self.prefetch = prefetch
-        self._cache = {}
+        self.retain = retain
+        self._cache = {}  # frame name -> (uint8 image, uint8 mask)
+        self._cache_bytes = 0
+        self._cache_room = _available_memory_bytes() // 2 if retain or prefetch else 0
+        self._cache_lock = threading.Lock()
         if prefetch:
             for fn in self.framelist:
-                self._cache[fn] = self._load_raw(fn)
+                self._keep(fn, *self._load_raw(fn))
 
     def __len__(self):
         return len(self.framelist)
 
     def _load_raw(self, frame_name):
+        """The frame's undistorted ``uint8`` image and mask, the mask in
+        three channels."""
         with span("data.read"):
             img = _load_image(os.path.join(self.image_dir, frame_name + ".png"))
             alpha = _load_image(os.path.join(self.dataset_path, "masks", frame_name + ".png"))
@@ -225,7 +252,33 @@ class TrainDataset(_ArtifactsMixin):
             with span("data.undistort"):
                 img = cv2.undistort(img, K, D)
                 alpha = cv2.undistort(alpha, K, D)
-        return img, alpha / 255.0, img.shape[1], img.shape[0]
+        return img, alpha
+
+    def _keep(self, frame_name, img, alpha):
+        """Store the frame's arrays while the store has room."""
+        if alpha.ndim == 3 and alpha.shape[-1] == 3 and (alpha == alpha[..., :1]).all():
+            alpha = np.ascontiguousarray(alpha[..., 0])
+        for a in (img, alpha):
+            a.flags.writeable = False
+        nbytes = img.nbytes + alpha.nbytes
+        with self._cache_lock:
+            if frame_name not in self._cache and self._cache_bytes + nbytes <= self._cache_room:
+                self._cache[frame_name] = (img, alpha)
+                self._cache_bytes += nbytes
+
+    def _decoded(self, frame_name):
+        """The frame's undistorted ``uint8`` image and three-channel mask:
+        from the store, or read (and stored where the caller retains)."""
+        kept = self._cache.get(frame_name)
+        if kept is None:
+            count("data.decode_cache_miss")
+            img, alpha = self._load_raw(frame_name)
+            if self.retain:
+                self._keep(frame_name, img, alpha)
+            return img, alpha
+        count("data.decode_cache_hit")
+        img, alpha = kept
+        return img, alpha[..., None].repeat(3, axis=-1) if alpha.ndim == 2 else alpha
 
     def _composite_resize(self, img, alpha, bgcolor):
         with span("data.composite_resize"):
@@ -303,8 +356,9 @@ class TrainDataset(_ArtifactsMixin):
                 )
             alpha = alpha[..., None].repeat(3, -1)
         else:
-            img, alpha, orig_W, orig_H = self._cache.get(frame_name) or self._load_raw(frame_name)
-            img, alpha = self._composite_resize(img.astype(np.float32), alpha, bgcolor)
+            img, alpha = self._decoded(frame_name)
+            orig_H, orig_W = img.shape[:2]
+            img, alpha = self._composite_resize(img.astype(np.float32), alpha / 255.0, bgcolor)
         img = (img / 255.0).astype(np.float32)
 
         skel = self.query_dst_skeleton(frame_name)

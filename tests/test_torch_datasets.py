@@ -6,6 +6,8 @@ cadence gate."""
 
 import filecmp
 import os
+import pickle
+import shutil
 import threading
 import time
 
@@ -79,6 +81,7 @@ TRAIN_CASES = {
     "target_size": dict(bgcolor=[10, 20, 30], target_size=(40, 40)),
     "split_skip_max": dict(bgcolor=[0, 0, 0], split_for_pose=True, skip=1, maxframes=5),
     "native": dict(bgcolor=None, seeded=True, use_native=True, target_size=(48, 48)),
+    "prefetch": dict(bgcolor=None, seeded=True, prefetch=True, crop_size=(32, 32)),
 }
 
 
@@ -242,6 +245,157 @@ def test_prefetcher_early_break_releases_workers():
         t.join(timeout=5)
     assert all(not t.is_alive() for t in pf._threads)
     assert threading.active_count() <= before + 1
+
+
+# ---- the decoded-frame store ---------------------------------------------------
+
+DISTORTIONS = np.array([-0.12, 0.03, 0.002, -0.001, 0.0])
+STORE_KW = dict(bgcolor=None, crop_size=(32, 32))
+
+
+@pytest.fixture(scope="module", params=["gray_mask", "color_mask"])
+def distorted_dir(request, tmp_path_factory, data_dir):
+    """The synthetic capture with radially distorted cameras; its masks
+    three equal channels, or three that differ (then stored in three)."""
+    from PIL import Image
+
+    out = str(tmp_path_factory.mktemp("distorted") / "data")
+    shutil.copytree(data_dir, out)
+    path = os.path.join(out, "cameras.pkl")
+    with open(path, "rb") as f:
+        cams = pickle.load(f)
+    for cam in cams.values():
+        cam["distortions"] = DISTORTIONS.copy()
+    with open(path, "wb") as f:
+        pickle.dump(cams, f)
+    if request.param == "color_mask":
+        for name in os.listdir(os.path.join(out, "masks")):
+            p = os.path.join(out, "masks", name)
+            m = np.array(Image.open(p))
+            m[..., 1] //= 2
+            Image.fromarray(m).save(p)
+    return out, request.param
+
+
+def _epochs(ds, n_epochs, order_seed=5):
+    """``n_epochs`` epochs of ``ds`` through a seeded 4-worker Prefetcher,
+    as the training loop reads them: (epoch, pos, frame index, item)."""
+    from gomavatar_tpu_torch.utils import profiling
+
+    out, counts = [], []
+    rng = np.random.default_rng(order_seed)
+    for epoch in range(n_epochs):
+        order = rng.permutation(len(ds)).tolist()
+        t0 = time.perf_counter()
+        with profiling.recording():
+            items = list(TD.Prefetcher(ds, order=order, workers=4, seed=(epoch, 0)))
+        recs = profiling.records(t0)
+        counts.append({n: sum(r.n for r in recs if isinstance(r, profiling.Count) and r.name == n)
+                       for n in ("data.decode_cache_hit", "data.decode_cache_miss")}
+                      | {n: sum(1 for r in recs if isinstance(r, profiling.Span) and r.name == n)
+                         for n in ("data.read", "data.undistort")})
+        out += [(epoch, pos, i, it) for pos, (i, it) in enumerate(zip(order, items))]
+    return out, counts
+
+
+def test_retained_items_equal_fresh_reads_bit_for_bit(distorted_dir):
+    """Two epochs of a retaining dataset through the training loop's seeded
+    4-worker Prefetcher: every item, the second epoch's hits included,
+    equals bit for bit, every key, that of a dataset that keeps nothing,
+    drawn with the same (epoch, pos) seed; the first epoch counts only
+    misses (each with its read and undistort), the second only hits."""
+    data, mask = distorted_dir
+    ds = TD.TrainDataset(data, retain=True, **STORE_KW)
+    fresh = TD.TrainDataset(data, **STORE_KW)
+    items, counts = _epochs(ds, 2)
+    n = len(ds)
+    assert counts[0] == {"data.decode_cache_hit": 0, "data.decode_cache_miss": n,
+                         "data.read": n, "data.undistort": n}
+    assert counts[1] == {"data.decode_cache_hit": n, "data.decode_cache_miss": 0,
+                         "data.read": 0, "data.undistort": 0}
+    for epoch, pos, i, it in items:
+        assert_items_equal(it, fresh.item(i, np.random.default_rng((epoch, 0, pos))))
+    assert not fresh._cache
+    assert sorted(ds._cache) == sorted(ds.framelist)
+    for img, alpha in ds._cache.values():
+        assert img.dtype == alpha.dtype == np.uint8
+        assert alpha.shape == (img.shape[:2] if mask == "gray_mask" else img.shape)
+
+
+@pytest.mark.parametrize("k", [0, 2, 5])
+def test_store_budget_admits_exactly_k_frames(data_dir, monkeypatch, k):
+    """Half the host's available memory (patched here) admits ``k`` frames
+    of the first epoch and no more, in the second epoch either; every item
+    equals a fresh read's."""
+    probe = TD.TrainDataset(data_dir, **STORE_KW)
+    img, alpha = probe._load_raw(probe.framelist[0])
+    frame_bytes = img.nbytes + alpha.nbytes // 3
+    monkeypatch.setattr(TD, "_available_memory_bytes", lambda: 2 * (k * frame_bytes + frame_bytes // 2))
+    ds = TD.TrainDataset(data_dir, retain=True, **STORE_KW)
+    items, counts = _epochs(ds, 2)
+    assert len(ds._cache) == k and ds._cache_bytes == k * frame_bytes
+    assert [c["data.decode_cache_hit"] for c in counts] == [0, k]
+    for epoch, pos, i, it in items:
+        assert_items_equal(it, probe.item(i, np.random.default_rng((epoch, 0, pos))))
+
+
+def test_prefetch_store_holds_compact_uint8_frames(data_dir):
+    """``prefetch=True`` reads every frame at construction into the same
+    store: uint8, 4 bytes a pixel (the mask in one channel)."""
+    ds = TD.TrainDataset(data_dir, prefetch=True, **STORE_KW)
+    assert sorted(ds._cache) == sorted(ds.framelist)
+    for img, alpha in ds._cache.values():
+        assert img.dtype == alpha.dtype == np.uint8
+        assert img.nbytes + alpha.nbytes <= 4 * img.shape[0] * img.shape[1]
+
+
+def test_single_pass_readers_keep_nothing(data_dir, tmp_path, monkeypatch):
+    """The datasets of ``cli/evaluate.py`` (train and snapshot view splits)
+    and ``cli/train_pose.py`` read each frame once: after a pass their
+    store is empty; ``cli/train.py``'s keeps every frame."""
+    import types
+
+    import yaml
+
+    from gomavatar_tpu_torch.cli import evaluate as eval_cli
+    from gomavatar_tpu_torch.cli import train as train_cli
+    from gomavatar_tpu_torch.cli import train_pose as pose_cli
+    from gomavatar_tpu_torch.config import make_cfg
+
+    path = str(tmp_path / "exp.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump({"exp_name": "store", "log_dir": str(tmp_path / "log"), "img_size": list(HW),
+                        "dataset": {"train": {"dataset_path": data_dir},
+                                    "test_view": {"dataset_path": data_dir, "name": "snapshot", "skip": 1}}}, f)
+    cfg = make_cfg(path)
+    sets = [eval_cli.build_dataset(cfg, types.SimpleNamespace(type=t, dataset_path=None))[0]
+            for t in ("train", "view")]
+
+    class Built(Exception):
+        pass
+
+    def stop(_cfg, info, device):
+        raise Built
+
+    made = []
+
+    class Spy(TD.TrainDataset):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    monkeypatch.setattr(pose_cli, "TrainDataset", Spy)
+    monkeypatch.setattr(pose_cli, "Trainer", stop)
+    with pytest.raises(Built):
+        pose_cli.main(["--cfg", path, "--device", "cpu"])
+    for ds in sets + made:
+        for i in range(len(ds)):
+            ds[i]
+        assert not ds._cache
+    assert len(made) == 1
+    ds = train_cli.train_dataset(cfg)
+    list(TD.Prefetcher(ds))
+    assert sorted(ds._cache) == sorted(ds.framelist)
 
 
 # ---- camera helpers and sampling ------------------------------------------------
