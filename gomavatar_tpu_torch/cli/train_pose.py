@@ -10,10 +10,16 @@ mask L1 + VGG-LPIPS with the model frozen, for ``pose.iters`` steps at
 loss.  Each step is one ``gom_forward(train=True)`` (kernels B2 and B4) and
 its backward (B3 and B5) differentiated into the pose only.  No step waits
 for the device: the losses and the best pose stay there, and the host reads
-them once per frame.  The frames are then evaluated with the dataset's poses
-(``raw``), the refined body pose without the global transform (``zeroed``)
-and with it (``refined``), by ``gom_forward(train=False)`` (kernel B1) and
-the Anim-NeRF evaluator; the refined poses go to ``checkpoints/pose.pkl``.
+them once per frame (``refine_frame``, the per-frame body of ``main``).
+Under recording (``utils.profiling``) each frame is a span ``pose.refine``
+(its position, ``iters``) around its steps and its read ``pose.read``, and
+counts ``pose.steps``, ``binning.dropped`` (the entries dropped over its
+steps), ``binning.most_tiles`` (the most tiles one splat covered) and
+``binning.budget`` (the per-splat budget).  The frames are then evaluated
+with the dataset's poses (``raw``), the refined body pose without the
+global transform (``zeroed``) and with it (``refined``), by
+``gom_forward(train=False)`` (kernel B1) and the Anim-NeRF evaluator; the
+refined poses go to ``checkpoints/pose.pkl``.
 On the card the pose step and the eval frame each run as one captured
 program (``programs.py``), replayed.  It runs on the card unless ``--device
 cpu``; ``main`` returns a summary.
@@ -46,6 +52,7 @@ from gomavatar_tpu_torch.ops.splat.tiled_jnp import NCMAX
 from gomavatar_tpu_torch.optim import AdamState, adam_directions, init_state, tree_leaves, tree_unflatten
 from gomavatar_tpu_torch.programs import Program
 from gomavatar_tpu_torch.trainer import Trainer
+from gomavatar_tpu_torch.utils.profiling import count, enabled, span
 
 POSE_KEYS = ("Rh", "Th", "poses")
 
@@ -57,6 +64,17 @@ def frame_loss(pose_vars: dict, params: dict, statics, gom_cfg, loss_cfg: dict, 
     coefficient, with the L1 terms through ``abs_l1`` (background pixels
     match their target exactly).  ``dropped``: the entries the binning
     dropped or the train kernels' chunk cap cut, a device scalar."""
+    loss, tel = _frame_loss_telemetry(pose_vars, params, statics, gom_cfg, loss_cfg, lpips_params, batch, i_iter)
+    return loss, _dropped(tel)
+
+
+def _dropped(tel) -> torch.Tensor:
+    return tel.total_dropped() + torch.clamp_min(tel.max_tile_entries - NCMAX * CHUNK, 0)
+
+
+def _frame_loss_telemetry(pose_vars: dict, params: dict, statics, gom_cfg, loss_cfg: dict, lpips_params,
+                          batch: dict, i_iter):
+    """(loss, the binning telemetry) of :func:`frame_loss`."""
     Rh, Th, poses = (pose_vars[k] for k in POSE_KEYS)
     dst_Rs, dst_Ts = body_pose_to_body_RTs(poses, batch["dst_tpose_joints"])
     rgb, mask, aux = gom_forward(
@@ -70,9 +88,7 @@ def frame_loss(pose_vars: dict, params: dict, statics, gom_cfg, loss_cfg: dict, 
         loss = loss + loss_cfg["lpips"]["coeff"] * lpips_lib.lpips(
             lpips_params, 2 * rgb_u - 1, 2 * batch["target_rgbs"] - 1
         )
-    tel = aux["binning"]
-    dropped = tel.total_dropped() + torch.clamp_min(tel.max_tile_entries - NCMAX * CHUNK, 0)
-    return loss, dropped
+    return loss, aux["binning"]
 
 
 class PoseAdam:
@@ -101,8 +117,9 @@ class PoseAdam:
 class PoseCarry(NamedTuple):
     """The pose loop's state between steps, on the device: the variables
     (Rh, Th, poses), their Adam state, the best variables and loss so far,
-    and every step's loss and dropped entries at the step's index (as
-    ``lax.scan`` stacks them)."""
+    every step's loss and dropped entries at the step's index (as
+    ``lax.scan`` stacks them), and the most tiles one splat covered in any
+    step."""
 
     leaves: list
     opt: AdamState
@@ -110,12 +127,13 @@ class PoseCarry(NamedTuple):
     best_loss: torch.Tensor
     losses: torch.Tensor
     dropped: torch.Tensor
+    most_tiles: torch.Tensor
 
 
 def init_pose_carry(tx: PoseAdam, init_poses: torch.Tensor, n_iters: int) -> PoseCarry:
     """The carry before a frame's first step, on the device of
     ``init_poses``: Rh = Th = 0, the poses, fresh Adam state, no best loss
-    yet, ``n_iters`` rows of losses and dropped entries."""
+    yet, ``n_iters`` rows of losses and dropped entries, no tile covered."""
     device = init_poses.device
     zeros = torch.zeros(3, dtype=torch.float32, device=device)
     leaves = [zeros, zeros.clone(), init_poses.detach().to(torch.float32)]
@@ -124,6 +142,7 @@ def init_pose_carry(tx: PoseAdam, init_poses: torch.Tensor, n_iters: int) -> Pos
         torch.full((), float("inf"), dtype=torch.float32, device=device),
         torch.zeros((n_iters,), dtype=torch.float32, device=device),
         torch.zeros((n_iters,), dtype=torch.int32, device=device),
+        torch.zeros((), dtype=torch.int32, device=device),
     )
 
 
@@ -139,8 +158,9 @@ def make_pose_step(gom_cfg, loss_cfg: dict, tx: PoseAdam):
         if lpips_params is not None:
             lpips_params = tree_unflatten(lpips_params, [p.detach() for p in tree_leaves(lpips_params)])
         cur = [v.detach().requires_grad_(True) for v in carry.leaves]
-        loss, drop = frame_loss(dict(zip(POSE_KEYS, cur)), params, statics, gom_cfg, loss_cfg, lpips_params, batch,
-                                i_iter)
+        loss, tel = _frame_loss_telemetry(dict(zip(POSE_KEYS, cur)), params, statics, gom_cfg, loss_cfg,
+                                          lpips_params, batch, i_iter)
+        drop = _dropped(tel)
         grads = torch.autograd.grad(loss, cur)
         updates, opt = tx.update(list(grads), carry.opt)
         with torch.no_grad():
@@ -155,6 +175,7 @@ def make_pose_step(gom_cfg, loss_cfg: dict, tx: PoseAdam):
                 torch.where(improved, loss, carry.best_loss),
                 torch.where(row, loss, carry.losses),
                 torch.where(row, drop.to(carry.dropped.dtype), carry.dropped),
+                torch.maximum(carry.most_tiles, tel.most_tiles),
             )
             torch._foreach_copy_(tree_leaves(list(carry)), tree_leaves(list(new)))
         return carry
@@ -162,33 +183,85 @@ def make_pose_step(gom_cfg, loss_cfg: dict, tx: PoseAdam):
     return step
 
 
-def make_pose_optimizer(gom_cfg, loss_cfg: dict, pose_cfg: dict, n_iters: int):
+class PoseOptimizer:
     """``optimize(params, statics, lpips_params, batch, init_poses)`` ->
     (best {Rh, Th, poses}, best loss, the loss of every step, the dropped
     entries of every step), all on the device of ``init_poses``: n_iters
     Adam steps from Rh = Th = 0, keeping the variables at which the loss was
     lowest (replaced only on a strict decrease).  The model and the LPIPS
-    trunk are frozen: the gradient is taken in the pose only.
+    trunk are frozen: the gradient is taken in the pose only.  After a call
+    ``most_tiles`` holds the most tiles one splat covered in its steps (a
+    device scalar) and ``last`` the variables after its last update.
 
-    The step is one program (``optimize.program``, ``programs.py``), the
+    The step is one program (``program``, ``programs.py``), the
     counterpart of the JAX package's jitted ``lax.scan``: on CUDA tensors
     one CUDA graph, captured at the first frame and replayed ``n_iters``
     times per frame, with no read of the host; on CPU tensors the same step
     eagerly.  The results are copies: the next frame reuses the buffers."""
-    tx = PoseAdam(pose_cfg)
-    program = Program(make_pose_step(gom_cfg, loss_cfg, tx))
 
-    def optimize(params, statics, lpips_params, batch, init_poses):
-        args = (params, statics, lpips_params, batch, init_pose_carry(tx, init_poses, n_iters), 1e7)
-        for _ in range(n_iters):
-            carry = program(*args)
-            args = program.last_args  # the buffers: the next step copies nothing
+    def __init__(self, gom_cfg, loss_cfg: dict, pose_cfg: dict, n_iters: int):
+        self.gom_cfg, self.n_iters = gom_cfg, n_iters
+        self.tx = PoseAdam(pose_cfg)
+        self.program = Program(make_pose_step(gom_cfg, loss_cfg, self.tx))
+        self.most_tiles = self.last = None
+
+    def __call__(self, params, statics, lpips_params, batch, init_poses):
+        args = (params, statics, lpips_params, batch, init_pose_carry(self.tx, init_poses, self.n_iters), 1e7)
+        for _ in range(self.n_iters):
+            carry = self.program(*args)
+            args = self.program.last_args  # the buffers: the next step copies nothing
         # the buffers are the next frame's: hand out copies
+        self.most_tiles = carry.most_tiles.clone()
+        self.last = dict(zip(POSE_KEYS, (v.clone() for v in carry.leaves)))
         return (dict(zip(POSE_KEYS, (b.clone() for b in carry.best))), carry.best_loss.clone(),
                 carry.losses.clone(), carry.dropped.clone())
 
-    optimize.program = program
-    return optimize
+
+def make_pose_optimizer(gom_cfg, loss_cfg: dict, pose_cfg: dict, n_iters: int) -> PoseOptimizer:
+    """The pose optimizer of ``n_iters`` steps a frame (:class:`PoseOptimizer`)."""
+    return PoseOptimizer(gom_cfg, loss_cfg, pose_cfg, n_iters)
+
+
+class RefinedPose(NamedTuple):
+    """One test frame's refinement as the host reads it."""
+
+    Rh: np.ndarray
+    Th: np.ndarray
+    poses: np.ndarray
+    losses: np.ndarray  # every step's loss
+    best_loss: float
+    dropped: int  # entries dropped over the frame's steps
+    most_tiles: int  # the most tiles one splat covered in them
+
+    @property
+    def first_loss(self) -> float:
+        return float(self.losses[0])
+
+    @property
+    def finite(self) -> bool:
+        return bool(np.isfinite(self.losses).all())
+
+
+def refine_frame(optimize: PoseOptimizer, params, statics, lpips_params, batch: dict, init_pose,
+                 position=None) -> RefinedPose:
+    """Refine one test frame's pose from ``init_pose`` (72-d) with
+    ``optimize`` and read the result on the host, the frame's one read;
+    ``position`` (the frame's place in its loop) names its span."""
+    n = optimize.n_iters
+    with span("pose.refine", position, iters=n):
+        init = torch.as_tensor(init_pose, dtype=torch.float32, device=params["vertices"].device)
+        best_vars, best_loss, losses, drops = optimize(params, statics, lpips_params, batch, init)
+        with span("pose.read", position):
+            read = torch.cat([losses, best_loss[None], drops.sum()[None].float(), optimize.most_tiles[None].float(),
+                              best_vars["Rh"], best_vars["Th"], best_vars["poses"]]).cpu().numpy()
+        out = RefinedPose(read[n + 3:n + 6], read[n + 6:n + 9], read[n + 9:], read[:n], float(read[n]),
+                          int(read[n + 1]), int(read[n + 2]))
+        if enabled():
+            count("pose.steps", n)
+            count("binning.dropped", out.dropped)
+            count("binning.most_tiles", out.most_tiles)
+            count("binning.budget", optimize.gom_cfg.max_tiles_per_gaussian)
+    return out
 
 
 def main(argv=None) -> dict:
@@ -257,20 +330,14 @@ def main(argv=None) -> dict:
     t0 = time.perf_counter()
     for i in range(n):
         batch = to_device(dataset[i], device)
-        best_vars, best_loss, losses, drops = optimize(
-            trainer.params, trainer.statics, lpips_params, batch, torch.as_tensor(raw_poses[i], device=device)
-        )
-        # the one read of the frame
-        read = torch.cat([losses[:1], best_loss[None], drops.sum()[None].float(),
-                          best_vars["Rh"], best_vars["Th"], best_vars["poses"]]).cpu().numpy()
-        first, best, drop = float(read[0]), float(read[1]), int(read[2])
-        Rhs[i], Ths[i], best_poses[i] = read[3:6], read[6:9], read[9:]
-        first_losses.append(first)
-        best_losses.append(best)
-        dropped.append(drop)
-        logging.info("frame %d: loss %.4f -> best %.4f", i, first, best)
-        if drop:
-            logging.warning("frame %d: the binning dropped %d entries over the refinement", i, drop)
+        r = refine_frame(optimize, trainer.params, trainer.statics, lpips_params, batch, raw_poses[i], position=i)
+        Rhs[i], Ths[i], best_poses[i] = r.Rh, r.Th, r.poses
+        first_losses.append(r.first_loss)
+        best_losses.append(r.best_loss)
+        dropped.append(r.dropped)
+        logging.info("frame %d: loss %.4f -> best %.4f", i, r.first_loss, r.best_loss)
+        if r.dropped:
+            logging.warning("frame %d: the binning dropped %d entries over the refinement", i, r.dropped)
     seconds = time.perf_counter() - t0
 
     metrics["zeroed"] = evaluate("zeroed", zeros3, zeros3, best_poses)

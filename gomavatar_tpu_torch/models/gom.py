@@ -82,11 +82,32 @@ _TUNED_FACE_COUNT = 55104  # one midpoint subdivision of SMPL's 13776 faces
 # 57,600-face avatar needs 32 for zero drops).
 _MTG_FLOOR = 32
 
+# The frame the budgets were tuned at.  At fixed framing a splat's tile
+# count grows with the frame's area, so above it the per-gaussian budget
+# grows by the area ratio times _FRAME_MARGIN; at it and below the budgets
+# are those of the JAX package.  At 544^2 the widest splat of JAX's trained
+# avatar spans 36 tiles (32 at 512^2 drops entries there), the port's own
+# 42, and training the former on the PeopleSnapshot recipe widens it to 49
+# (7 x 7) within 2,000 steps: 7/4 of the area ratio gives 64 (8 x 8).
+_TUNED_FRAME_AREA = 512 * 512
+_FRAME_MARGIN = (7, 4)
+
 
 def tile_budget_factor(num_faces: int) -> int:
     """Budget multiplier for a phase with ``num_faces`` faces: the face-area
     ratio vs the tuned scale, ceil'd, clamped to [1, 4]."""
     return max(1, min(4, -(-_TUNED_FACE_COUNT // max(num_faces, 1))))
+
+
+def frame_tile_budget(budget: int, img_size) -> int:
+    """A per-gaussian tile budget tuned at 512^2, at a frame of ``img_size``:
+    ``budget`` itself up to 512^2 in area, above it ``budget`` times the
+    area ratio and _FRAME_MARGIN, ceil'd."""
+    area = int(img_size[0]) * int(img_size[1])
+    if area <= _TUNED_FRAME_AREA:
+        return budget
+    num, den = _FRAME_MARGIN
+    return -(-budget * area * num // (_TUNED_FRAME_AREA * den))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -149,7 +170,7 @@ class GoMConfig:
             non_rigid=tup(model_cfg.get("non_rigid")),
             shadow=tup(model_cfg.get("shadow_module")),
             normal_renderer_sigma=float(model_cfg.get("normal_renderer", {}).get("sigma", 1e-5)),
-            max_tiles_per_gaussian=max(_MTG_FLOOR, 16 * bf),
+            max_tiles_per_gaussian=frame_tile_budget(max(_MTG_FLOOR, 16 * bf), model_cfg["img_size"]),
             max_tiles_per_face=8 * bf,
             buffer_factor=4 * bf,
             binning_band0_train=4 * bf,
@@ -577,15 +598,17 @@ def subdivide_gom(params: dict, statics: GoMStatics, cfg: GoMConfig):
 
     new_statics = _build_statics(new_faces, new_verts, new_lbs, device)
     # Rescale the tile budgets by the ratio of budget factors; the per-
-    # gaussian budget keeps its floor, which wins over any custom value below
-    # it (sub-floor budgets drop trained splat coverage at every phase).
+    # gaussian budget keeps its floor at the frame's size, which wins over
+    # any custom value below it (sub-floor budgets drop trained splat
+    # coverage at every phase).
     bf_old = tile_budget_factor(cfg.num_faces)
     bf_new = tile_budget_factor(F2)
     new_cfg = dataclasses.replace(
         cfg,
         num_vertices=N2,
         num_faces=F2,
-        max_tiles_per_gaussian=max(_MTG_FLOOR, cfg.max_tiles_per_gaussian * bf_new // bf_old),
+        max_tiles_per_gaussian=max(frame_tile_budget(_MTG_FLOOR, cfg.img_size),
+                                   cfg.max_tiles_per_gaussian * bf_new // bf_old),
         max_tiles_per_face=max(1, cfg.max_tiles_per_face * bf_new // bf_old),
         buffer_factor=max(1, cfg.buffer_factor * bf_new // bf_old),
         binning_band0=(

@@ -108,6 +108,10 @@ class BinningTelemetry(NamedTuple):
     dropped_budget: torch.Tensor  # (prim, tile) entries dropped to that budget
     dropped_buffer: torch.Tensor  # entries dropped to the Dcap prefix or active cap
     max_tile_entries: torch.Tensor  # max real entries in any tile
+    # the most tiles any valid primitive's box covers: what the
+    # per-primitive budget has to hold (None where built from telemetry
+    # without it, such as the JAX package's)
+    most_tiles: torch.Tensor | None = None
 
     def total_dropped(self) -> torch.Tensor:
         return self.dropped_budget + self.dropped_buffer
@@ -149,6 +153,11 @@ class SortedBinning(NamedTuple):
     num_tiles_x: int
     num_tiles_y: int
     telemetry: BinningTelemetry
+
+
+def _most_tiles(n_cover: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """The most tiles a valid primitive covers, a 0-d int32 tensor."""
+    return torch.max(torch.where(valid.to(torch.bool), n_cover, torch.zeros_like(n_cover))).to(torch.int32)
 
 
 def _tile_ranges(x0, x1, y0, y1, TX, TY):
@@ -311,6 +320,7 @@ def bin_sorted(
         dropped_budget=(torch.sum(over) + lost_cap).to(torch.int32),
         dropped_buffer=(torch.sum(counts - kept) + dropped_active).to(torch.int32),
         max_tile_entries=torch.max(counts).to(torch.int32),
+        most_tiles=_most_tiles(n_cover, valid),
     )
 
     if Dcap <= total_slots:
@@ -415,6 +425,7 @@ def bin_bboxes(
         dropped_budget=(torch.sum(over) + lost_cap).to(torch.int32),
         dropped_buffer=torch.sum(counts - kept).to(torch.int32),
         max_tile_entries=torch.max(counts).to(torch.int32),
+        most_tiles=_most_tiles(n_cover, valid),
     )
     return TileBinning(
         entry_gauss=packed >> 2,

@@ -8,7 +8,12 @@ phase: the state is subdivided and the optimizer rebuilt, with its decay
 schedule fast-forwarded to the global iteration.  No step waits for the
 device: the losses and the binning telemetry come back as device tensors
 (``GOMAVATAR_DEBUG_BINNING=1`` reads the drop counters after every step and
-fails on a drop, a sync per step).
+fails on a drop, a sync per step).  Under recording (``utils.profiling``)
+the telemetry is also counted every ``log_freq`` steps, the loop's cadence
+of reads: ``binning.most_tiles`` (the most tiles one splat covered since the
+last count), ``binning.dropped`` (the entries dropped since then) and
+``binning.budget`` (the per-splat budget in force); the first two stay
+device scalars until the records are read, so no step waits for them.
 
 The step runs as one program (``programs.py``), the counterpart of the JAX
 package's jitted step: on CUDA tensors one captured CUDA graph per phase,
@@ -62,7 +67,7 @@ from gomavatar_tpu_torch.optim import (
 from gomavatar_tpu_torch.ops.splat.binning import CHUNK
 from gomavatar_tpu_torch.ops.splat.tiled_jnp import NCMAX
 from gomavatar_tpu_torch.programs import Program
-from gomavatar_tpu_torch.utils.profiling import span
+from gomavatar_tpu_torch.utils.profiling import count, enabled, span
 
 log = logging.getLogger(__name__)
 
@@ -95,6 +100,8 @@ def train_loss(params: dict, statics: GoMStatics, gom_cfg: GoMConfig, loss_cfg: 
     # entries beyond the train kernels' per-tile chunk cap: the forward
     # truncates them
     losses["bin_drop_ncmax"] = torch.clamp_min(tel.max_tile_entries - NCMAX * CHUNK, 0)
+    # the most tiles one splat covered, against max_tiles_per_gaussian
+    losses["bin_most_tiles"] = tel.most_tiles
     return total, losses
 
 
@@ -178,6 +185,8 @@ class Trainer:
         self.lpips_calibrated = lpips_calibrated
         self.subdivide_iters = sorted(cfg["model"].get("subdivide_iters", []))
         self.device = torch.device(device)
+        self.log_freq = int(cfg["train"]["log_freq"])
+        self._binning = None  # (most tiles, dropped) since the last count, under recording
         if state is None:
             self.params, self.statics, self.gom_cfg = init_gom(cfg["model"], canonical_info, self.device,
                                                                prng.key(seed))
@@ -245,7 +254,28 @@ class Trainer:
                     f"buffer_factor / the kernels' NCMAX (GOMAVATAR_DEBUG_BINNING=1 makes this fatal)"
                 )
         self.i_iter += 1
+        if enabled():
+            self._count_binning(losses)
+        elif self._binning is not None:
+            self._binning = None
         return total, losses
+
+    def _count_binning(self, losses: dict) -> None:
+        """Keep the step's binning telemetry on the device (the most tiles of
+        any step, the dropped entries summed) and count it every ``log_freq``
+        steps (module docstring)."""
+        most = losses["bin_most_tiles"]
+        dropped = losses["bin_drop_budget"] + losses["bin_drop_buffer"] + losses["bin_drop_ncmax"]
+        if self._binning is None:
+            self._binning = (most.clone(), dropped)
+        else:
+            self._binning = (torch.maximum(self._binning[0], most), self._binning[1] + dropped)
+        if self.i_iter % self.log_freq == 0:
+            most, dropped = self._binning
+            count("binning.most_tiles", most)
+            count("binning.dropped", dropped)
+            count("binning.budget", self.gom_cfg.max_tiles_per_gaussian)
+            self._binning = None
 
     def forward(self, batch: dict, train: bool = False):
         """The frame at the current iteration: (rgb, mask, aux).  Eval

@@ -21,7 +21,8 @@ unless a ``torch.profiler`` session is open or a ``recording()`` block is
 its name, ``time.perf_counter()`` at its start and end, the name of the
 enclosing span on the same thread, the thread's id, its ``id`` (the item,
 call or iteration it belongs to) and its keyword attributes; a counter
-keeps its name, the time and ``n``.  Both go into one bounded buffer
+keeps its name, the time and ``n``, which may be a 0-d device tensor that
+``records`` reads (so that counting waits for nothing on the device).  Both go into one bounded buffer
 (``MAX_RECORDS``, the oldest dropped first), which ``records(since,
 until)`` reads by time.  While a profiler session is open a span is also a
 ``record_function`` range named ``gomavatar.<name>``, so the trace holds the
@@ -58,7 +59,7 @@ class Span(NamedTuple):
 class Count(NamedTuple):
     name: str
     t: float
-    n: int
+    n: int  # a 0-d tensor until ``records`` reads it
 
 
 _records: deque = deque(maxlen=MAX_RECORDS)
@@ -113,8 +114,9 @@ def span(name: str, id=None, **attrs):
     return _Span(name, id, attrs or None) if enabled() else _NOOP
 
 
-def count(name: str, n: int = 1) -> None:
-    """Count ``n`` events named ``name`` now, when recording."""
+def count(name: str, n=1) -> None:
+    """Count ``n`` events named ``name`` now, when recording; ``n`` an int
+    or a 0-d tensor, read by ``records``."""
     if enabled():
         _records.append(Count(name, time.perf_counter(), n))
 
@@ -135,8 +137,15 @@ def recording():
 
 def records(since: float = float("-inf"), until: float = float("inf")) -> list:
     """The kept spans that began, and counts taken, in [since, until)
-    (``time.perf_counter()``), oldest first."""
-    return [r for r in list(_records) if since <= (r.t0 if isinstance(r, Span) else r.t) < until]
+    (``time.perf_counter()``), oldest first; a count of a tensor with its
+    value read."""
+    out = []
+    for r in list(_records):
+        if since <= (r.t0 if isinstance(r, Span) else r.t) < until:
+            if isinstance(r, Count) and isinstance(r.n, torch.Tensor):
+                r = r._replace(n=r.n.item())
+            out.append(r)
+    return out
 
 
 class Timer:

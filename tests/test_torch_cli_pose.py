@@ -237,3 +237,36 @@ def test_point_cloud_exports_match_jax(i_iter, with_posevec):
         # the gates are open: the modules moved the vertices
         shut = TG.export_warped_pointcloud(tp, ts, tc, frame["cnl_gtfms"], frame["dst_Rs"], frame["dst_Ts"], i_iter=1e7)
         assert float((got_w["vertices"] - shut["vertices"]).abs().max()) > 1e-4
+
+
+def test_refine_frame_gives_mains_results(workspace, refined):
+    """main's per-frame body is ``refine_frame``: on each test frame from the
+    dataset's pose it gives main's losses, dropped entries and pose.pkl,
+    and equals the optimizer's outputs read directly."""
+    from gomavatar_tpu_torch.config import make_cfg
+    from gomavatar_tpu_torch.data.dataset import TrainDataset, to_device
+
+    cfg = make_cfg(workspace["cfg_path"])
+    d = cfg["dataset"]["test_view"]
+    dataset = TrainDataset(d["dataset_path"], bgcolor=cfg["bgcolor"], skip=d.get("skip", 1),
+                           target_size=cfg["img_size"])
+    trainer = Trainer(cfg, dataset.get_canonical_info(), device="cpu")
+    trainer.load_for_eval(os.path.join(cfg["save_dir"], "checkpoints"))
+    optimize = pose_cli.make_pose_optimizer(trainer.gom_cfg, cfg["train"]["losses"], cfg["pose"], POSE_ITERS)
+    with open(refined["pose_path"], "rb") as f:
+        saved = pickle.load(f)
+    for i in range(FRAMES):
+        item = dataset[i]
+        batch = to_device(item, "cpu")
+        pose = np.asarray(item["dst_poses"], np.float32)
+        r = pose_cli.refine_frame(optimize, trainer.params, trainer.statics, None, batch, pose, position=i)
+        best, best_loss, losses, drops = optimize(trainer.params, trainer.statics, None, batch, torch.as_tensor(pose))
+        np.testing.assert_array_equal(r.losses, losses.numpy())
+        assert (r.best_loss, r.dropped, r.first_loss) == (float(best_loss), int(drops.sum()), float(losses[0]))
+        assert r.finite and r.most_tiles == int(optimize.most_tiles) > 0
+        for got, key in ((r.Rh, "Rh"), (r.Th, "Th"), (r.poses, "poses")):
+            np.testing.assert_array_equal(got, best[key].numpy(), err_msg=key)
+        assert (r.first_loss, r.best_loss, r.dropped) == (refined["first_loss"][i], refined["best_loss"][i],
+                                                          refined["dropped"][i])
+        for got, key in ((r.Rh, "Rhs"), (r.Th, "Ths"), (r.poses, "dst_poses")):
+            np.testing.assert_array_equal(got, saved[key][i], err_msg=key)

@@ -126,7 +126,8 @@ def test_trainer_seed_gives_jaxs_params(trainers):
 
 def test_trainer_first_step_matches_jax(trainers):
     _, (jl, j_mu), (tl, t_mu, ttr) = trainers
-    assert set(jl) == set(tl)
+    # the port's telemetry adds the most tiles one splat covered
+    assert set(jl) == set(tl) - {"bin_most_tiles"} and tl["bin_most_tiles"] > 0
     for k in jl:
         np.testing.assert_allclose(tl[k], jl[k], rtol=LOSS_RTOL_STEP0, err_msg=k)
     names = [k for k in sorted(ttr.params) for _ in tree_leaves(ttr.params[k])]

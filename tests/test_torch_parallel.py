@@ -120,10 +120,12 @@ def dp_runs(info):
 def test_data_parallel_step_matches_jax(dp_runs):
     j, t = dp_runs["jax"], dp_runs["two"][0]
     # JAX's data-parallel step returns no binning telemetry; the port's
-    # (its trainer's) must show no drop
+    # (its trainer's) must show no drop, and some splat covering tiles
     extra = set(t["losses"][0]) - set(j["losses"])
-    assert extra == {"bin_drop_budget", "bin_drop_buffer", "bin_drop_ncmax"}
-    assert all(t["losses"][0][k] == 0 for k in extra)
+    drops = {"bin_drop_budget", "bin_drop_buffer", "bin_drop_ncmax"}
+    assert extra == drops | {"bin_most_tiles"}
+    assert all(t["losses"][0][k] == 0 for k in drops)
+    assert t["losses"][0]["bin_most_tiles"] > 0
     assert {"total", "rgb", "mask"} <= set(j["losses"])
     for k, want in j["losses"].items():
         np.testing.assert_allclose(t["losses"][0][k], want, rtol=LOSS_RTOL, err_msg=k)

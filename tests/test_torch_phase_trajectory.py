@@ -144,7 +144,8 @@ def runs():
 
 def test_loss_terms_match_jax_through_the_split(runs):
     for step, ((j, _, _), (t, _, _), w) in enumerate(zip(runs["jax"], runs["port"], runs["witness"])):
-        assert set(j) == set(t) == set(w), step
+        # the port's telemetry adds the most tiles one splat covered
+        assert set(j) == set(t) - {"bin_most_tiles"} == set(w) and t["bin_most_tiles"] > 0, step
         terms = [k for k in j if not k.startswith("bin_drop")]
         for k in set(j) - set(terms):
             assert t[k] == j[k] == 0, (step, k)

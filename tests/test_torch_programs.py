@@ -230,7 +230,7 @@ def test_pose_step_bakes_no_host_value(scene, lpips_params, kernels_as_single_op
         leaves = [torch.zeros(3), torch.zeros(3), poses.clone()]
         opt = tx.init(leaves)._replace(count=counter(count, "cpu"))
         return TP.PoseCarry(leaves, opt, [t.clone() for t in leaves], torch.tensor(float("inf")), torch.zeros(4),
-                            torch.zeros(4, dtype=torch.int32))
+                            torch.zeros(4, dtype=torch.int32), torch.zeros((), dtype=torch.int32))
 
     step(params, statics, lpips_params, batch, carry(0), torch.tensor(1e7))  # the warm-up
     carries = [carry(1), carry(2)]

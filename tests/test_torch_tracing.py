@@ -267,3 +267,141 @@ def test_threads_record_every_span_under_fast_switching():
     for k in range(n_threads):
         assert len({s.thread for s in inner if s.id == k}) == 1
     assert len(kept(t, P.Count)) == n_threads * n_spans
+
+
+# -- the pose loop and the train step's binning counters --------------------------------
+
+
+@pytest.fixture(scope="module")
+def snapshot(tmp_path_factory):
+    """The snapshot_m3c configuration at 80^2 (5 x 5 tiles) on the
+    benchmark's tiny avatar: (cell, the program's state, a test frame, a
+    trunk)."""
+    import torch_snapshot_scene as S
+
+    c = S.cell(tmp_path_factory.mktemp("tracing_snapshot"), size=80)
+    cfg = c.program_cfg()
+    return c, cfg, c.program_state(cfg), S.pose_frames(c)[0], S.trunk()
+
+
+def _refine(snapshot, position=None):
+    import torch_snapshot_scene as S
+    from gomavatar_tpu_torch.cli.train_pose import make_pose_optimizer, refine_frame
+
+    c, cfg, (params, statics, gom_cfg), frame, trunk = snapshot
+    optimize = make_pose_optimizer(gom_cfg, cfg["train"]["losses"], cfg["pose"], 2)
+    return refine_frame(optimize, params, statics, trunk, S.batch(frame), frame["poses"], position=position)
+
+
+def _trainer(snapshot, log_freq):
+    from gomavatar_tpu_torch.trainer import Trainer
+
+    c, cfg, (params, statics, gom_cfg), frame, trunk = snapshot
+    cfg = type(cfg).from_dict(cfg)
+    cfg["train"]["log_freq"] = log_freq
+    params = {k: v.clone() if isinstance(v, torch.Tensor) else v for k, v in params.items()}
+    return Trainer(cfg, lpips_params=trunk, device="cpu", state=(params, statics, gom_cfg, 150000, 1))
+
+
+def _train_batch(snapshot):
+    from portbench.reference.data import pose_inputs
+
+    frame = snapshot[3]
+    cj = frame["dst_tpose_joints"]
+    b = {k: torch.as_tensor(frame[k]) for k in ("K", "E", "bgcolor", "target_rgbs", "target_masks")}
+    b.update({k: torch.as_tensor(v) for k, v in pose_inputs(frame["poses"], cj.copy(), cj).items()})
+    return b
+
+
+def test_pose_refinement_records_its_spans_and_counters(snapshot):
+    t = time.perf_counter()
+    with P.recording():
+        r = _refine(snapshot, position=5)
+    spans = kept(t)
+    refine = [s for s in spans if s.name == "pose.refine"]
+    read = [s for s in spans if s.name == "pose.read"]
+    assert len(refine) == len(read) == 1
+    assert refine[0].id == 5 and refine[0].attrs == {"iters": 2} and read[0].parent == "pose.refine"
+    assert refine[0].t0 <= read[0].t0 and read[0].t1 <= refine[0].t1
+    calls = [s for s in spans if s.name == "program.call"]
+    assert len(calls) == 2 and all(s.parent == "pose.refine" for s in calls)
+    counts = {c.name: c.n for c in kept(t, P.Count)}
+    budget = snapshot[2][2].max_tiles_per_gaussian
+    assert counts == {"pose.steps": 2, "binning.dropped": r.dropped, "binning.most_tiles": r.most_tiles,
+                      "binning.budget": budget}
+    assert r.dropped == 0 and 0 < r.most_tiles < budget
+
+
+def test_pose_spans_are_profiler_ranges(snapshot, tmp_path):
+    path = tmp_path / "trace.json"
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU],
+                                on_trace_ready=lambda p: p.export_chrome_trace(str(path))):
+        _refine(snapshot, position=0)
+    events = [e for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("ph") == "X" and e.get("name", "").startswith(P.PREFIX + "pose.")]
+    by = {e["name"]: e for e in events}
+    assert sorted(e["name"] for e in events) == ["gomavatar.pose.read", "gomavatar.pose.refine"]
+    outer, inner = by["gomavatar.pose.refine"], by["gomavatar.pose.read"]
+    assert outer["ts"] <= inner["ts"] and inner["ts"] + inner["dur"] <= outer["ts"] + outer["dur"]
+
+
+def _direct_most_tiles(snapshot, params, batch) -> int:
+    """The most tiles one face's union box covers, counted from the plain
+    reference's own binning (no budget: each face has an entry per tile
+    of its box)."""
+    import math
+
+    from portbench.reference import model as RM
+
+    c = snapshot[0]
+    rcfg, mesh, _, _, _ = c.reference_state()
+    model = rcfg["model"]
+    W, H = size = (c.config["frame_size"],) * 2
+    with torch.no_grad():
+        verts = RM.posed_vertices(params, model, mesh, batch, 150000.0)
+        tri = verts[mesh.faces]
+        cov = RM.covariances(tri, params["so3"], params["scale"], model["canonical_geometry"]["sigma"])
+        mean2d, _, depth, radius, valid = RM.project_gaussians(tri.mean(dim=1), cov, batch["K"], batch["E"], size)
+        xy, _, in_front = RM.project_triangles(tri, batch["K"], batch["E"])
+        margin = math.sqrt(math.log(1.0 / 1e-4 - 1.0) * model["normal_renderer"]["sigma"]) / (2.0 / min(W, H)) + 1.0
+        e_face, _, _, e_valid, *_ = RM.union_bins(mean2d, radius, valid, depth, xy, in_front, size, margin)
+    return int(torch.bincount(e_face[e_valid > 0]).max())
+
+
+def test_train_step_counts_the_binning_at_the_loops_reads(snapshot):
+    """Under recording, ``Trainer.step`` counts every ``log_freq`` steps:
+    the most tiles of its steps (a device scalar until read; equal to a
+    direct count of the first step's frame), their drops and the budget."""
+    from portbench.reference.step import leaves, rebuild
+
+    tr = _trainer(snapshot, log_freq=2)
+    batch = _train_batch(snapshot)
+    first = rebuild(tr.params, [p.detach().clone() for p in leaves(tr.params)])
+    t = time.perf_counter()
+    with P.recording():
+        most = []
+        for _ in range(4):
+            _, losses = tr.step(batch)
+            most.append(int(losses["bin_most_tiles"]))
+    counts = kept(t, P.Count)
+    assert [(c.name, type(c.n)) for c in counts] == [("binning.most_tiles", int), ("binning.dropped", int),
+                                                      ("binning.budget", int)] * 2
+    assert [c.n for c in counts if c.name == "binning.most_tiles"] == [max(most[:2]), max(most[2:])]
+    assert [c.n for c in counts if c.name == "binning.dropped"] == [0, 0]
+    assert {c.n for c in counts if c.name == "binning.budget"} == {tr.gom_cfg.max_tiles_per_gaussian}
+    assert most[0] == _direct_most_tiles(snapshot, first, batch) > 1
+
+
+def test_pose_and_train_counters_off_read_no_clock(snapshot, monkeypatch):
+    def boom(*a, **k):
+        raise AssertionError("called while recording is off")
+
+    tr = _trainer(snapshot, log_freq=1)
+    batch = _train_batch(snapshot)
+    before = len(P._records)
+    monkeypatch.setattr(P, "time", types.SimpleNamespace(perf_counter=boom))
+    monkeypatch.setattr(torch.profiler, "record_function", boom)
+    assert not P.enabled()
+    _refine(snapshot, position=1)
+    tr.step(batch)
+    assert len(P._records) == before and tr._binning is None
