@@ -238,14 +238,31 @@ Phases, each fatal on failure:
         the default algorithms, B2a-B5 once per step; then the captured
         step with the converted and with the random trunk timed in turns
         (20 steps each after 3, CUDA events).
+ 11. the train data on the card and the grown budget, from the benchmark's
+     two train cells (``portbench/``: their frames, 96 at 1024^2 and 96 at
+     540^2, and their state, from the seed CARD_DATA_SEED):
+     a. every frame's item from ``cli.train.train_dataset`` on the card (its
+        store; the composite and resizes by ``csrc/composite_resize.cu``)
+        bit-equal to the same item by the host's float64 composite and
+        cv2.resize, and the kernel bit-equal to its plain float64 version
+        on the card at the same background, at 1024^2 -> 512^2 and 540^2
+        -> 544^2; the kernel's ms (CUDA events) and an item's host ms on
+        both paths;
+     b. ``zju377.train``'s loop from its state for BUDGET_STEPS steps in a
+        child process under GOMAVATAR_DEBUG_BINNING=1 (the trainer reads
+        its three drop counters after every step and fails on a drop),
+        which must exit with 0: the per-splat budget as it grew, the widest
+        splat over each 10 steps and the wall time of each step that
+        captured a grown program.
+     Alone: ``python3 -c "import chip_smoke as s; s.phase_card_data(s.card_line())"``.
 The programs' warm-up and capture are set-up: the launches they count are
 taken back, and every replay adds the captured call's launches, so a count
 is one per frame or step on every path, as the eager paths gave it.
 Kernel times are CUDA events around back-to-back calls after a warm-up;
 each part of a two-launch kernel also prints its device time (the calls
 queued behind a device-side sleep) beside it, as a diagnostic.
-Each phase prints its seconds. The last eleven lines are phase 10's numbers
-as JSON, phase 9's numbers as JSON, phase 8's numbers as JSON, phase 7's numbers as JSON, the pose and
+Each phase prints its seconds. The last twelve lines are phase 11's numbers
+as JSON, phase 10's numbers as JSON, phase 9's numbers as JSON, phase 8's numbers as JSON, phase 7's numbers as JSON, the pose and
 animation numbers as JSON, the drivers' numbers as JSON, the forward
 timings as JSON, the train-step timings as JSON, the kernels JSON line
 (each kernel's launches on phase 7's paths under ``parallel_launches``, on
@@ -4057,6 +4074,143 @@ KERNELS = {
 }
 
 
+# phase 11: the train data on the card and the per-splat budget that grows
+# with the state; the benchmark's two train cells' frames and state, from a
+# seed of their own
+CARD_DATA_CELLS = ("zju377.train", "snapshot_m3c.train")
+CARD_DATA_SEED = 3141592653
+BUDGET_STEPS = 3000
+BUDGET_CHILD_TIMEOUT_S = 1500
+
+
+def benchmark_cell(workload: str, seed: int, tmp: str):
+    """The ``Driver`` of the benchmark cell ``workload`` (``portbench/``) after
+    its set-up: its train frames written under ``tmp``, the program's state
+    loaded, its first steps taken."""
+    from portbench import run as bench_run
+    from portbench.lib import harness
+
+    spec = bench_run.resolve(bench_run.read_json("BENCHMARK.json"), workload)
+    driver = bench_run.load_file(spec["driver"], "smoke_driver_" + spec["mix"]["driver"])
+    drv = driver.Driver(harness.Cell(workload, spec["config"], spec["mix"], seed, torch.device("cuda", 0), tmp))
+    drv.setup()
+    return drv
+
+
+def card_composite(drv) -> dict:
+    """11a on one cell: each train frame's item from the dataset on the card
+    (its store, the kernel on it) against the same item by the host's cv2
+    path, and the kernel against its plain version on the card, at the same
+    background, all bit for bit; the kernel's device ms and each path's host
+    ms an item for frames in their store."""
+    from gomavatar_tpu_torch.cli.train import train_dataset
+    from gomavatar_tpu_torch.data.composite import composite_resize, composite_resize_plain
+    from gomavatar_tpu_torch.data.dataset import CardArray
+
+    name, ds = drv.cell.workload, drv.dataset
+    cfg = drv.cell.program_cfg()
+    cfg["dataset"]["train"]["dataset_path"] = drv.cell.tmp
+    host = train_dataset(cfg, device="cpu")
+    require(ds._card_dev is not None and host._card_dev is None, f"11a: {name}: the stores are not card and host")
+    w, h = ds.target_size
+    for i in range(len(ds)):
+        a, b = (d.item(i, np.random.default_rng((CARD_DATA_SEED, i))) for d in (ds, host))
+        for k in ("target_rgbs", "target_masks"):
+            require(isinstance(a[k], CardArray), f"11a: {name} frame {i}: {k} was not made on the card")
+            require(np.array_equal(np.asarray(a[k]), b[k]), f"11a: {name} frame {i}: {k} differs from the host's")
+        img, mask = ds._card[a["frame_name"]]
+        bg = (np.random.default_rng((CARD_DATA_SEED, i, 1)).random(3) * 255.0).astype(np.float32)
+        kernel, plain = composite_resize(img, mask, bg, (h, w)), composite_resize_plain(img, mask, bg, (h, w))
+        for k, p, label in zip(kernel, plain, ("image", "mask")):
+            require(torch.equal(k, p), f"11a: {name} frame {i}: the kernel's {label} differs from the plain version's")
+    require(len(ds._card) == len(ds), f"11a: {name}: {len(ds._card)} of {len(ds)} frames on the card")
+    item_ms = {}
+    for label, d in (("card", ds), ("host", host)):
+        t0 = time.perf_counter()
+        for i in range(len(d)):
+            item = d.item(i, np.random.default_rng((CARD_DATA_SEED, i)))
+        if label == "card":
+            item["target_masks"].event.synchronize()
+        item_ms[label] = (time.perf_counter() - t0) * 1e3 / len(d)
+    img, mask = ds._card[ds.framelist[0]]
+    ms = cuda_ms(lambda: composite_resize(img, mask, bg, (h, w)), KERNEL_ITERS)
+    out = {"frames": len(ds), "src": list(img.shape[:2]), "out": [h, w], "kernel_ms": ms,
+           "item_ms": item_ms, "card_store_bytes": ds._card_bytes}
+    print(f"  11a {name}: {len(ds)} frames {tuple(img.shape[:2])} -> {(h, w)} bit-equal to the host's and the "
+          f"plain version's; kernel {ms:.4f} ms; an item {item_ms['card']:.2f} ms on the card path, "
+          f"{item_ms['host']:.2f} ms on the host's (stored frames); store {ds._card_bytes / 2**20:.1f} MiB")
+    return out
+
+
+def budget_run_child(steps: int, seed: int, out: str) -> None:
+    """11b's child, under GOMAVATAR_DEBUG_BINNING=1 (the trainer reads its
+    three drop counters after every step and fails on a drop): the
+    ``zju377.train`` cell's loop from its state for ``steps`` steps, the
+    per-splat budget as it grows, the widest splat over every 10 steps, and
+    the wall time of each step that captured a grown step's program beside
+    the median step, into the JSON file ``out``."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        drv = benchmark_cell("zju377.train", seed, tmp)
+        tr = drv.trainer
+        hist = {"budget": [[0, tr.step_cfg.max_tiles_per_gaussian]], "widest_per_10": [], "capture_step_s": []}
+        widest, times, grew = 0, [], False
+        t_loop = time.perf_counter()
+        for k in range(1, steps + 1):
+            t0 = time.perf_counter()
+            _, losses = drv.step()
+            widest = max(widest, int(losses["bin_most_tiles"]))
+            times.append(time.perf_counter() - t0)
+            if grew:
+                hist["capture_step_s"].append([k, times[-1]])
+            budget = tr.step_cfg.max_tiles_per_gaussian
+            grew = budget != hist["budget"][-1][1]
+            if grew:
+                hist["budget"].append([k, budget])
+            if k % 10 == 0:
+                hist["widest_per_10"].append(widest)
+                widest = 0
+        hist.update(steps=steps, loop_s=time.perf_counter() - t_loop, median_step_s=statistics.median(times),
+                    failed=int(drv.counts()[1]), captures=tr._step_fn.captures)
+    with open(out, "w") as f:
+        json.dump(hist, f)
+
+
+def phase_card_data(card: str) -> dict:
+    """Phase 11: 11a (:func:`card_composite`) on both train cells; 11b
+    (:func:`budget_run_child`) in a child process that must exit with 0: no
+    step of BUDGET_STEPS drops an entry."""
+    import tempfile
+
+    result = {}
+    for name in CARD_DATA_CELLS:
+        with tempfile.TemporaryDirectory() as tmp:
+            drv = benchmark_cell(name, CARD_DATA_SEED, tmp)
+            result[name] = card_composite(drv)
+            del drv
+            torch.cuda.empty_cache()
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(here, "build"), exist_ok=True)
+    out = os.path.join(here, "build", "smoke_budget_run.json")
+    env = dict(os.environ, GOMAVATAR_DEBUG_BINNING="1")
+    code = f"import chip_smoke; chip_smoke.budget_run_child({BUDGET_STEPS}, {CARD_DATA_SEED}, {out!r})"
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code], cwd=here, env=env, capture_output=True, text=True,
+                          timeout=BUDGET_CHILD_TIMEOUT_S)
+    require(proc.returncode == 0, f"11b: the {BUDGET_STEPS}-step run failed (exit {proc.returncode}):\n"
+                                  f"{proc.stderr[-4000:]}")
+    with open(out) as f:
+        hist = json.load(f)
+    require(hist["failed"] == 0, f"11b: {hist['failed']} steps dropped an entry or lost the loss")
+    print(f"  11b {BUDGET_STEPS} steps of zju377.train from its state under GOMAVATAR_DEBUG_BINNING=1 in "
+          f"{time.perf_counter() - t0:.1f} s: no drop; budget {hist['budget']}, widest splat "
+          f"{max(hist['widest_per_10'])} tiles; capturing steps {hist['capture_step_s']} s against a median "
+          f"{hist['median_step_s']:.4f} s ({card})")
+    result["budget_run"] = hist
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test runs on an NVIDIA GPU", file=sys.stderr)
@@ -4124,6 +4278,9 @@ def main() -> int:
     t0 = time.perf_counter()
     calibrated = phase_calibrated_lpips(trained, f"{DRIVER_DIR}/exp.yaml", card)
     done(10, t0)
+    t0 = time.perf_counter()
+    card_data = phase_card_data(card)
+    done(11, t0)
 
     measured = {"B1": dict(b1, launches=b1_launches["B1"])}
     for k in ("B2", "B3", "B4", "B5"):
@@ -4150,6 +4307,7 @@ def main() -> int:
         entry["sweep_launches"] = sum(draws["9d"]["launches"][q] for q in ([k] if k == "B5" else [f"{k}a", f"{k}b"]))
         entry["calibrated_launches"] = calibrated_launches(k, calibrated)
         result["kernels"].append(entry)
+    print(json.dumps({"card_data": card_data}))
     print(json.dumps({"calibrated_lpips": calibrated}))
     print(json.dumps({"seeded_draws": draws}))
     print(json.dumps({"e2e": e2e}))

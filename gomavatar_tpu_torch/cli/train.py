@@ -169,10 +169,12 @@ def evaluate_test_split(trainer: Trainer, cfg, tb):
     return evaluate_on(trainer, ds, tb, "test", cfg["random_bgcolor"], max_items=8, protocol=protocol)
 
 
-def train_dataset(cfg) -> TrainDataset:
+def train_dataset(cfg, device=None) -> TrainDataset:
     """The train split of the exp config, native decode when asked for and
     available; the loop reads every frame each epoch, so the dataset keeps
-    each frame's decoded pixels after its first read (``retain``)."""
+    each frame's decoded pixels after its first read (``retain``), on the
+    card of ``device`` where it is one (by default the current CUDA device
+    where there is one), which then composites and resizes each item."""
     dcfg = cfg["dataset"]["train"]
     use_native = bool(dcfg.get("use_native", False))
     if use_native:
@@ -195,6 +197,7 @@ def train_dataset(cfg) -> TrainDataset:
         split_for_pose=dcfg["split_for_pose"],
         use_native=use_native,
         retain=True,
+        device=device if device is not None else ("cuda" if torch.cuda.is_available() else None),
     )
 
 
@@ -250,7 +253,7 @@ def train(args, device: torch.device, group=None) -> Trainer:
         logging.basicConfig(level=logging.WARNING, force=True)
 
     tcfg = cfg["train"]
-    dataset = train_dataset(cfg)
+    dataset = train_dataset(cfg, device)
     logging.info("train frames: %d", len(dataset))
     if len(dataset) < world:
         raise SystemExit(f"--data_parallel {world} needs at least {world} train frames, found {len(dataset)}")

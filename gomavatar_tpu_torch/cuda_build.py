@@ -17,15 +17,17 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
-KERNEL_SOURCES = ("frame_render", "splat_composite", "mesh_raster")
+KERNEL_SOURCES = ("frame_render", "splat_composite", "mesh_raster", "composite_resize")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_load_lock = threading.Lock()  # loaders on several threads (the dataset's workers) build once
 
 
 def _nvcc() -> str:
@@ -84,9 +86,12 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
     lib = _loaded.get(name)
     if lib is None:
-        build_all((name,))
-        lib = ctypes.CDLL(str(library_path(name)))
-        _loaded[name] = lib
+        with _load_lock:
+            lib = _loaded.get(name)
+            if lib is None:
+                build_all((name,))
+                lib = ctypes.CDLL(str(library_path(name)))
+                _loaded[name] = lib
     return lib
 
 

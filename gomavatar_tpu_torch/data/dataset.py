@@ -4,7 +4,9 @@ novel pose (port of gomavatar_tpu/data/dataset.py).
 Host-side numpy pipelines: items are plain numpy dicts with the reference's
 key set, equal to the JAX package's item for item under the same rng seed;
 ``to_device`` turns one into float32 tensors on the device, and the thread
-``Prefetcher`` overlaps host decode with the device's step.
+``Prefetcher`` overlaps host decode with the device's step.  A train item
+of a frame kept on the card holds its target image and mask there
+(``CardArray``), composited and resized by the card (``data/composite.py``).
 
 The artifact format is the reference's preprocessed directory (images/*.png,
 masks/*.png, cameras.pkl, mesh_infos.pkl, canonical_joints.pkl).
@@ -26,6 +28,7 @@ except Exception:  # pragma: no cover
 
 import torch
 
+from gomavatar_tpu_torch.data.composite import composite_resize
 from gomavatar_tpu_torch.ops.camera import (
     apply_global_tfm_to_camera,
     rotate_camera_by_frame_idx,
@@ -84,6 +87,37 @@ def _load_image(path):
 def _available_memory_bytes() -> int:
     """The host's available physical memory now."""
     return os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
+
+
+class CardArray:
+    """A float32 array that an item holds on the card: the output of a
+    launch on the dataset's stream, complete once ``event`` has passed.
+    ``np.asarray`` gives its host copy, after the launch; ``to_device``
+    hands the tensor itself to the consuming stream (:meth:`on`)."""
+
+    def __init__(self, tensor: torch.Tensor, event):
+        self.tensor, self.event = tensor, event
+
+    def __array__(self, dtype=None, copy=None):
+        if self.event is not None:
+            self.event.synchronize()
+        a = self.tensor.cpu().numpy()
+        return a if dtype is None else a.astype(dtype, copy=False)
+
+    def on(self, device) -> torch.Tensor:
+        """The array on ``device``: on its own card the tensor, which the
+        current stream takes after the launch (and holds until it is done
+        with it), elsewhere a copy."""
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        if device == self.tensor.device:
+            if self.event is not None:
+                stream = torch.cuda.current_stream(device)
+                stream.wait_event(self.event)
+                self.tensor.record_stream(stream)
+            return self.tensor
+        return torch.from_numpy(np.asarray(self)).to(device)
 
 
 class _ThreadSafeRng:
@@ -182,10 +216,26 @@ class TrainDataset(_ArtifactsMixin):
     and crop anew, so its arrays are those of a fresh read bit for bit.  A
     frame is stored while the store stays under half of the host's
     available physical memory at construction; past that, frames are read
-    each time, with no eviction.  Counters (``utils.profiling``) per item
-    of the cv2 path: ``data.decode_cache_hit`` or ``data.decode_cache_miss``
+    each time, with no eviction.
+
+    With a CUDA ``device`` the store is on that card first (the mask one
+    channel), under its own room, half of the card's free memory at
+    construction; a frame past it goes to the host's.  Every item of a
+    frame on the card, its first read included, is composited and resized
+    there by one launch on the dataset's own stream
+    (``data/composite.py``), bit for bit the host's float64 composite and
+    OpenCV resizes: its ``target_rgbs`` and ``target_masks`` are
+    ``CardArray``s, which ``to_device`` hands over as they are.  Random
+    crops keep the host path.  Counters (``utils.profiling``) per item of
+    the cv2 path: ``data.decode_cache_hit`` or ``data.decode_cache_miss``
     (a miss has the ``data.read`` and ``data.undistort`` spans, a hit
-    neither)."""
+    neither), and ``data.device_composite`` or ``data.host_composite``; the
+    span ``data.composite_resize`` is the host's composite, or on the card
+    its launch."""
+
+    # the device types whose store and composite are the device's (the CPU
+    # only in tests: its plain version is slower than OpenCV's)
+    CARD_TYPES = ("cuda",)
 
     def __init__(
         self,
@@ -200,13 +250,16 @@ class TrainDataset(_ArtifactsMixin):
         rng=None,
         use_native=False,
         retain=False,
+        device=None,
     ):
         """``use_native=True`` routes decode through the fused C++ pipeline
         (native/gom_host.cpp: undistort, resize and composite in one
         bilinear pass) instead of the reference-parity cv2 path (undistort,
         composite, Lanczos resize as three passes), which the store does
         not serve.  ``retain=True`` fills the store as frames are first
-        read (for a caller that reads each frame many times)."""
+        read (for a caller that reads each frame many times); ``device``,
+        where it is a CUDA device (a type of ``CARD_TYPES``), keeps the
+        store on that card."""
         self._load_artifacts(dataset_path)
         self.use_native = use_native
         if use_native:
@@ -230,6 +283,20 @@ class TrainDataset(_ArtifactsMixin):
         self._cache_bytes = 0
         self._cache_room = _available_memory_bytes() // 2 if retain or prefetch else 0
         self._cache_lock = threading.Lock()
+        # the card's store: frame name -> (uint8 image, uint8 one-channel mask) on self._card_dev
+        self._card, self._card_bytes, self._card_room = {}, 0, 0
+        self._card_dev = self._card_stream = None
+        device = torch.device(device) if device is not None else None
+        if (retain or prefetch) and device is not None and device.type in self.CARD_TYPES and not use_native \
+                and target_size is not None and self.crop_size == (-1, -1):
+            if device.type == "cuda":
+                if device.index is None:
+                    device = torch.device("cuda", torch.cuda.current_device())
+                self._card_room = torch.cuda.mem_get_info(device)[0] // 2
+                self._card_stream = torch.cuda.Stream(device)
+            else:
+                self._card_room = _available_memory_bytes() // 2
+            self._card_dev = device
         if prefetch:
             for fn in self.framelist:
                 self._keep(fn, *self._load_raw(fn))
@@ -255,30 +322,61 @@ class TrainDataset(_ArtifactsMixin):
         return img, alpha
 
     def _keep(self, frame_name, img, alpha):
-        """Store the frame's arrays while the store has room."""
+        """Store the frame's arrays while a store has room, the card's
+        first; returns what the card's store keeps, or None."""
         if alpha.ndim == 3 and alpha.shape[-1] == 3 and (alpha == alpha[..., :1]).all():
             alpha = np.ascontiguousarray(alpha[..., 0])
-        for a in (img, alpha):
-            a.flags.writeable = False
         nbytes = img.nbytes + alpha.nbytes
         with self._cache_lock:
-            if frame_name not in self._cache and self._cache_bytes + nbytes <= self._cache_room:
+            if frame_name in self._card or frame_name in self._cache:
+                return None
+            if (self._card_dev is not None and alpha.ndim == 2 and img.shape == alpha.shape + (3,)
+                    and self._card_bytes + nbytes <= self._card_room):
+                with torch.cuda.stream(self._card_stream):
+                    kept = tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in (img, alpha))
+                    if self._card_stream is not None:
+                        kept = tuple(t.pin_memory().to(self._card_dev, non_blocking=True) for t in kept)
+                self._card[frame_name] = kept
+                self._card_bytes += nbytes
+                return kept
+            if self._cache_bytes + nbytes <= self._cache_room:
+                for a in (img, alpha):
+                    a.flags.writeable = False
                 self._cache[frame_name] = (img, alpha)
                 self._cache_bytes += nbytes
+        return None
 
     def _decoded(self, frame_name):
-        """The frame's undistorted ``uint8`` image and three-channel mask:
-        from the store, or read (and stored where the caller retains)."""
-        kept = self._cache.get(frame_name)
+        """The frame's undistorted ``uint8`` image and mask: from the card's
+        store (its tensors, the mask one channel) or the host's (the mask
+        three channels), or read (and stored where the caller retains)."""
+        kept = self._card.get(frame_name)
+        if kept is None:
+            kept = self._cache.get(frame_name)
         if kept is None:
             count("data.decode_cache_miss")
             img, alpha = self._load_raw(frame_name)
             if self.retain:
-                self._keep(frame_name, img, alpha)
-            return img, alpha
+                kept = self._keep(frame_name, img, alpha)
+            return (img, alpha) if kept is None else kept
         count("data.decode_cache_hit")
         img, alpha = kept
+        if isinstance(img, torch.Tensor):
+            return img, alpha
         return img, alpha[..., None].repeat(3, axis=-1) if alpha.ndim == 2 else alpha
+
+    def _composite_on_card(self, img, mask, bgcolor):
+        """(target image, target mask) as ``CardArray``s: the composite and
+        resizes of the frame on the card, launched on the dataset's
+        stream."""
+        w, h = self.target_size
+        with span("data.composite_resize"), torch.cuda.stream(self._card_stream):
+            rgb, m = composite_resize(img, mask, bgcolor, (h, w))
+            done = None
+            if self._card_stream is not None:
+                done = torch.cuda.Event()
+                done.record(self._card_stream)
+        return CardArray(rgb, done), CardArray(m, done)
 
     def _composite_resize(self, img, alpha, bgcolor):
         with span("data.composite_resize"):
@@ -355,11 +453,17 @@ class TrainDataset(_ArtifactsMixin):
                     cam.get("distortions"), bgcolor, out_hw,
                 )
             alpha = alpha[..., None].repeat(3, -1)
+            img = (img / 255.0).astype(np.float32)
         else:
             img, alpha = self._decoded(frame_name)
             orig_H, orig_W = img.shape[:2]
-            img, alpha = self._composite_resize(img.astype(np.float32), alpha / 255.0, bgcolor)
-        img = (img / 255.0).astype(np.float32)
+            if isinstance(img, torch.Tensor):
+                count("data.device_composite")
+                img, alpha = self._composite_on_card(img, alpha, bgcolor)
+            else:
+                count("data.host_composite")
+                img, alpha = self._composite_resize(img.astype(np.float32), alpha / 255.0, bgcolor)
+                img = (img / 255.0).astype(np.float32)
 
         skel = self.query_dst_skeleton(frame_name)
         K = self.cameras[frame_name]["intrinsics"][:3, :3].copy()
@@ -382,7 +486,8 @@ class TrainDataset(_ArtifactsMixin):
             "E": E.astype(np.float32),
             "global_tfms": global_tfms.astype(np.float32),
             "target_rgbs": img,
-            "target_masks": alpha[..., 0].astype(np.float32) if alpha.ndim == 3 else alpha.astype(np.float32),
+            "target_masks": (alpha if isinstance(alpha, CardArray)
+                             else alpha[..., 0].astype(np.float32) if alpha.ndim == 3 else alpha.astype(np.float32)),
         }
         out.update(self._skeleton_outputs(skel["poses"], skel["dst_tpose_joints"]))
         out["joints"] = get_joints_from_pose_np(skel["poses"], skel["dst_tpose_joints"])
@@ -660,12 +765,15 @@ def to_device(batch: dict, device="cuda") -> dict:
     """numpy item -> float32 tensors on ``device``, the non-array keys
     dropped.  For a CUDA device the copy goes through pinned memory without
     blocking, so that it queues behind the device's work instead of waiting
-    for it."""
+    for it; a ``CardArray`` already on it is handed over as it is."""
     device = torch.device(device)
     out = {}
     with span("data.to_device"):
         for k, v in batch.items():
             if k in EXCLUDE_KEYS:
+                continue
+            if isinstance(v, CardArray):
+                out[k] = v.on(device)
                 continue
             t = torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32))
             out[k] = t.pin_memory().to(device, non_blocking=True) if device.type == "cuda" else t.to(device)

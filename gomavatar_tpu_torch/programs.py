@@ -127,13 +127,16 @@ def _tick(delta: dict) -> None:
         setattr(h, a, getattr(h, a) + n)
 
 
-def _capture_graph(fn, pool=None, mode: str = "global"):
+def _capture_graph(fn, pool=None):
     """(graph, outputs, counts per replay) of ``fn()`` captured into a new
-    CUDA graph (in ``pool`` when given, with ``capture_error_mode``
-    ``mode``)."""
+    CUDA graph (in ``pool`` when given).  The capture is thread-local: other
+    threads go on with their own CUDA work meanwhile (the train data's
+    threads, which launch and allocate on their own stream: data/dataset.py;
+    ProcessGroupNCCL's watchdog, which queries its works' events), which
+    under the "global" mode would invalidate it."""
     graph = torch.cuda.CUDAGraph()
     before = _counts()
-    with torch.cuda.graph(graph, pool=pool, capture_error_mode=mode):
+    with torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
         out = fn()
     after = _counts()
     return graph, out, {k: after[k] - before[k] for k in after if after[k] != before[k]}
@@ -350,11 +353,7 @@ class RankProgram(Program):
             torch.cuda.synchronize(device)
             barrier(self.group)
             torch.cuda.synchronize(device)
-            # thread_local: ProcessGroupNCCL's watchdog thread queries its
-            # works' events while this thread captures, and under "global"
-            # a CUDA call from another thread invalidates the capture; the
-            # capturing thread itself is checked as strictly as before
-            graph, cap.out, cap.launches = _capture_graph(lambda: self.fn(*cap.args), mode="thread_local")
+            graph, cap.out, cap.launches = _capture_graph(lambda: self.fn(*cap.args))
             cap.graphs = [graph]
         else:
             pre, (cap.send, cap.carry), launches = _capture_graph(lambda: self.pre(*cap.args))

@@ -15,6 +15,18 @@ last count), ``binning.dropped`` (the entries dropped since then) and
 ``binning.budget`` (the per-splat budget in force); the first two stay
 device scalars until the records are read, so no step waits for them.
 
+The per-splat tile budget follows the state (ROADMAP C5): training widens
+the splats, and a budget they outgrow drops binning entries.  The trainer
+keeps the most tiles one splat covered (the step's ``bin_most_tiles``) over
+every step of the phase on the device, and every ``log_freq`` steps copies
+it to pinned memory without waiting, to read at the next such check.  When
+it passes 2/3 of the budget, the budget grows to the smallest multiple of
+16 at or above 3/2 of it (``grown_budget``): only the step's program is
+built anew, over the same params and Adam state, and captures at its next
+call (counter ``binning.budget_grow``).  Until it grows, every step is the
+one the static budget gives.  A phase change starts again from the new
+phase's static budget; a resumed run from the static budget.
+
 The step runs as one program (``programs.py``), the counterpart of the JAX
 package's jitted step: on CUDA tensors one captured CUDA graph per phase,
 replayed every step, on CPU tensors the same function eagerly.  The params
@@ -41,6 +53,7 @@ host between their replays, on CPU tensors the same step eagerly.
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import os
 
@@ -74,6 +87,23 @@ log = logging.getLogger(__name__)
 # fail on any binning-budget overflow (reads the counters: a device sync per
 # step; debugging only)
 _DEBUG_BINNING = bool(int(os.environ.get("GOMAVATAR_DEBUG_BINNING", "0")))
+
+# the per-splat budget grows when the widest splat seen passes GROW_AT of it,
+# to a multiple of GROW_STEP at or above GROW_TO of that splat (module docstring)
+GROW_AT = (2, 3)
+GROW_TO = (3, 2)
+GROW_STEP = 16
+
+
+def grown_budget(budget: int, most_tiles: int) -> int:
+    """The per-splat tile budget after a check that saw a splat cover
+    ``most_tiles`` tiles: ``budget`` while that is at most GROW_AT of it,
+    else the smallest multiple of GROW_STEP at or above GROW_TO of
+    ``most_tiles``."""
+    if most_tiles * GROW_AT[1] <= budget * GROW_AT[0]:
+        return budget
+    want = -(-most_tiles * GROW_TO[0] // GROW_TO[1])
+    return max(budget, -(-want // GROW_STEP) * GROW_STEP)
 
 
 def train_loss(params: dict, statics: GoMStatics, gom_cfg: GoMConfig, loss_cfg: dict, lpips_params,
@@ -205,13 +235,21 @@ class Trainer:
             self.opt_state = fast_forward_schedule(self.opt_state, self.i_iter)
         # the eval program of the previous phase renders no more
         self._eval = eval_program()
+        # the phase's budget, from its static one (module docstring)
+        self.step_cfg = self.gom_cfg
+        self._widest_dev = None  # the most tiles of one splat over every step of the phase, on the device
+        self._widest_read = None  # (host buffer, event) of the copy taken at the last check
+        self._build_step()
+
+    def _build_step(self):
+        """The step's program at ``step_cfg``."""
         if self.group is None:
-            self._step_fn = Program(make_program_step(self.gom_cfg, self.loss_cfg, self.tx, self.statics,
+            self._step_fn = Program(make_program_step(self.step_cfg, self.loss_cfg, self.tx, self.statics,
                                                       self.lpips_params))
         else:
             from gomavatar_tpu_torch.parallel.step import make_data_parallel_program
 
-            self._step_fn = make_data_parallel_program(self.group, self.gom_cfg, self.loss_cfg, self.tx,
+            self._step_fn = make_data_parallel_program(self.group, self.step_cfg, self.loss_cfg, self.tx,
                                                        self.statics, self.lpips_params)
 
     def _subdivide(self):
@@ -254,11 +292,48 @@ class Trainer:
                     f"buffer_factor / the kernels' NCMAX (GOMAVATAR_DEBUG_BINNING=1 makes this fatal)"
                 )
         self.i_iter += 1
+        self._watch_budget(losses["bin_most_tiles"])
         if enabled():
             self._count_binning(losses)
         elif self._binning is not None:
             self._binning = None
         return total, losses
+
+    def _watch_budget(self, most: torch.Tensor) -> None:
+        """Keep the widest splat of the phase on the device; every
+        ``log_freq`` steps read the copy taken at the last check, grow the
+        budget where it asks for it, and take a new copy (module
+        docstring)."""
+        if self._widest_dev is None:
+            self._widest_dev = most.clone()
+        else:
+            torch.maximum(self._widest_dev, most, out=self._widest_dev)
+        if self.i_iter % self.log_freq:
+            return
+        if self._widest_read is not None:
+            buf, done = self._widest_read
+            if done is not None:
+                done.synchronize()
+            widest = int(buf)
+            budget = grown_budget(self.step_cfg.max_tiles_per_gaussian, widest)
+            if budget != self.step_cfg.max_tiles_per_gaussian:
+                log.info("iter %d: a splat covered %d tiles: the per-splat tile budget grows %d -> %d",
+                         self.i_iter, widest, self.step_cfg.max_tiles_per_gaussian, budget)
+                self._grow(budget)
+        if self._widest_dev.is_cuda:
+            buf = torch.empty((), dtype=self._widest_dev.dtype, pin_memory=True)
+            buf.copy_(self._widest_dev, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+            self._widest_read = (buf, done)
+        else:
+            self._widest_read = (self._widest_dev.clone(), None)
+
+    def _grow(self, budget: int) -> None:
+        """Rebuild the step's program at ``budget``, over the same state."""
+        self.step_cfg = dataclasses.replace(self.step_cfg, max_tiles_per_gaussian=budget)
+        self._build_step()
+        count("binning.budget_grow")
 
     def _count_binning(self, losses: dict) -> None:
         """Keep the step's binning telemetry on the device (the most tiles of
@@ -274,7 +349,7 @@ class Trainer:
             most, dropped = self._binning
             count("binning.most_tiles", most)
             count("binning.dropped", dropped)
-            count("binning.budget", self.gom_cfg.max_tiles_per_gaussian)
+            count("binning.budget", self.step_cfg.max_tiles_per_gaussian)
             self._binning = None
 
     def forward(self, batch: dict, train: bool = False):
