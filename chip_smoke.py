@@ -4118,12 +4118,12 @@ def card_composite(drv) -> dict:
         for k in ("target_rgbs", "target_masks"):
             require(isinstance(a[k], CardArray), f"11a: {name} frame {i}: {k} was not made on the card")
             require(np.array_equal(np.asarray(a[k]), b[k]), f"11a: {name} frame {i}: {k} differs from the host's")
-        img, mask = ds._card[a["frame_name"]]
+        img, mask = ds._store[a["frame_name"]]
         bg = (np.random.default_rng((CARD_DATA_SEED, i, 1)).random(3) * 255.0).astype(np.float32)
         kernel, plain = composite_resize(img, mask, bg, (h, w)), composite_resize_plain(img, mask, bg, (h, w))
         for k, p, label in zip(kernel, plain, ("image", "mask")):
             require(torch.equal(k, p), f"11a: {name} frame {i}: the kernel's {label} differs from the plain version's")
-    require(len(ds._card) == len(ds), f"11a: {name}: {len(ds._card)} of {len(ds)} frames on the card")
+    require(len(ds._store) == len(ds), f"11a: {name}: {len(ds._store)} of {len(ds)} frames on the card")
     item_ms = {}
     for label, d in (("card", ds), ("host", host)):
         t0 = time.perf_counter()
@@ -4132,13 +4132,13 @@ def card_composite(drv) -> dict:
         if label == "card":
             item["target_masks"].event.synchronize()
         item_ms[label] = (time.perf_counter() - t0) * 1e3 / len(d)
-    img, mask = ds._card[ds.framelist[0]]
+    img, mask = ds._store[ds.framelist[0]]
     ms = cuda_ms(lambda: composite_resize(img, mask, bg, (h, w)), KERNEL_ITERS)
     out = {"frames": len(ds), "src": list(img.shape[:2]), "out": [h, w], "kernel_ms": ms,
-           "item_ms": item_ms, "card_store_bytes": ds._card_bytes}
+           "item_ms": item_ms, "card_store_bytes": ds._store_bytes}
     print(f"  11a {name}: {len(ds)} frames {tuple(img.shape[:2])} -> {(h, w)} bit-equal to the host's and the "
           f"plain version's; kernel {ms:.4f} ms; an item {item_ms['card']:.2f} ms on the card path, "
-          f"{item_ms['host']:.2f} ms on the host's (stored frames); store {ds._card_bytes / 2**20:.1f} MiB")
+          f"{item_ms['host']:.2f} ms on the host's (stored frames); store {ds._store_bytes / 2**20:.1f} MiB")
     return out
 
 

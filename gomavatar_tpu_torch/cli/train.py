@@ -3,8 +3,7 @@
     python -m gomavatar_tpu_torch.cli.train --cfg configs/exps/zju-mocap_377.yaml \
         [--resume] [--max_iters N] [--device cpu] [--data_parallel N]
 
-The loop: the iter-0 checkpoint, a frame order per epoch (pose-balanced
-under ``train.pose_balanced_sampling``), the thread ``Prefetcher`` (each
+The loop: the iter-0 checkpoint, the batches of :func:`train_feed` (each
 item's random background and crop drawn from its epoch, rank and position,
 so two runs of one config see the same batches), one
 ``Trainer.step`` per frame (on the card one replay of the phase's captured
@@ -33,6 +32,8 @@ rank's {"i_iter", "phase"}.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import itertools
 import logging
 import os
 import sys
@@ -201,6 +202,24 @@ def train_dataset(cfg, device=None) -> TrainDataset:
     )
 
 
+def train_feed(dataset, order_rng, device, world: int = 1, rank: int = 0, balanced_Es=None):
+    """The training loop's batches, endlessly: ``(epoch, position, item,
+    batch)``, epochs from 1.  Each epoch a new order from ``order_rng``
+    (pose-balanced over ``balanced_Es`` where given), rank ``rank``'s items
+    of it (``rank_items``) through a ``Prefetcher`` seeded by ``(epoch,
+    rank)``, and ``to_device``.  Fewer frames than ranks raises; closing
+    the feed releases the decode threads."""
+    if len(dataset) < world:
+        raise ValueError(f"{world} ranks need at least {world} train frames, found {len(dataset)}")
+    for epoch in itertools.count(1):
+        if balanced_Es is not None:
+            order = balanced_order(balanced_Es, len(dataset), order_rng)
+        else:
+            order = order_rng.permutation(len(dataset))
+        for pos, item in enumerate(Prefetcher(dataset, order=rank_items(order, world, rank), seed=(epoch, rank))):
+            yield epoch, pos, item, to_device(item, device)
+
+
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description="Train an avatar (gomavatar_tpu_torch).")
     ap.add_argument("--cfg", required=True)
@@ -279,26 +298,15 @@ def train(args, device: torch.device, group=None) -> Trainer:
     if trainer.i_iter == 0:
         trainer.save(ckpt_dir)  # the iter-0 baseline
 
-    rng = np.random.default_rng(0)
     t_last = time.perf_counter()
     balanced_Es = None
     if tcfg.get("pose_balanced_sampling", False):
         balanced_Es = dataset.get_all_Es()
         logging.info("pose-balanced frame sampling ON (%d frames)", len(balanced_Es))
-    epoch = 0
-    while trainer.i_iter < total_iters:
-        if balanced_Es is not None:
-            order = balanced_order(balanced_Es, len(dataset), rng)
-        else:
-            order = rng.permutation(len(dataset))
-        # each item's random background and crop from (epoch, rank, its
-        # position), not from the order the decode threads take items in:
-        # two runs of one config train on the same batches
-        epoch += 1
-        for item in Prefetcher(dataset, order=rank_items(order, world, rank), seed=(epoch, rank)):
-            if trainer.i_iter >= total_iters:
-                break
-            batch = to_device(item, device)
+    feed = train_feed(dataset, np.random.default_rng(0), device, world, rank, balanced_Es)
+    with contextlib.closing(feed):
+        while trainer.i_iter < total_iters:
+            _, _, _, batch = next(feed)
             # the step copies the batch into its program's inputs; total and
             # losses are the program's outputs, which the next step
             # overwrites: everything below reads them before that

@@ -209,29 +209,24 @@ class TrainDataset(_ArtifactsMixin):
     """Monocular training frames.
 
     The store: a frame's undistorted ``uint8`` image and mask (one channel
-    where its three are equal), kept after the frame's first read when the
+    where the PNG's are equal), kept after the frame's first read when the
     caller re-reads frames epoch after epoch (``retain=True``, the training
     loop), or read for every frame at construction (``prefetch=True``).
-    Each item of a stored frame starts from them and draws its background
-    and crop anew, so its arrays are those of a fresh read bit for bit.  A
-    frame is stored while the store stays under half of the host's
-    available physical memory at construction; past that, frames are read
-    each time, with no eviction.
-
-    With a CUDA ``device`` the store is on that card first (the mask one
-    channel), under its own room, half of the card's free memory at
-    construction; a frame past it goes to the host's.  Every item of a
-    frame on the card, its first read included, is composited and resized
-    there by one launch on the dataset's own stream
-    (``data/composite.py``), bit for bit the host's float64 composite and
-    OpenCV resizes: its ``target_rgbs`` and ``target_masks`` are
-    ``CardArray``s, which ``to_device`` hands over as they are.  Random
-    crops keep the host path.  Counters (``utils.profiling``) per item of
-    the cv2 path: ``data.decode_cache_hit`` or ``data.decode_cache_miss``
-    (a miss has the ``data.read`` and ``data.undistort`` spans, a hit
-    neither), and ``data.device_composite`` or ``data.host_composite``; the
-    span ``data.composite_resize`` is the host's composite, or on the card
-    its launch."""
+    Each item of a stored frame draws its background and crop anew, so its
+    arrays are those of a fresh read bit for bit.  The store is on the card
+    of a CUDA ``device`` (a type of ``CARD_TYPES``) where the cv2 path reads
+    at a ``target_size`` with no crop, else on the host; its room is half
+    that device's free memory at construction.  A frame past it, or on a
+    card one whose mask's channels differ, is read each time.  Each item of
+    a frame on the card is composited and resized there by one launch on
+    the dataset's own stream (``data/composite.py``), bit for bit the
+    host's float64 composite and OpenCV resizes, into ``CardArray``s that
+    ``to_device`` hands over as they are.  Counters (``utils.profiling``)
+    per item of the cv2 path: ``data.decode_cache_hit`` or
+    ``data.decode_cache_miss`` (a miss has the ``data.read`` and
+    ``data.undistort`` spans, a hit neither), and ``data.device_composite``
+    or ``data.host_composite``; the span ``data.composite_resize`` is the
+    host's composite, or on the card its launch."""
 
     # the device types whose store and composite are the device's (the CPU
     # only in tests: its plain version is slower than OpenCV's)
@@ -279,24 +274,22 @@ class TrainDataset(_ArtifactsMixin):
         self.resize_img_scale = (0.5, 0.5)
         self.prefetch = prefetch
         self.retain = retain
-        self._cache = {}  # frame name -> (uint8 image, uint8 mask)
-        self._cache_bytes = 0
-        self._cache_room = _available_memory_bytes() // 2 if retain or prefetch else 0
-        self._cache_lock = threading.Lock()
-        # the card's store: frame name -> (uint8 image, uint8 one-channel mask) on self._card_dev
-        self._card, self._card_bytes, self._card_room = {}, 0, 0
+        # the store: frame name -> (uint8 image, uint8 mask), tensors on
+        # self._card_dev where it is set, else host arrays
+        self._store, self._store_bytes, self._store_room = {}, 0, 0
+        self._store_lock = threading.Lock()
         self._card_dev = self._card_stream = None
         device = torch.device(device) if device is not None else None
         if (retain or prefetch) and device is not None and device.type in self.CARD_TYPES and not use_native \
                 and target_size is not None and self.crop_size == (-1, -1):
-            if device.type == "cuda":
-                if device.index is None:
-                    device = torch.device("cuda", torch.cuda.current_device())
-                self._card_room = torch.cuda.mem_get_info(device)[0] // 2
-                self._card_stream = torch.cuda.Stream(device)
-            else:
-                self._card_room = _available_memory_bytes() // 2
+            if device.type == "cuda" and device.index is None:
+                device = torch.device("cuda", torch.cuda.current_device())
             self._card_dev = device
+        if self._card_dev is not None and device.type == "cuda":
+            self._store_room = torch.cuda.mem_get_info(device)[0] // 2
+            self._card_stream = torch.cuda.Stream(device)
+        elif retain or prefetch:
+            self._store_room = _available_memory_bytes() // 2
         if prefetch:
             for fn in self.framelist:
                 self._keep(fn, *self._load_raw(fn))
@@ -305,13 +298,13 @@ class TrainDataset(_ArtifactsMixin):
         return len(self.framelist)
 
     def _load_raw(self, frame_name):
-        """The frame's undistorted ``uint8`` image and mask, the mask in
-        three channels."""
+        """The frame's undistorted ``uint8`` image and mask, the mask one
+        channel where the PNG's are equal."""
         with span("data.read"):
             img = _load_image(os.path.join(self.image_dir, frame_name + ".png"))
             alpha = _load_image(os.path.join(self.dataset_path, "masks", frame_name + ".png"))
-        if alpha.ndim == 2:
-            alpha = alpha[..., None].repeat(3, axis=-1)
+        if alpha.ndim == 3 and (alpha == alpha[..., :1]).all():
+            alpha = np.ascontiguousarray(alpha[..., 0])
         cam = self.cameras[frame_name]
         if "distortions" in cam and cv2 is not None:
             K = cam["intrinsics"]
@@ -322,48 +315,39 @@ class TrainDataset(_ArtifactsMixin):
         return img, alpha
 
     def _keep(self, frame_name, img, alpha):
-        """Store the frame's arrays while a store has room, the card's
-        first; returns what the card's store keeps, or None."""
-        if alpha.ndim == 3 and alpha.shape[-1] == 3 and (alpha == alpha[..., :1]).all():
-            alpha = np.ascontiguousarray(alpha[..., 0])
+        """Store the frame's arrays while the store has room (on a card only
+        a one-channel mask); returns what the store keeps, or None."""
+        if self._card_dev is not None and img.shape != alpha.shape + (3,):
+            return None
         nbytes = img.nbytes + alpha.nbytes
-        with self._cache_lock:
-            if frame_name in self._card or frame_name in self._cache:
-                return None
-            if (self._card_dev is not None and alpha.ndim == 2 and img.shape == alpha.shape + (3,)
-                    and self._card_bytes + nbytes <= self._card_room):
+        with self._store_lock:
+            if frame_name in self._store or self._store_bytes + nbytes > self._store_room:
+                return self._store.get(frame_name)
+            if self._card_dev is None:
+                img.flags.writeable = alpha.flags.writeable = False
+                kept = img, alpha
+            else:
                 with torch.cuda.stream(self._card_stream):
                     kept = tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in (img, alpha))
                     if self._card_stream is not None:
                         kept = tuple(t.pin_memory().to(self._card_dev, non_blocking=True) for t in kept)
-                self._card[frame_name] = kept
-                self._card_bytes += nbytes
-                return kept
-            if self._cache_bytes + nbytes <= self._cache_room:
-                for a in (img, alpha):
-                    a.flags.writeable = False
-                self._cache[frame_name] = (img, alpha)
-                self._cache_bytes += nbytes
-        return None
+            self._store[frame_name] = kept
+            self._store_bytes += nbytes
+        return kept
 
     def _decoded(self, frame_name):
-        """The frame's undistorted ``uint8`` image and mask: from the card's
-        store (its tensors, the mask one channel) or the host's (the mask
-        three channels), or read (and stored where the caller retains)."""
-        kept = self._card.get(frame_name)
-        if kept is None:
-            kept = self._cache.get(frame_name)
-        if kept is None:
-            count("data.decode_cache_miss")
-            img, alpha = self._load_raw(frame_name)
-            if self.retain:
-                kept = self._keep(frame_name, img, alpha)
-            return (img, alpha) if kept is None else kept
-        count("data.decode_cache_hit")
-        img, alpha = kept
-        if isinstance(img, torch.Tensor):
-            return img, alpha
-        return img, alpha[..., None].repeat(3, axis=-1) if alpha.ndim == 2 else alpha
+        """The frame's undistorted ``uint8`` image and mask: from the store
+        (on the card its tensors), or read (and stored where the caller
+        retains)."""
+        kept = self._store.get(frame_name)
+        if kept is not None:
+            count("data.decode_cache_hit")
+            return kept
+        count("data.decode_cache_miss")
+        img, alpha = self._load_raw(frame_name)
+        if self.retain:
+            kept = self._keep(frame_name, img, alpha)
+        return (img, alpha) if kept is None else kept
 
     def _composite_on_card(self, img, mask, bgcolor):
         """(target image, target mask) as ``CardArray``s: the composite and
@@ -380,7 +364,8 @@ class TrainDataset(_ArtifactsMixin):
 
     def _composite_resize(self, img, alpha, bgcolor):
         with span("data.composite_resize"):
-            img = alpha * img + (1.0 - alpha) * bgcolor[None, None, :]
+            a = alpha[..., None] if alpha.ndim == 2 else alpha
+            img = a * img + (1.0 - a) * bgcolor[None, None, :]
             if self.target_size is not None:
                 w, h = self.target_size
                 img = cv2.resize(img, (w, h), interpolation=cv2.INTER_LANCZOS4)
@@ -400,7 +385,9 @@ class TrainDataset(_ArtifactsMixin):
         """Random crop around the subject."""
         crop_w, crop_h = self.crop_size
         h, w = img.shape[:2]
-        nz = np.stack(np.nonzero(alpha[..., 0] if alpha.ndim == 3 else alpha), axis=-1)
+        # the window's mass over three channels in their layout: the reference's sum bit for bit
+        mass = alpha if alpha.ndim == 3 else np.repeat(alpha[..., None], 3, axis=-1)
+        nz = np.stack(np.nonzero(mass[..., 0]), axis=-1)
         h_center, w_center = nz.mean(axis=0).astype(int)
         h_center = int(np.clip(h_center, crop_h // 2, h - (crop_h + 1) // 2))
         w_center = int(np.clip(w_center, crop_w // 2, w - (crop_w + 1) // 2))
@@ -409,7 +396,7 @@ class TrainDataset(_ArtifactsMixin):
         for _ in range(100):
             rand_w = rng.integers(max(0, w_left - 50), min(w_left + 50, w - crop_w) + 1)
             rand_h = rng.integers(max(0, h_left - 50), min(h_left + 50, h - crop_h) + 1)
-            m = alpha[rand_h : rand_h + crop_h, rand_w : rand_w + crop_w]
+            m = mass[rand_h : rand_h + crop_h, rand_w : rand_w + crop_w]
             if np.sum(m) >= 20:
                 break
         K_new = K.copy()
@@ -452,7 +439,6 @@ class TrainDataset(_ArtifactsMixin):
                     img_path, mask_path, cam["intrinsics"][:3, :3],
                     cam.get("distortions"), bgcolor, out_hw,
                 )
-            alpha = alpha[..., None].repeat(3, -1)
             img = (img / 255.0).astype(np.float32)
         else:
             img, alpha = self._decoded(frame_name)

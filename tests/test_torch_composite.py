@@ -44,16 +44,19 @@ def _frame(side: int, seed: int):
 @pytest.mark.parametrize("src, out", SCALES, ids=["1024to512", "540to544"])
 def test_plain_version_equals_the_host_path_bit_for_bit(src, out, background):
     """The host path (``TrainDataset._composite_resize`` over the stored
-    three-channel mask / 255, then / 255 and float32, the mask's first
-    channel) and the plain version on the same frame and background."""
+    one-channel mask / 255, then / 255 and float32) and the plain version
+    on the same frame and background; the host path over the mask in three
+    equal channels (the reference's format, its first channel kept) gives
+    the same bits."""
     img, mask = _frame(src, src + out)
     bg = ((np.random.default_rng(7).random(3) * 255.0).astype(np.float32) if background == "random"
           else np.zeros(3, np.float32))
     host = TD.TrainDataset.__new__(TD.TrainDataset)
     host.target_size = (out, out)
-    alpha = mask[..., None].repeat(3, axis=-1)
-    rgb, m = host._composite_resize(img.astype(np.float32), alpha / 255.0, bg)
-    rgb, m = (rgb / 255.0).astype(np.float32), m[..., 0].astype(np.float32)
+    rgb, m = host._composite_resize(img.astype(np.float32), mask / 255.0, bg)
+    rgb, m = (rgb / 255.0).astype(np.float32), m.astype(np.float32)
+    rgb3, m3 = host._composite_resize(img.astype(np.float32), mask[..., None].repeat(3, axis=-1) / 255.0, bg)
+    assert np.array_equal((rgb3 / 255.0).astype(np.float32), rgb) and np.array_equal(m3[..., 0].astype(np.float32), m)
     prgb, pm = C.composite_resize_plain(torch.from_numpy(img), torch.from_numpy(mask), bg, (out, out))
     assert prgb.dtype == pm.dtype == torch.float32
     assert prgb.shape == (out, out, 3) and pm.shape == (out, out)
@@ -123,49 +126,61 @@ def distorted_dir(tmp_path_factory):
 
 @pytest.mark.parametrize("bgcolor", [None, (0.0, 255.0, 64.0)], ids=["random_bg", "fixed_bg"])
 def test_store_and_composite_path_equals_the_host_path(distorted_dir, monkeypatch, bgcolor):
-    """Two epochs through the training loop's seeded Prefetcher, with the
-    card's store and composite on the CPU (``CARD_TYPES``: the plain
-    version in the kernel's place): every item's arrays, ``np.asarray`` of
-    the ``CardArray``s included, equal the host path's bit for bit; the
-    frames are stored as tensors (the mask one channel), every item counts
-    ``data.device_composite`` and none ``data.host_composite``, and
-    ``to_device`` hands the arrays over as they are."""
+    """Two epochs through the training loop's feed (``cli/train.py:
+    train_feed``), with the card's store and composite on the CPU
+    (``CARD_TYPES``: the plain version in the kernel's place): every item's
+    arrays, ``np.asarray`` of the ``CardArray``s included, equal the host
+    path's bit for bit; the frames are stored as tensors (the mask one
+    channel), every item counts ``data.device_composite`` and none
+    ``data.host_composite``, and ``to_device`` hands the arrays over as
+    they are."""
+    from gomavatar_tpu_torch.cli.train import train_feed
+
     monkeypatch.setattr(TD.TrainDataset, "CARD_TYPES", ("cuda", "cpu"))
     kw = dict(bgcolor=bgcolor, target_size=(48, 48), retain=True)
     card = TD.TrainDataset(distorted_dir, device="cpu", **kw)
     host = TD.TrainDataset(distorted_dir, **kw)
     assert card._card_dev == torch.device("cpu") and host._card_dev is None
     n = len(card)
-    for epoch in range(2):
-        t0 = time.perf_counter()
-        with profiling.recording():
-            items = list(TD.Prefetcher(card, workers=4, seed=(epoch, 0)))
-        counts = {name: sum(r.n for r in profiling.records(t0) if isinstance(r, profiling.Count) and r.name == name)
+    fed, bounds = [], [time.perf_counter()]
+    with profiling.recording():
+        for epoch, pos, it, batch in train_feed(card, np.random.default_rng(5), "cpu"):
+            if epoch > 2:
+                break
+            fed.append((epoch, pos, it, batch))
+            if pos == n - 1:  # the epoch's last item: all of its items decoded, none of the next epoch's
+                bounds.append(time.perf_counter())
+    for epoch, (t0, t1) in enumerate(zip(bounds, bounds[1:]), 1):
+        recs = profiling.records(t0, t1)
+        counts = {name: sum(r.n for r in recs if isinstance(r, profiling.Count) and r.name == name)
                   for name in ("data.device_composite", "data.host_composite", "data.decode_cache_hit")}
-        assert counts == {"data.device_composite": n, "data.host_composite": 0, "data.decode_cache_hit": n * epoch}
-        for pos, it in enumerate(items):
-            want = host.item(pos, np.random.default_rng((epoch, 0, pos)))
-            assert set(it) == set(want)
-            for k, v in want.items():
-                if k == "frame_name":
-                    assert it[k] == v
-                    continue
-                got = np.asarray(it[k])
-                assert got.dtype == np.asarray(v).dtype and np.array_equal(got, v), (epoch, pos, k)
-            assert isinstance(it["target_rgbs"], TD.CardArray) and isinstance(it["target_masks"], TD.CardArray)
-            batch = TD.to_device(it, "cpu")
-            assert batch["target_rgbs"] is it["target_rgbs"].tensor
-            assert torch.equal(batch["target_masks"], torch.from_numpy(want["target_masks"]))
-    assert sorted(card._card) == sorted(card.framelist) and not card._cache
-    for img, mask in card._card.values():
+        assert counts == {"data.device_composite": n, "data.host_composite": 0,
+                          "data.decode_cache_hit": n * (epoch - 1)}, epoch
+    assert len(fed) == 2 * n
+    for epoch, pos, it, batch in fed:
+        want = host.item(card.framelist.index(it["frame_name"]), np.random.default_rng((epoch, 0, pos)))
+        assert set(it) == set(want)
+        for k, v in want.items():
+            if k == "frame_name":
+                assert it[k] == v
+                continue
+            got = np.asarray(it[k])
+            assert got.dtype == np.asarray(v).dtype and np.array_equal(got, v), (epoch, pos, k)
+        assert isinstance(it["target_rgbs"], TD.CardArray) and isinstance(it["target_masks"], TD.CardArray)
+        assert batch["target_rgbs"] is it["target_rgbs"].tensor
+        assert torch.equal(batch["target_masks"], torch.from_numpy(want["target_masks"]))
+    assert sorted(card._store) == sorted(card.framelist)
+    for img, mask in card._store.values():
         assert img.dtype == mask.dtype == torch.uint8 and img.dim() == 3 and mask.dim() == 2
 
 
 def test_card_path_stays_off_where_it_does_not_apply(distorted_dir, monkeypatch):
     """No store on the device for a single-pass reader, a random crop or no
     target size, and none for a CPU device unless the CPU is a card type;
-    past the device store's room a frame goes to the host's store and its
-    items to the host path (``data.host_composite``)."""
+    past the device store's room a frame is read each time (two passes:
+    ``data.decode_cache_miss`` each time) and its items take the host path
+    (``data.host_composite``), bit for bit the host dataset's, and the
+    store keeps only the frame it had room for."""
     assert TD.TrainDataset(distorted_dir, target_size=(48, 48), retain=True, device="cpu")._card_dev is None
     monkeypatch.setattr(TD.TrainDataset, "CARD_TYPES", ("cuda", "cpu"))
     for kw in (dict(target_size=(48, 48)), dict(target_size=(48, 48), retain=True, crop_size=(32, 32)),
@@ -173,19 +188,23 @@ def test_card_path_stays_off_where_it_does_not_apply(distorted_dir, monkeypatch)
         assert TD.TrainDataset(distorted_dir, device="cpu", **kw)._card_dev is None, kw
     ds = TD.TrainDataset(distorted_dir, target_size=(48, 48), retain=True, device="cpu")
     probe = ds._load_raw(ds.framelist[0])
-    ds._card_room = probe[0].nbytes + probe[1].nbytes // 3  # room for one frame
+    ds._store_room = probe[0].nbytes + probe[1].nbytes  # room for one frame
+    n = len(ds)
     t0 = time.perf_counter()
     with profiling.recording():
-        items = [ds.item(i, np.random.default_rng(i)) for i in range(len(ds))]
+        items = [ds.item(i, np.random.default_rng(i)) for _ in range(2) for i in range(n)]
     recs = profiling.records(t0)
-    assert sum(r.n for r in recs if isinstance(r, profiling.Count) and r.name == "data.device_composite") == 1
-    assert sum(r.n for r in recs if isinstance(r, profiling.Count) and r.name == "data.host_composite") == len(ds) - 1
-    assert len(ds._card) == 1 and len(ds._cache) == len(ds) - 1
+    counts = {name: sum(r.n for r in recs if isinstance(r, profiling.Count) and r.name == name)
+              for name in ("data.device_composite", "data.host_composite", "data.decode_cache_hit",
+                           "data.decode_cache_miss")}
+    assert counts == {"data.device_composite": 2, "data.host_composite": 2 * (n - 1), "data.decode_cache_hit": 1,
+                      "data.decode_cache_miss": 1 + 2 * (n - 1)}
+    assert list(ds._store) == ds.framelist[:1] and ds._store_bytes == ds._store_room
     host = TD.TrainDataset(distorted_dir, target_size=(48, 48))
-    for i, it in enumerate(items):
-        want = host.item(i, np.random.default_rng(i))
-        for k in ("target_rgbs", "target_masks"):
-            assert np.array_equal(np.asarray(it[k]), want[k])
+    for k, it in enumerate(items):
+        want = host.item(k % n, np.random.default_rng(k % n))
+        for key in ("target_rgbs", "target_masks"):
+            assert np.array_equal(np.asarray(it[key]), want[key])
 
 
 def _reader():

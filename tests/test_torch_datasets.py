@@ -82,23 +82,34 @@ TRAIN_CASES = {
     "split_skip_max": dict(bgcolor=[0, 0, 0], split_for_pose=True, skip=1, maxframes=5),
     "native": dict(bgcolor=None, seeded=True, use_native=True, target_size=(48, 48)),
     "prefetch": dict(bgcolor=None, seeded=True, prefetch=True, crop_size=(32, 32)),
+    # the port's store (retain, port only) read twice: the first pass reads
+    # and keeps each frame, the second composites the kept one-channel mask
+    "retain_distorted_gray": dict(bgcolor=None, seeded=True, target_size=(48, 48), distorted=True, retain=True,
+                                  passes=2),
 }
 
 
 @pytest.mark.parametrize("case", sorted(TRAIN_CASES))
-def test_train_dataset_items_match_jax(data_dir, case):
+def test_train_dataset_items_match_jax(data_dir, gray_distorted_dir, case):
     kw = dict(TRAIN_CASES[case])
     if kw.get("use_native") and not TN.available():
         pytest.skip("the native library cannot be built or loaded here")
     seeded = kw.pop("seeded", False)
+    path = gray_distorted_dir if kw.pop("distorted", False) else data_dir
+    passes = kw.pop("passes", 1)
+    port_only = {"retain": kw.pop("retain")} if "retain" in kw else {}
     sets = []
-    for mod in (TD, JD):
+    for mod, own in ((TD, port_only), (JD, {})):
         extra = {"rng": np.random.default_rng(3)} if seeded else {}
-        sets.append(mod.TrainDataset(data_dir, **kw, **extra))
+        sets.append(mod.TrainDataset(path, **kw, **extra, **own))
     t, j = sets
     assert len(t) == len(j) and t.framelist == j.framelist
-    for i in range(len(j)):
-        assert_items_equal(t[i], j[i])
+    for _ in range(passes):
+        for i in range(len(j)):
+            assert_items_equal(t[i], j[i])
+    if port_only:
+        assert sorted(t._store) == sorted(t.framelist)
+        assert all(alpha.ndim == 2 for _, alpha in t._store.values())
     info_t, info_j = t.get_canonical_info(), j.get_canonical_info()
     for k in ("canonical_joints", "canonical_vertex", "canonical_lbs_weights", "faces"):
         np.testing.assert_array_equal(info_t[k], info_j[k], err_msg=k)
@@ -253,14 +264,13 @@ DISTORTIONS = np.array([-0.12, 0.03, 0.002, -0.001, 0.0])
 STORE_KW = dict(bgcolor=None, crop_size=(32, 32))
 
 
-@pytest.fixture(scope="module", params=["gray_mask", "color_mask"])
-def distorted_dir(request, tmp_path_factory, data_dir):
-    """The synthetic capture with radially distorted cameras; its masks
-    three equal channels, or three that differ (then stored in three)."""
+def _distorted_copy(src, out, mask):
+    """A copy of the capture ``src`` at ``out`` with radially distorted
+    cameras; its masks as written (three equal channels, ``gray_mask``),
+    one channel (``gray_png``), or three that differ (``color_mask``)."""
     from PIL import Image
 
-    out = str(tmp_path_factory.mktemp("distorted") / "data")
-    shutil.copytree(data_dir, out)
+    shutil.copytree(src, out)
     path = os.path.join(out, "cameras.pkl")
     with open(path, "rb") as f:
         cams = pickle.load(f)
@@ -268,39 +278,59 @@ def distorted_dir(request, tmp_path_factory, data_dir):
         cam["distortions"] = DISTORTIONS.copy()
     with open(path, "wb") as f:
         pickle.dump(cams, f)
-    if request.param == "color_mask":
-        for name in os.listdir(os.path.join(out, "masks")):
-            p = os.path.join(out, "masks", name)
-            m = np.array(Image.open(p))
+    for name in os.listdir(os.path.join(out, "masks")) if mask != "gray_mask" else ():
+        p = os.path.join(out, "masks", name)
+        m = np.array(Image.open(p))
+        if mask == "gray_png":
+            m = np.ascontiguousarray(m[..., 0])
+        else:
             m[..., 1] //= 2
-            Image.fromarray(m).save(p)
-    return out, request.param
+        Image.fromarray(m).save(p)
+    return out
+
+
+@pytest.fixture(scope="module", params=["gray_mask", "color_mask"])
+def distorted_dir(request, tmp_path_factory, data_dir):
+    """The synthetic capture with distorted cameras; its masks three equal
+    channels (stored in one), or three that differ (stored in three)."""
+    return _distorted_copy(data_dir, str(tmp_path_factory.mktemp("distorted") / "data"), request.param), request.param
+
+
+@pytest.fixture(scope="module")
+def gray_distorted_dir(tmp_path_factory, data_dir):
+    """The synthetic capture with distorted cameras and one-channel PNG
+    masks."""
+    return _distorted_copy(data_dir, str(tmp_path_factory.mktemp("gray") / "data"), "gray_png")
 
 
 def _epochs(ds, n_epochs, order_seed=5):
-    """``n_epochs`` epochs of ``ds`` through a seeded 4-worker Prefetcher,
-    as the training loop reads them: (epoch, pos, frame index, item)."""
+    """``n_epochs`` epochs of ``ds`` through the training loop's feed
+    (``cli/train.py:train_feed``): (epoch, pos, frame index, item), and per
+    epoch the counts of hits, misses, reads and undistorts."""
+    from gomavatar_tpu_torch.cli.train import train_feed
     from gomavatar_tpu_torch.utils import profiling
 
-    out, counts = [], []
-    rng = np.random.default_rng(order_seed)
-    for epoch in range(n_epochs):
-        order = rng.permutation(len(ds)).tolist()
-        t0 = time.perf_counter()
-        with profiling.recording():
-            items = list(TD.Prefetcher(ds, order=order, workers=4, seed=(epoch, 0)))
-        recs = profiling.records(t0)
+    out, bounds = [], [time.perf_counter()]
+    with profiling.recording():
+        for epoch, pos, item, _ in train_feed(ds, np.random.default_rng(order_seed), "cpu"):
+            if epoch > n_epochs:
+                break
+            out.append((epoch, pos, ds.framelist.index(item["frame_name"]), item))
+            if pos == len(ds) - 1:
+                bounds.append(time.perf_counter())
+    counts = []
+    for t0, t1 in zip(bounds, bounds[1:]):
+        recs = profiling.records(t0, t1)
         counts.append({n: sum(r.n for r in recs if isinstance(r, profiling.Count) and r.name == n)
                        for n in ("data.decode_cache_hit", "data.decode_cache_miss")}
                       | {n: sum(1 for r in recs if isinstance(r, profiling.Span) and r.name == n)
                          for n in ("data.read", "data.undistort")})
-        out += [(epoch, pos, i, it) for pos, (i, it) in enumerate(zip(order, items))]
     return out, counts
 
 
 def test_retained_items_equal_fresh_reads_bit_for_bit(distorted_dir):
-    """Two epochs of a retaining dataset through the training loop's seeded
-    4-worker Prefetcher: every item, the second epoch's hits included,
+    """Two epochs of a retaining dataset through the training loop's feed
+    (its seeded Prefetcher): every item, the second epoch's hits included,
     equals bit for bit, every key, that of a dataset that keeps nothing,
     drawn with the same (epoch, pos) seed; the first epoch counts only
     misses (each with its read and undistort), the second only hits."""
@@ -315,9 +345,9 @@ def test_retained_items_equal_fresh_reads_bit_for_bit(distorted_dir):
                          "data.read": 0, "data.undistort": 0}
     for epoch, pos, i, it in items:
         assert_items_equal(it, fresh.item(i, np.random.default_rng((epoch, 0, pos))))
-    assert not fresh._cache
-    assert sorted(ds._cache) == sorted(ds.framelist)
-    for img, alpha in ds._cache.values():
+    assert not fresh._store
+    assert sorted(ds._store) == sorted(ds.framelist)
+    for img, alpha in ds._store.values():
         assert img.dtype == alpha.dtype == np.uint8
         assert alpha.shape == (img.shape[:2] if mask == "gray_mask" else img.shape)
 
@@ -329,11 +359,11 @@ def test_store_budget_admits_exactly_k_frames(data_dir, monkeypatch, k):
     equals a fresh read's."""
     probe = TD.TrainDataset(data_dir, **STORE_KW)
     img, alpha = probe._load_raw(probe.framelist[0])
-    frame_bytes = img.nbytes + alpha.nbytes // 3
+    frame_bytes = img.nbytes + alpha.nbytes
     monkeypatch.setattr(TD, "_available_memory_bytes", lambda: 2 * (k * frame_bytes + frame_bytes // 2))
     ds = TD.TrainDataset(data_dir, retain=True, **STORE_KW)
     items, counts = _epochs(ds, 2)
-    assert len(ds._cache) == k and ds._cache_bytes == k * frame_bytes
+    assert len(ds._store) == k and ds._store_bytes == k * frame_bytes
     assert [c["data.decode_cache_hit"] for c in counts] == [0, k]
     for epoch, pos, i, it in items:
         assert_items_equal(it, probe.item(i, np.random.default_rng((epoch, 0, pos))))
@@ -343,8 +373,8 @@ def test_prefetch_store_holds_compact_uint8_frames(data_dir):
     """``prefetch=True`` reads every frame at construction into the same
     store: uint8, 4 bytes a pixel (the mask in one channel)."""
     ds = TD.TrainDataset(data_dir, prefetch=True, **STORE_KW)
-    assert sorted(ds._cache) == sorted(ds.framelist)
-    for img, alpha in ds._cache.values():
+    assert sorted(ds._store) == sorted(ds.framelist)
+    for img, alpha in ds._store.values():
         assert img.dtype == alpha.dtype == np.uint8
         assert img.nbytes + alpha.nbytes <= 4 * img.shape[0] * img.shape[1]
 
@@ -391,11 +421,72 @@ def test_single_pass_readers_keep_nothing(data_dir, tmp_path, monkeypatch):
     for ds in sets + made:
         for i in range(len(ds)):
             ds[i]
-        assert not ds._cache
+        assert not ds._store
     assert len(made) == 1
     ds = train_cli.train_dataset(cfg)
     list(TD.Prefetcher(ds))
-    assert sorted(ds._cache) == sorted(ds.framelist)
+    assert sorted(ds._store) == sorted(ds.framelist)
+
+
+@pytest.mark.parametrize("balanced", [False, True], ids=["permutation", "pose_balanced"])
+def test_train_feed_draws_each_item_from_its_epoch_rank_and_position(data_dir, balanced):
+    """``cli/train.py:train_feed`` at world 2, each rank over two epochs:
+    epochs from 1, the rank's items (``rank_items``) of each epoch's order
+    from ``order_rng`` (the same order on both ranks), each item
+    ``dataset.item(i, default_rng((epoch, rank, pos)))`` of a dataset that
+    keeps nothing, bit for bit, and its batch ``to_device``'s; fewer frames
+    than ranks raises."""
+    from gomavatar_tpu_torch.cli.train import train_feed
+    from gomavatar_tpu_torch.parallel import rank_items
+
+    ds = TD.TrainDataset(data_dir, bgcolor=None, retain=True)
+    fresh = TD.TrainDataset(data_dir, bgcolor=None)
+    Es = ds.get_all_Es() if balanced else None
+    for rank in range(2):
+        order_rng = np.random.default_rng(7)
+        feed = train_feed(ds, np.random.default_rng(7), "cpu", world=2, rank=rank, balanced_Es=Es)
+        for epoch in (1, 2):
+            order = TSamp.balanced_order(Es, len(ds), order_rng) if balanced else order_rng.permutation(len(ds))
+            for pos, i in enumerate(rank_items(order, 2, rank)):
+                e, p, item, batch = next(feed)
+                assert (e, p) == (epoch, pos)
+                assert_items_equal(item, fresh.item(i, np.random.default_rng((epoch, rank, pos))))
+                want = TD.to_device(item, "cpu")
+                assert set(batch) == set(want) and all(torch.equal(batch[k], want[k]) for k in want)
+        feed.close()
+    with pytest.raises(ValueError, match=f"at least {len(ds) + 1} train frames"):
+        next(train_feed(ds, np.random.default_rng(7), "cpu", world=len(ds) + 1))
+
+
+@pytest.mark.parametrize("stop", ["break", "close"])
+def test_train_feed_releases_its_workers_when_the_consumer_stops(data_dir, monkeypatch, stop):
+    """A consumer that breaks out of the feed mid-epoch, or closes it (as
+    ``train`` does), leaves no decode thread of the epoch's Prefetcher
+    alive."""
+    from gomavatar_tpu_torch.cli import train as train_cli
+
+    made = []
+
+    class Spy(TD.Prefetcher):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    monkeypatch.setattr(train_cli, "Prefetcher", Spy)
+    ds = TD.TrainDataset(data_dir, bgcolor=None)
+    feed = train_cli.train_feed(ds, np.random.default_rng(0), "cpu")
+    if stop == "break":
+        for _, pos, _, _ in feed:
+            if pos == 1:
+                break
+        del feed
+    else:
+        next(feed)
+        feed.close()
+    assert len(made) == 1
+    for t in made[0]._threads:
+        t.join(timeout=5)
+    assert not any(t.is_alive() for t in made[0]._threads)
 
 
 # ---- camera helpers and sampling ------------------------------------------------

@@ -117,15 +117,18 @@ def test_profiler_session_records_and_traces_the_spans(tmp_path):
 
 
 class _Stub:
-    """Items {"i": i}, each taking ``delay`` seconds."""
+    """Items {"i": i}, each taking ``delay`` seconds; with ``gates`` (an
+    event per item) item i's decode starts once ``gates[i]`` is set."""
 
-    def __init__(self, n, delay=0.0):
-        self.n, self.delay = n, delay
+    def __init__(self, n, delay=0.0, gates=None):
+        self.n, self.delay, self.gates = n, delay, gates
 
     def __len__(self):
         return self.n
 
     def __getitem__(self, i):
+        if self.gates is not None:
+            assert self.gates[i].wait(10), f"item {i}: no take waited for it"
         time.sleep(self.delay)
         return {"i": i}
 
@@ -149,15 +152,28 @@ def test_prefetcher_decodes_each_item_once_under_its_position():
 
 
 @pytest.mark.parametrize("slow", ["decode", "consumer"])
-def test_prefetch_miss_counts_the_takes_that_waited(slow):
-    """Against a slow decode every take waits; against a slow consumer,
-    which finds each item ready, none does, and the workers are held by
-    ``depth`` instead."""
+def test_prefetch_miss_counts_the_takes_that_waited(slow, monkeypatch):
+    """Against a slow decode every take waits: each item's decode starts
+    only once the consumer waits for it (its gate opened from inside the
+    consumer's wait), so no take can find it ready; against a slow
+    consumer, which finds each item ready, none does, and the workers are
+    held by ``depth`` instead."""
     n = 6
+    gates = None
+    if slow == "decode":
+        gates = [threading.Event() for _ in range(n)]
+        consumer, wait = threading.get_ident(), threading.Condition.wait
+
+        def wait_and_open(cv, timeout=None):
+            if threading.get_ident() == consumer:
+                next((g for g in gates if not g.is_set()), threading.Event()).set()
+            return wait(cv, timeout)
+
+        monkeypatch.setattr(threading.Condition, "wait", wait_and_open)
     t = time.perf_counter()
     with P.recording():
         decode_s, workers = (0.02, 1) if slow == "decode" else (0.0, 2)
-        items = iter(TD.Prefetcher(_Stub(n, decode_s), workers=workers))
+        items = iter(TD.Prefetcher(_Stub(n, decode_s, gates), workers=workers))
         for k in range(n):
             if slow == "consumer":
                 time.sleep(0.03)
