@@ -255,14 +255,30 @@ Phases, each fatal on failure:
         splat over each 10 steps and the wall time of each step that
         captured a grown program.
      Alone: ``python3 -c "import chip_smoke as s; s.phase_card_data(s.card_line())"``.
+ 12. the LPIPS distance head (``csrc/lpips_head.cu``) on the taps of the
+     random VGG16 trunk at 512^2 and 544^2 and of the AlexNet trunk at
+     512^2 (bfloat16, a textured target and the prediction a little off it),
+     and of VGG16 at 512^2 in float32: the value within 1e-5 relative of
+     ``lpips_head_plain``'s on the card and every bfloat16 gradient element
+     within one bfloat16 ulp of the plain path's plus 2^-16 of the float32
+     envelope of its terms (``HEAD_F32_ENV``; the counts past one ulp and
+     each path's largest error against the float64 gradient printed;
+     float32: within 1e-5 of the largest); its forward and backward
+     captured in a CUDA graph, 3 launches per capture, 50 replays bit-equal
+     to each other and to the eager call; the kernel pair and the plain
+     head (with its float32 casts) each captured and timed by CUDA events
+     over back-to-back replays, beside the bytes bound.
+     Alone: ``python3 -c "import chip_smoke as s; s.phase_lpips_head(s.card_line())"``.
 The programs' warm-up and capture are set-up: the launches they count are
 taken back, and every replay adds the captured call's launches, so a count
 is one per frame or step on every path, as the eager paths gave it.
 Kernel times are CUDA events around back-to-back calls after a warm-up;
 each part of a two-launch kernel also prints its device time (the calls
 queued behind a device-side sleep) beside it, as a diagnostic.
-Each phase prints its seconds. The last twelve lines are phase 11's numbers
-as JSON, phase 10's numbers as JSON, phase 9's numbers as JSON, phase 8's numbers as JSON, phase 7's numbers as JSON, the pose and
+Each phase prints its seconds. The last thirteen lines are phase 12's
+numbers as JSON, phase 11's numbers as JSON, phase 10's numbers as JSON,
+phase 9's numbers as JSON, phase 8's numbers as JSON, phase 7's numbers as
+JSON, the pose and
 animation numbers as JSON, the drivers' numbers as JSON, the forward
 timings as JSON, the train-step timings as JSON, the kernels JSON line
 (each kernel's launches on phase 7's paths under ``parallel_launches``, on
@@ -1708,7 +1724,13 @@ def phase_train_path(trained, card, child: bool = False):
             snaps.append(train_state(trainer))
         return out
 
-    steps, launches, _ = counted(run)
+    from gomavatar_tpu_torch.utils import profiling
+
+    t_rec = time.perf_counter()
+    with profiling.recording():
+        steps, launches, _ = counted(run)
+    head_calls = sum(1 for r in profiling.records(t_rec) if isinstance(r, profiling.Count)
+                     and r.name == "lpips.head_kernel")
     for i, (total, losses) in enumerate(steps):
         terms = {k: float(v) for k, v in losses.items()}
         print(f"  step {i}: total {float(total):.6g}, " + ", ".join(f"{k} {v:.5g}" for k, v in terms.items()))
@@ -1719,6 +1741,11 @@ def phase_train_path(trained, card, child: bool = False):
           f"capture)")
     for k in ("B2a", "B2b", "B3a", "B3b", "B4a", "B4b", "B5"):
         require(launches[k] == TRAIN_STEPS, f"the train path did not launch {k} once per step")
+    # the LPIPS head: forward (2 launches) and backward (1) in every replay;
+    # its counter once per Python call (the warm-up calls and the capture)
+    print(f"  lpips_head: {launches['lpips_head']} launches, lpips.head_kernel counted {head_calls} times")
+    require(launches["lpips_head"] == 3 * TRAIN_STEPS, "the train path did not run the LPIPS head kernels per step")
+    require(head_calls >= 1, "the captured train step did not record lpips.head_kernel")
     require(trainer._step_fn.captures == 1, "the train program captured more than once in one phase")
     for k in ("B2", "B3", "B4"):  # two kernels each: their launches
         launches[k] = launches[f"{k}a"] + launches[f"{k}b"]
@@ -1874,7 +1901,7 @@ def check_driver_eval(label, result, launches, seconds, n_faces, it):
           f"time, dropped {result['dropped']}, launches {launches}, metrics {means}")
     require(result["iter"] == it and result["num_faces"] == n_faces, f"{label}: wrong checkpoint or face count")
     require(launches["B1a"] == launches["B1b"] == frames, f"{label}: B1a and B1b did not launch once per frame")
-    require(all(v == 0 for k, v in launches.items() if not k.startswith("B1")), f"{label}: a train kernel launched")
+    require(all(launches[k] == 0 for k in TRAIN_KERNELS), f"{label}: a train kernel launched")
     require(result["dropped"] == 0, f"{label}: the binning dropped entries")
     require(means and all(np.isfinite(v) for v in means.values()), f"{label}: non-finite or missing metrics")
     pngs = sorted(f for f in os.listdir(result["out_dir"]) if f.endswith(".png"))
@@ -2450,6 +2477,7 @@ def pose_on_trained(trained, device="cuda"):
     require(best_loss < first, "pose refinement: the best loss is not below the first")
     for k in TRAIN_KERNELS:
         require(launches[k] == POSE_STEPS, f"pose refinement did not launch {k} once per step")
+    require(launches["lpips_head"] == 3 * POSE_STEPS, "pose refinement did not run the LPIPS head kernels per step")
     require(launches["B1a"] == launches["B1b"] == 0, "pose refinement launched the eval kernel")
 
     require(optimize.program.captures == 1, "pose refinement: the pose step was captured more than once")
@@ -3868,8 +3896,7 @@ def calibrated_eval(path: str, exp, t: str, trunk: str, cal_dir: str, device="cu
     require("lpips" in metrics and "lpips_uncalibrated" not in metrics and np.isfinite(metrics["lpips"]),
             f"10c: cli.evaluate --type {t} did not report a calibrated lpips")
     require(launches["B1a"] == launches["B1b"] == frames, f"10c: --type {t} did not launch B1a and B1b once per frame")
-    require(all(v == 0 for k, v in launches.items() if not k.startswith("B1")),
-            f"10c: --type {t} launched a train kernel")
+    require(all(launches[k] == 0 for k in TRAIN_KERNELS), f"10c: --type {t} launched a train kernel")
     require(result["dropped"] == 0, f"10c: --type {t} dropped entries")
     dataset, _ = evaluate.build_dataset(exp, argparse.Namespace(type=t, dataset_path=None, frame_idx=0, n_frames=100,
                                                                 pose_path=None))
@@ -4173,8 +4200,20 @@ def budget_run_child(steps: int, seed: int, out: str) -> None:
                 widest = 0
         hist.update(steps=steps, loop_s=time.perf_counter() - t_loop, median_step_s=statistics.median(times),
                     failed=int(drv.counts()[1]), captures=tr._step_fn.captures)
+        close_feed(drv)
     with open(out, "w") as f:
         json.dump(hist, f)
+
+
+def close_feed(drv) -> None:
+    """Close a train driver's feed mid-epoch and wait for its decode threads:
+    a daemon thread still compositing an item on the card when the
+    interpreter exits aborts the process ("terminate called without an
+    active exception")."""
+    feed = drv.items.gi_frame.f_locals.get("self") if drv.items.gi_frame is not None else None
+    drv.items.close()
+    for t in getattr(feed, "_threads", ()):
+        t.join()
 
 
 def phase_card_data(card: str) -> dict:
@@ -4209,6 +4248,188 @@ def phase_card_data(card: str) -> dict:
           f"{hist['median_step_s']:.4f} s ({card})")
     result["budget_run"] = hist
     return result
+
+
+# ---- phase 12: the LPIPS distance head -------------------------------------------
+
+# (trunk, image side, float32 trunk): the train and pose steps' taps at the
+# two recipes' frames, the PeopleSnapshot metric's AlexNet taps (odd sizes),
+# the float32 trunk of 5e and 10b
+HEAD_CASES = (("vgg", 512, False), ("vgg", 544, False), ("alex", 512, False), ("vgg", 512, True))
+HEAD_SEED, HEAD_REPLAYS = 12, 50
+# the kernel's value against the plain head's on the card, relative
+HEAD_VALUE_RTOL = 1e-5
+# float32 taps: each gradient element within this share of the largest
+HEAD_F32_GRAD_TOL = 1e-5
+# bfloat16 taps: each gradient element within one bfloat16 ulp of the plain
+# path's, plus 2^-16 of the float32 envelope of its terms, rp G_c + rp^3
+# |fp_c| sum_j G_j |fp_j| with G_c = 2 max(w_c, 0) (|fp_c| rp + |fg_c| rg) /
+# (h w): where terms cancel (fp_c rp against fg_c rg as the prediction nears
+# the target, rp g_c against rp^3 fp_c S) both paths' float32 values carry
+# the float32 rounding of the terms, which one ulp of the small result does
+# not cover
+HEAD_F32_ENV = 2.0 ** -16
+
+
+def head_images(side: int, seed: int = HEAD_SEED):
+    """(pred, gt) (side, side, 3) in [-1, 1] on the card: a textured target
+    (seeded noise at two scales, a flat patch) and the prediction within a
+    few levels of it."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    base = torch.rand((1, 3, side // 16, side // 16), generator=g)
+    fine = torch.rand((1, 3, side // 2, side // 2), generator=g)
+    img = (torch.nn.functional.interpolate(base, size=(side, side), mode="bilinear", align_corners=False) * 0.7
+           + torch.nn.functional.interpolate(fine, size=(side, side), mode="nearest") * 0.3)
+    img[..., : side // 4, : side // 4] = 0.0  # a flat black patch
+    gt = (img[0].permute(1, 2, 0) * 2.0 - 1.0).clamp(-1.0, 1.0)
+    pred = (gt + 0.02 * torch.randn(gt.shape, generator=g)).clamp(-1.0, 1.0)
+    return pred.cuda(), gt.cuda()
+
+
+def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The distance of two bfloat16 tensors in bfloat16 steps (0 and -0 equal)."""
+    def key(x):
+        i = x.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+
+    return (key(a) - key(b)).abs()
+
+
+def bf16_ulp(v: torch.Tensor) -> torch.Tensor:
+    """The bfloat16 spacing at |v| (bfloat16 values), in float64."""
+    _, e = torch.frexp(v.float())
+    return torch.ldexp(torch.ones_like(v, dtype=torch.float64), (e - 8).to(torch.float64)).clamp_min(2.0 ** -133)
+
+
+def head_grad_f64(fp, fg, head):
+    """(gradient, envelope) of the head in ``fp`` in float64 for an upstream
+    1: rp g_c - rp^3 fp_c S, and HEAD_F32_ENV's envelope of its terms."""
+    x, y = fp.detach().double(), fg.double()
+    w = head.detach().reshape(1, -1, 1, 1).double().clamp_min(0.0)
+    rp = 1.0 / torch.sqrt((x * x).sum(dim=1, keepdim=True) + 1e-20)
+    rg = 1.0 / torch.sqrt((y * y).sum(dim=1, keepdim=True) + 1e-20)
+    g = 2.0 * w * (x * rp - y * rg) / (x.shape[2] * x.shape[3])
+    G = 2.0 * w * (x.abs() * rp + y.abs() * rg) / (x.shape[2] * x.shape[3])
+    S = (g * x).sum(dim=1, keepdim=True)
+    return rp * g - rp ** 3 * x * S, rp * G + rp ** 3 * x.abs() * (G * x.abs()).sum(dim=1, keepdim=True)
+
+
+def head_graph(fn):
+    """(graph, outputs, launches of the LPIPS head per replay) of ``fn()``
+    captured after 3 warm-up calls on a side stream."""
+    from gomavatar_tpu_torch.models.lpips import lpips_head
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph, before = torch.cuda.CUDAGraph(), lpips_head.launches
+    with torch.cuda.graph(graph):
+        out = fn()
+    return graph, out, lpips_head.launches - before
+
+
+def head_case(trunk: str, side: int, f32: bool) -> dict:
+    """One case of phase 12 (see the module docstring)."""
+    from gomavatar_tpu_torch.models.lpips import (
+        _alex_features,
+        _vgg_features,
+        head_plan,
+        load_lpips,
+        lpips_head,
+        lpips_head_plain,
+    )
+
+    label = f"{trunk} {side}^2 {'float32' if f32 else 'bfloat16'}"
+    params = load_lpips(trunk, device="cuda", quiet=True)[0]
+    heads = params["heads"]
+    pred, gt = head_images(side)
+    features = _alex_features if trunk == "alex" else _vgg_features
+    with torch.no_grad():
+        f_p = [f.detach().requires_grad_() for f in features(params, pred, not f32)]
+        f_g = [f.detach() for f in features(params, gt, not f32)]
+    elem = f_p[0].element_size()
+    shapes = [tuple(f.shape[1:]) for f in f_p]
+    plans = [head_plan(f.shape[1], f.shape[2] * f.shape[3], elem, [f.data_ptr()]) for f in f_p]
+    elements = sum(f.numel() for f in f_p)
+    zero_px = sum(int((f.detach().float().abs().sum(dim=1) == 0).sum()) for f in f_p)
+
+    def kernel_pair():
+        v = lpips_head(f_p, f_g, heads)
+        return (v, *torch.autograd.grad(v, f_p))
+
+    def plain_pair():
+        v = lpips_head_plain([f.float() for f in f_p], [f.float() for f in f_g], heads)
+        return (v, *torch.autograd.grad(v, f_p))
+
+    before = lpips_head.launches
+    kern = [t.detach().clone() for t in kernel_pair()]
+    eager_launches = lpips_head.launches - before
+    plain = [t.detach().clone() for t in plain_pair()]
+    torch.cuda.synchronize()
+    require(all(bool(torch.isfinite(t).all()) for t in kern), f"12 {label}: non-finite kernel outputs")
+    rel = abs(float(kern[0]) - float(plain[0])) / abs(float(plain[0]))
+    out = {"taps": shapes, "tile_vec": plans, "elements": elements, "zero_feature_pixels": zero_px,
+           "value": float(kern[0]), "plain_value": float(plain[0]), "value_rel": rel, "eager_launches": eager_launches}
+    require(eager_launches == 3, f"12 {label}: {eager_launches} launches for one forward and backward")
+    require(rel <= HEAD_VALUE_RTOL, f"12 {label}: value {float(kern[0])!r} vs plain {float(plain[0])!r} ({rel:.3g})")
+    if f32:
+        worst = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(kern[1:], plain[1:]))
+        out["grad_worst_over_max"] = worst
+        print(f"  12 {label}: value rel {rel:.3g}; gradient worst difference {worst:.3g} of the largest")
+        require(worst <= HEAD_F32_GRAD_TOL, f"12 {label}: gradient {worst:.3g} of its largest apart from plain")
+    else:
+        ulps = [bf16_ulps(a, b) for a, b in zip(kern[1:], plain[1:])]
+        out["grad_max_ulps"] = [int(u.max()) for u in ulps]
+        out["grad_off_1ulp"] = [int((u == 1).sum()) for u in ulps]
+        out["grad_over_1ulp"] = [int((u > 1).sum()) for u in ulps]
+        print(f"  12 {label}: taps {shapes}, (tile, vec) {plans}; value {float(kern[0]):.7g} vs plain "
+              f"{float(plain[0]):.7g} (rel {rel:.3g}); gradient ulps max {out['grad_max_ulps']}, one ulp off "
+              f"{out['grad_off_1ulp']}, more {out['grad_over_1ulp']} of {elements}; {zero_px} all-zero pixels")
+        out["grad_outside"], out["kernel_err_f64"], out["plain_err_f64"] = [], [], []
+        for k, (a, b, fp, fg, head) in enumerate(zip(kern[1:], plain[1:], f_p, f_g, heads)):
+            truth, env = head_grad_f64(fp, fg, head)
+            outside = (a.double() - b.double()).abs() > bf16_ulp(torch.maximum(a.abs(), b.abs())) + HEAD_F32_ENV * env
+            ek, ep = float((a.double() - truth).abs().max()), float((b.double() - truth).abs().max())
+            out["grad_outside"].append(int(outside.sum()))
+            out["kernel_err_f64"].append(ek)
+            out["plain_err_f64"].append(ep)
+            print(f"    tap {k}: {int(outside.sum())} past one ulp plus the float32 envelope; largest error against "
+                  f"float64: kernel {ek:.3g}, plain {ep:.3g}, of the largest |grad| {float(truth.abs().max()):.3g}")
+        require(not any(out["grad_outside"]), f"12 {label}: gradient elements past one bfloat16 ulp of plain and "
+                                              f"the float32 envelope")
+
+    graph, outs, per_replay = head_graph(kernel_pair)
+    require(per_replay == 3, f"12 {label}: {per_replay} launches captured, not 3")
+    graph.replay()
+    first = [t.detach().clone() for t in outs]
+    same = all(torch.equal(a, b) for a, b in zip(first, kern))
+    for _ in range(HEAD_REPLAYS):
+        graph.replay()
+        same = same and all(torch.equal(a, b) for a, b in zip(outs, first))
+    torch.cuda.synchronize()
+    print(f"  12 {label}: {HEAD_REPLAYS} graph replays {'bit-equal' if same else 'APART'} (and to the eager call)")
+    require(same, f"12 {label}: graph replays differ")
+    kernel_ms = cuda_ms(graph.replay, KERNEL_ITERS)
+    plain_graph, _, _ = head_graph(plain_pair)
+    plain_ms = cuda_ms(plain_graph.replay, KERNEL_ITERS)
+    # the bytes the pair must move: both images' taps read once forward, again
+    # backward, the prediction's gradient written once
+    nbytes = elements * elem * 5
+    bound = nbytes / PEAK_BYTES_PER_S * 1e3
+    print(f"  12 {label}: kernel pair {kernel_ms:.4f} ms, plain head {plain_ms:.4f} ms (graph replays, CUDA events), "
+          f"bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB at {PEAK_BYTES_PER_S / 1e12:.2f} TB/s)")
+    del graph, plain_graph
+    torch.cuda.empty_cache()
+    return dict(out, ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound, bytes=nbytes, replays_bit_equal=same)
+
+
+def phase_lpips_head(card: str) -> dict:
+    """Phase 12: :func:`head_case` for each of HEAD_CASES."""
+    print(f"[12] the LPIPS head kernel against lpips_head_plain on the card ({card})")
+    return {f"{t} {s} {'f32' if f else 'bf16'}": head_case(t, s, f) for t, s, f in HEAD_CASES}
 
 
 def main() -> int:
@@ -4281,6 +4502,9 @@ def main() -> int:
     t0 = time.perf_counter()
     card_data = phase_card_data(card)
     done(11, t0)
+    t0 = time.perf_counter()
+    lpips_head = phase_lpips_head(card)
+    done(12, t0)
 
     measured = {"B1": dict(b1, launches=b1_launches["B1"])}
     for k in ("B2", "B3", "B4", "B5"):
@@ -4307,6 +4531,7 @@ def main() -> int:
         entry["sweep_launches"] = sum(draws["9d"]["launches"][q] for q in ([k] if k == "B5" else [f"{k}a", f"{k}b"]))
         entry["calibrated_launches"] = calibrated_launches(k, calibrated)
         result["kernels"].append(entry)
+    print(json.dumps({"lpips_head": lpips_head}))
     print(json.dumps({"card_data": card_data}))
     print(json.dumps({"calibrated_lpips": calibrated}))
     print(json.dumps({"seeded_draws": draws}))

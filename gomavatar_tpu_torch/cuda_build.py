@@ -23,7 +23,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
-KERNEL_SOURCES = ("frame_render", "splat_composite", "mesh_raster", "composite_resize")
+KERNEL_SOURCES = ("frame_render", "splat_composite", "mesh_raster", "composite_resize", "lpips_head")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 _loaded: dict[str, ctypes.CDLL] = {}

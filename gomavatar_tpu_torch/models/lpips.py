@@ -29,10 +29,18 @@ trunk is drawn once per process, on the host (the VGG16 trunk's 14.7 M
 normals take a few seconds; ``chip_smoke.py`` 9c times the draw).
 
 Convolutions run in bfloat16 by default, as in the reference.
+
+The distance head after the taps (:func:`lpips_head`): on CUDA taps one
+hand-written forward and one backward over all five taps in the trunk's
+dtype (``csrc/lpips_head.cu``: 2 launches forward, 1 backward, counted in
+``lpips_head.launches``; the counter ``lpips.head_kernel`` once a call); on
+CPU taps :func:`lpips_head_plain` on their float32 copies, differentiated
+by autograd; any other device raises.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import logging
 import os
@@ -43,6 +51,7 @@ import torch
 import torch.nn.functional as F
 
 from gomavatar_tpu_torch import prng
+from gomavatar_tpu_torch.utils.profiling import count
 
 log = logging.getLogger(__name__)
 
@@ -214,7 +223,8 @@ def _normalize(x: torch.Tensor) -> torch.Tensor:
 
 
 def _vgg_features(params, x: torch.Tensor, bf16: bool):
-    """x (H, W, 3) in [-1, 1] -> the five tap feature maps, (1, C, h, w) f32."""
+    """x (H, W, 3) in [-1, 1] -> the five tap feature maps, (1, C, h, w) in
+    the trunk's dtype (bfloat16 when ``bf16``)."""
     h = _normalize(x).permute(2, 0, 1)[None]  # (1, 3, H, W)
     dtype = torch.bfloat16 if bf16 else torch.float32
     h = h.to(dtype)
@@ -229,13 +239,14 @@ def _vgg_features(params, x: torch.Tensor, bf16: bool):
         h = F.conv2d(h, conv["w"].to(dtype), padding=1)
         h = torch.relu(h + conv["b"].to(dtype)[None, :, None, None])
         if conv_i in _TAPS:
-            feats.append(h.float())
+            feats.append(h)
         conv_i += 1
     return feats
 
 
 def _alex_features(params, x: torch.Tensor, bf16: bool):
-    """x (H, W, 3) in [-1, 1] -> the five AlexNet relu taps, (1, C, h, w) f32."""
+    """x (H, W, 3) in [-1, 1] -> the five AlexNet relu taps, (1, C, h, w) in
+    the trunk's dtype."""
     dtype = torch.bfloat16 if bf16 else torch.float32
     h = _normalize(x).permute(2, 0, 1)[None].to(dtype)
     feats = []
@@ -244,7 +255,7 @@ def _alex_features(params, x: torch.Tensor, bf16: bool):
             h = F.max_pool2d(h, 3, 2)  # no padding, floor output size
         h = F.conv2d(h, conv["w"].to(dtype), stride=stride, padding=pad)
         h = torch.relu(h + conv["b"].to(dtype)[None, :, None, None])
-        feats.append(h.float())
+        feats.append(h)
     return feats
 
 
@@ -252,10 +263,19 @@ def lpips(params, pred: torch.Tensor, gt: torch.Tensor, bf16: bool = True) -> to
     """LPIPS distance between two (H, W, 3) images in [-1, 1]; the trunk is
     AlexNet when ``params`` hold the ``"alex"`` key, else VGG16."""
     features = _alex_features if "alex" in params else _vgg_features
-    f_p = features(params, pred, bf16)
-    f_g = features(params, gt, bf16)
-    total = torch.zeros((), dtype=torch.float32, device=pred.device)
-    for fp, fg, head in zip(f_p, f_g, params["heads"]):
+    return lpips_head(features(params, pred, bf16), features(params, gt, bf16), params["heads"])
+
+
+# ---- the distance head ------------------------------------------------------------
+
+
+def lpips_head_plain(f_p, f_g, heads) -> torch.Tensor:
+    """The distance head on float32 taps: each (1, C, h, w) feature vector
+    unit-normalised, the squared difference weighted by the clamped head
+    (``heads[k]`` (C, 1)), summed over channels, its spatial mean summed over
+    the taps in order."""
+    total = torch.zeros((), dtype=torch.float32, device=f_p[0].device)
+    for fp, fg, head in zip(f_p, f_g, heads):
         # x * rsqrt(sum x^2 + eps^2): x / (|x| + eps) has a 0/0 gradient at
         # the all-zero post-ReLU feature vectors of flat regions
         np_ = fp * torch.rsqrt(torch.sum(fp * fp, dim=1, keepdim=True) + 1e-20)
@@ -264,6 +284,130 @@ def lpips(params, pred: torch.Tensor, gt: torch.Tensor, bf16: bool = True) -> to
         w = torch.clamp_min(head[:, 0], 0.0)[None, :, None, None]
         total = total + torch.mean(torch.sum(d * w, dim=1))
     return total
+
+
+def lpips_head(f_p, f_g, heads) -> torch.Tensor:
+    """:func:`lpips_head_plain` of the taps ``f_p`` (the prediction's) and
+    ``f_g`` (the target's), differentiable in ``f_p`` only: on CUDA taps
+    (bfloat16 or float32, each (1, C, h, w) contiguous) by the kernels of
+    ``csrc/lpips_head.cu``, on CPU taps by the plain version on their
+    float32 copies."""
+    dev = f_p[0].device
+    if dev.type == "cpu":
+        return lpips_head_plain([f.float() for f in f_p], [f.float() for f in f_g], heads)
+    if dev.type != "cuda":
+        raise ValueError(f"the LPIPS head runs on CUDA or CPU tensors, not {dev}")
+    count("lpips.head_kernel")
+    return _LpipsHead.apply(len(f_p), *f_p, *f_g, *heads)
+
+
+lpips_head.launches = 0
+
+# the kernels' block and its shared memory (csrc/lpips_head.cu)
+_HEAD_THREADS = 256
+_HEAD_SMEM = 48 * 1024
+_HEAD_DTYPES = {torch.bfloat16: 2, torch.float32: 4}
+
+
+def head_plan(C: int, P: int, elem: int, ptrs=()) -> tuple[int, int]:
+    """(tile, vec) of a tap of C channels and P pixels of ``elem``-byte
+    floats: a block's pixels, the largest power of two up to 256 whose two
+    (C, tile) tiles fit the block's shared memory beside the head and its
+    scratch, and the bytes a load, the widest of 16, 8, 4 and 2 (not below
+    ``elem``) that divides a channel row's bytes and every address in
+    ``ptrs``."""
+    room = (_HEAD_SMEM - 4 * C - 8 * _HEAD_THREADS) // (2 * C * elem)
+    if room < 8:
+        raise ValueError(f"the LPIPS head kernel takes at most {(_HEAD_SMEM - 8 * _HEAD_THREADS) // (16 * elem + 4)} "
+                         f"channels of {elem}-byte floats, not {C}")
+    tile = min(_HEAD_THREADS, 1 << (room.bit_length() - 1))
+    for vec in (16, 8, 4, 2):
+        if vec >= elem and (P * elem) % vec == 0 and all(p % vec == 0 for p in ptrs):
+            return tile, vec
+    raise ValueError(f"the LPIPS head kernel reads {elem}-byte floats at {elem}-byte aligned addresses")
+
+
+# the taps' arrays of both launchers: taps, bytes an element, fp, fg, head,
+# C, P, tile, vec (csrc/lpips_head.cu)
+_TAP_ARGTYPES = [ctypes.c_int, ctypes.c_int, *[ctypes.POINTER(ctypes.c_void_p)] * 3,
+                 *[ctypes.POINTER(ctypes.c_int)] * 4]
+
+
+@functools.lru_cache(maxsize=None)
+def _head_fns():
+    from gomavatar_tpu_torch import cuda_build
+
+    lib = cuda_build.load("lpips_head")
+    fwd, bwd = lib.gom_lpips_head_fwd, lib.gom_lpips_head_bwd
+    fwd.argtypes = [ctypes.c_void_p] * 3 + _TAP_ARGTYPES + [ctypes.c_void_p]  # r, partial, out; stream
+    bwd.argtypes = [ctypes.c_void_p] * 2 + [ctypes.POINTER(ctypes.c_void_p)] + _TAP_ARGTYPES + [ctypes.c_void_p]
+    fwd.restype = bwd.restype = ctypes.c_int
+    return fwd, bwd
+
+
+def _head_table(f_p, f_g, heads, grads=()):
+    """((n, elem, fp, fg, head, C, P, tile, vec): the taps' arguments of a
+    launch, blocks, pixels); raises on what the kernels do not take."""
+    elem = _HEAD_DTYPES.get(f_p[0].dtype)
+    if elem is None:
+        raise ValueError(f"the LPIPS head kernel takes bfloat16 or float32 taps, not {f_p[0].dtype}")
+    n, dev = len(f_p), f_p[0].device
+    Cs, Ps, tiles, vecs = [], [], [], []
+    for k, (fp, fg, head) in enumerate(zip(f_p, f_g, heads)):
+        if fp.dim() != 4 or fp.shape[0] != 1 or fg.shape != fp.shape:
+            raise ValueError(f"taps must be two (1, C, h, w) tensors of one shape, got {tuple(fp.shape)} and "
+                             f"{tuple(fg.shape)}")
+        C, P = fp.shape[1], fp.shape[2] * fp.shape[3]
+        for name, t in (("fp", fp), ("fg", fg)):
+            if t.dtype != f_p[0].dtype or not t.is_contiguous() or t.device != dev:
+                raise ValueError(f"{name} must be a contiguous {f_p[0].dtype} tensor on {dev}")
+        if head.dtype != torch.float32 or head.numel() != C or not head.is_contiguous() or head.device != dev:
+            raise ValueError(f"a head must be a contiguous float32 tensor of {C} values on {dev}")
+        tile, vec = head_plan(C, P, elem, [fp.data_ptr(), fg.data_ptr()] + [g.data_ptr() for g in grads[k:k + 1]])
+        Cs.append(C), Ps.append(P), tiles.append(tile), vecs.append(vec)
+
+    def ptrs(ts):
+        return (ctypes.c_void_p * n)(*(t.data_ptr() for t in ts))
+
+    def ints(v):
+        return (ctypes.c_int * n)(*v)
+
+    blocks = sum(-(-P // t) for P, t in zip(Ps, tiles))
+    return (n, elem, ptrs(f_p), ptrs(f_g), ptrs(heads), ints(Cs), ints(Ps), ints(tiles), ints(vecs)), blocks, sum(Ps)
+
+
+class _LpipsHead(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, n, *taps):
+        from gomavatar_tpu_torch.ops.splat.pallas_kernel import launch_kernel
+
+        f_p, f_g, heads = taps[:n], taps[n:2 * n], [h.reshape(-1) for h in taps[2 * n:]]
+        if any(ctx.needs_input_grad[1 + n:]):
+            raise ValueError("the LPIPS head kernel differentiates in the prediction's taps only")
+        table, blocks, pixels = _head_table(f_p, f_g, heads)
+        dev = f_p[0].device
+        r = torch.empty((2 * pixels,), dtype=torch.float32, device=dev)
+        partial = torch.empty((blocks,), dtype=torch.float32, device=dev)
+        out = torch.empty((), dtype=torch.float32, device=dev)
+        launch_kernel("lpips_head_fwd", _head_fns()[0], r, partial, out, *table)
+        lpips_head.launches += 2
+        ctx.n = n
+        ctx.save_for_backward(*f_p, *f_g, *heads, r)
+        return out
+
+    @staticmethod
+    def backward(ctx, g_out):
+        from gomavatar_tpu_torch.ops.splat.pallas_kernel import launch_kernel
+
+        n, saved = ctx.n, ctx.saved_tensors
+        f_p, f_g, heads, r = saved[:n], saved[n:2 * n], saved[2 * n:3 * n], saved[3 * n]
+        grads = [torch.empty_like(fp) for fp in f_p]
+        table, _, _ = _head_table(f_p, f_g, heads, grads)
+        g_out = g_out.to(torch.float32).contiguous()
+        grad_ptrs = (ctypes.c_void_p * n)(*(g.data_ptr() for g in grads))
+        launch_kernel("lpips_head_bwd", _head_fns()[1], r, g_out, grad_ptrs, *table)
+        lpips_head.launches += 1
+        return (None, *grads, *([None] * (2 * n)))
 
 
 def torch_conv_indices(trunk: str) -> list[int]:

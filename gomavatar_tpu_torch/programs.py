@@ -92,13 +92,14 @@ WARMUP_CALLS = 3
 def kernel_wrappers() -> dict:
     """The counted wrapper of every kernel launch, by name: each holds its
     ``launches``."""
+    from gomavatar_tpu_torch.models import lpips as LP
     from gomavatar_tpu_torch.ops import frame_render as FR
     from gomavatar_tpu_torch.ops import mesh_raster_pallas as MK
     from gomavatar_tpu_torch.ops.splat import pallas_kernel as SK
 
     return {"B1a": FR.frame_partials, "B1b": FR.frame_merge, "B2a": SK.splat_fwd_partials,
             "B2b": SK.splat_fwd_merge, "B3a": SK.splat_bwd_partials, "B3b": SK.splat_bwd_grads,
-            "B4a": MK.mesh_fwd_partials, "B4b": MK.mesh_fwd_merge, "B5": MK.mesh_bwd}
+            "B4a": MK.mesh_fwd_partials, "B4b": MK.mesh_fwd_merge, "B5": MK.mesh_bwd, "lpips_head": LP.lpips_head}
 
 
 def _counters() -> dict:
