@@ -253,11 +253,16 @@ Phases, each fatal on failure:
         its three drop counters after every step and fails on a drop),
         which must exit with 0: the per-splat budget as it grew, the widest
         splat over each 10 steps and the wall time of each step that
-        captured a grown program.
+        captured a grown program;
+     c. a 540^2 frame at its own size (``snapshot_m3c_540``'s data): the
+        kernel and its plain version on the card bit-equal to the host's
+        (``cv2.resize`` copies a frame at its own size), the composite with
+        no resample.
      Alone: ``python3 -c "import chip_smoke as s; s.phase_card_data(s.card_line())"``.
  12. the LPIPS distance head (``csrc/lpips_head.cu``) on the taps of the
-     random VGG16 trunk at 512^2 and 544^2 and of the AlexNet trunk at
-     512^2 (bfloat16, a textured target and the prediction a little off it),
+     random VGG16 trunk at 512^2, 544^2 and 540^2 (three odd taps) and of
+     the AlexNet trunk at 512^2 (bfloat16, a textured target and the
+     prediction a little off it),
      and of VGG16 at 512^2 in float32: the value within 1e-5 relative of
      ``lpips_head_plain``'s on the card and every bfloat16 gradient element
      within one bfloat16 ulp of the plain path's plus 2^-16 of the float32
@@ -4216,13 +4221,45 @@ def close_feed(drv) -> None:
         t.join()
 
 
+def composite_copy(side: int = 540) -> dict:
+    """11c: a frame composited at its own size (``snapshot_m3c_540``'s 540^2
+    PNGs at 540^2): the kernel, its plain version on the card and the host
+    path (``cv2.resize`` to the frame's size copies it) bit for bit, each
+    the composite with no resample."""
+    from gomavatar_tpu_torch.data.composite import composite_resize, composite_resize_plain
+    from gomavatar_tpu_torch.data.dataset import TrainDataset
+
+    rng = np.random.default_rng(CARD_DATA_SEED)
+    img = rng.integers(0, 256, (side, side, 3), dtype=np.uint8)
+    mask = rng.integers(0, 256, (side, side), dtype=np.uint8)
+    img[rng.random((side, side)) < 0.3] = 0
+    mask[rng.random((side, side)) < 0.3] = 255
+    bg = (rng.random(3) * 255.0).astype(np.float32)
+    host = TrainDataset.__new__(TrainDataset)
+    host.target_size = (side, side)
+    rgb, m = host._composite_resize(img.astype(np.float32), mask / 255.0, bg)
+    rgb, m = (rgb / 255.0).astype(np.float32), m.astype(np.float32)
+    a = mask / 255.0
+    plain_comp = ((a[..., None] * img.astype(np.float32) + (1.0 - a[..., None]) * bg) / 255.0).astype(np.float32)
+    require(np.array_equal(rgb, plain_comp) and np.array_equal(m, a.astype(np.float32)),
+            "11c: the host path at the frame's own size is not the composite with no resample")
+    ti, tm = torch.from_numpy(img).cuda(), torch.from_numpy(mask).cuda()
+    for label, (k_rgb, k_m) in (("kernel", composite_resize(ti, tm, bg, (side, side))),
+                                ("plain", composite_resize_plain(ti, tm, bg, (side, side)))):
+        require(np.array_equal(k_rgb.cpu().numpy(), rgb) and np.array_equal(k_m.cpu().numpy(), m),
+                f"11c: the {label} composite at {side}^2 differs from the host's copy")
+    print(f"  11c a {side}^2 frame at its own size: the kernel and its plain version bit-equal to the host's "
+          f"cv2 copy, the composite with no resample")
+    return {"side": side, "bit_equal": True}
+
+
 def phase_card_data(card: str) -> dict:
     """Phase 11: 11a (:func:`card_composite`) on both train cells; 11b
     (:func:`budget_run_child`) in a child process that must exit with 0: no
-    step of BUDGET_STEPS drops an entry."""
+    step of BUDGET_STEPS drops an entry; 11c (:func:`composite_copy`)."""
     import tempfile
 
-    result = {}
+    result = {"copy": composite_copy()}
     for name in CARD_DATA_CELLS:
         with tempfile.TemporaryDirectory() as tmp:
             drv = benchmark_cell(name, CARD_DATA_SEED, tmp)
@@ -4255,7 +4292,8 @@ def phase_card_data(card: str) -> dict:
 # (trunk, image side, float32 trunk): the train and pose steps' taps at the
 # two recipes' frames, the PeopleSnapshot metric's AlexNet taps (odd sizes),
 # the float32 trunk of 5e and 10b
-HEAD_CASES = (("vgg", 512, False), ("vgg", 544, False), ("alex", 512, False), ("vgg", 512, True))
+HEAD_CASES = (("vgg", 512, False), ("vgg", 544, False), ("vgg", 540, False), ("alex", 512, False),
+              ("vgg", 512, True))
 HEAD_SEED, HEAD_REPLAYS = 12, 50
 # the kernel's value against the plain head's on the card, relative
 HEAD_VALUE_RTOL = 1e-5

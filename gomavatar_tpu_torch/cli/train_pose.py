@@ -14,8 +14,9 @@ them once per frame (``refine_frame``, the per-frame body of ``main``).
 Under recording (``utils.profiling``) each frame is a span ``pose.refine``
 (its position, ``iters``) around its steps and its read ``pose.read``, and
 counts ``pose.steps``, ``binning.dropped`` (the entries dropped over its
-steps), ``binning.most_tiles`` (the most tiles one splat covered) and
-``binning.budget`` (the per-splat budget).  The frames are then evaluated
+steps), ``binning.most_tiles`` (the most tiles one splat covered),
+``binning.budget`` (the per-splat budget) and the frame's ``frame.px`` and
+``frame.swept_px`` (``binning.count_frame``).  The frames are then evaluated
 with the dataset's poses (``raw``), the refined body pose without the
 global transform (``zeroed``) and with it (``refined``), by
 ``gom_forward(train=False)`` (kernel B1) and the Anim-NeRF evaluator; the
@@ -47,7 +48,7 @@ from gomavatar_tpu_torch.models import lpips as lpips_lib
 from gomavatar_tpu_torch.models.gom import eval_program, gom_forward
 from gomavatar_tpu_torch.ops.mesh_ops import abs_l1
 from gomavatar_tpu_torch.ops.skeleton import body_pose_to_body_RTs
-from gomavatar_tpu_torch.ops.splat.binning import CHUNK
+from gomavatar_tpu_torch.ops.splat.binning import CHUNK, count_frame
 from gomavatar_tpu_torch.ops.splat.tiled_jnp import NCMAX
 from gomavatar_tpu_torch.optim import AdamState, adam_directions, init_state, tree_leaves, tree_unflatten
 from gomavatar_tpu_torch.programs import Program
@@ -261,6 +262,7 @@ def refine_frame(optimize: PoseOptimizer, params, statics, lpips_params, batch: 
             count("binning.dropped", out.dropped)
             count("binning.most_tiles", out.most_tiles)
             count("binning.budget", optimize.gom_cfg.max_tiles_per_gaussian)
+            count_frame(optimize.gom_cfg.img_size)
     return out
 
 

@@ -21,7 +21,9 @@ frame's undistorted ``uint8`` image and one-channel mask:
 The scale is read from the shapes.  The tables of taps and coefficients
 are made on the host (``math``'s sines, numpy's float32) once per (source,
 output) size; ``tests/test_torch_composite.py`` holds the plain version to
-``cv2.resize`` bit for bit at 1024² -> 512² and 540² -> 544².  The plain
+``cv2.resize`` bit for bit at 1024² -> 512² and 540² -> 544².  At a
+frame's own size ``cv2.resize`` copies it, and the tables are the copy's
+(:func:`copy_axis`; ``tests/test_torch_any_size.py`` at 540²).  The plain
 version never divides a tensor by a Python number (PyTorch's CUDA division
 by a host scalar multiplies by its reciprocal) and takes OpenCV's fused
 multiply-adds exactly (:func:`fma`).
@@ -74,6 +76,18 @@ def lanczos_axis(src: int, dst: int):
     return taps, coef
 
 
+def copy_axis(n: int):
+    """(taps (n, 8) int32, coefficients (n, 8) float32) of an axis of a
+    frame resized to its own size: ``cv2.resize`` copies such a frame, so
+    each output takes its own pixel, the tap at its centre, at weight 1 and
+    the others at 0 (``lanczos_axis``'s float32 coefficients there are 1
+    and +-1e-30, which a black pixel beside a lit one would keep)."""
+    taps = np.clip(np.arange(n)[:, None] + np.arange(-3, 5)[None, :], 0, n - 1).astype(np.int32)
+    coef = np.zeros((n, LANCZOS_TAPS), np.float32)
+    coef[:, 3] = 1.0
+    return taps, coef
+
+
 def linear_axis(src: int, dst: int):
     """(taps (dst, 2) int32, fractions (dst,) float64) of one axis."""
     scale = Fraction(src / dst)
@@ -106,7 +120,12 @@ def tables(src_hw, out_hw, device) -> tuple:
         t = _tables.get(key)
         if t is None:
             (H, W), (OH, OW) = src_hw, out_hw
-            host = (*lanczos_axis(W, OW), *lanczos_axis(H, OH), *linear_axis(W, OW), *linear_axis(H, OH))
+            if (H, W) == (OH, OW):
+                # copied, as cv2.resize copies it (the linear fractions are 0)
+                lx, ly = copy_axis(W), copy_axis(H)
+            else:
+                lx, ly = lanczos_axis(W, OW), lanczos_axis(H, OH)
+            host = (*lx, *ly, *linear_axis(W, OW), *linear_axis(H, OH))
             t = tuple(torch.as_tensor(a, device=device) for a in host)
             _tables[key] = t
     return t

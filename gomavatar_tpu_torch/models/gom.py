@@ -44,7 +44,7 @@ from gomavatar_tpu_torch.ops.mesh_ops import (
 )
 from gomavatar_tpu_torch.ops.mesh_raster import np_log_blur, rasterize_mesh
 from gomavatar_tpu_torch.ops.skeleton import apply_lbs, get_global_RTs
-from gomavatar_tpu_torch.ops.splat.binning import CHUNK, bin_sorted, compact_tiles
+from gomavatar_tpu_torch.ops.splat.binning import CHUNK, bin_sorted, compact_tiles, count_frame
 from gomavatar_tpu_torch.ops.splat.render import render_gaussians
 from gomavatar_tpu_torch.ops.steiner import face_covariances, face_covariances_tri
 from gomavatar_tpu_torch.ops.transforms import mm, so3_exp
@@ -525,10 +525,16 @@ def eval_program():
     :func:`eval_forward`'s arguments (``i_iter`` a float or a device scalar).
     The counterpart of ``bench.py``'s ``jax.jit(forward)``; on CUDA tensors
     one captured CUDA graph replayed per frame, on CPU tensors the eager
-    forward.  Its outputs are overwritten by its next call."""
+    forward.  Its outputs are overwritten by its next call.  Each call
+    counts the frame (``binning.count_frame``) when recording."""
     from gomavatar_tpu_torch.programs import Program
 
-    return Program(eval_forward)
+    class EvalProgram(Program):
+        def __call__(self, params, statics, cfg, *args):
+            count_frame(cfg.img_size)
+            return super().__call__(params, statics, cfg, *args)
+
+    return EvalProgram(eval_forward)
 
 
 def _splat_export(params: dict, statics: GoMStatics, cfg: GoMConfig, verts: torch.Tensor) -> dict:

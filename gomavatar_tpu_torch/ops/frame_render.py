@@ -42,7 +42,7 @@ import ctypes
 import torch
 
 from gomavatar_tpu_torch.ops.geometry import NCH
-from gomavatar_tpu_torch.ops.splat.binning import CHUNK, TILE, SortedBinning
+from gomavatar_tpu_torch.ops.splat.binning import CHUNK, TILE, SortedBinning, crop_frame
 from gomavatar_tpu_torch.ops.splat.pallas_kernel import check_tensor, launch_kernel
 from gomavatar_tpu_torch.ops.splat.reference import ALPHA_MAX, ALPHA_MIN, T_EPS
 
@@ -420,13 +420,14 @@ frame_merge.launches = 0
 
 
 def untile(compact: torch.Tensor, bins: SortedBinning, img_size: tuple[int, int]) -> torch.Tensor:
-    """(A, c, P) per-slot tiles -> (H, W, c) image; tiles without a slot read
-    an appended zeros row (a gather, no scatter)."""
-    W, H = img_size
+    """(A, c, P) per-slot tiles -> (H, W, c) image, the whole-tile canvas
+    cropped to the frame; tiles without a slot read an appended zeros row
+    (a gather, no scatter)."""
     TX, TY = bins.num_tiles_x, bins.num_tiles_y
     c = compact.shape[1]
     full = torch.cat([compact, compact.new_zeros((1,) + compact.shape[1:])])[bins.pos_of_tile.long()]
-    return full.reshape(TY, TX, c, TILE, TILE).permute(0, 3, 1, 4, 2).reshape(H, W, c)
+    canvas = full.reshape(TY, TX, c, TILE, TILE).permute(0, 3, 1, 4, 2).reshape(TY * TILE, TX * TILE, c)
+    return crop_frame(canvas, img_size)
 
 
 def render_frame_sorted(

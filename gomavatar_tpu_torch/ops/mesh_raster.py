@@ -28,7 +28,7 @@ from typing import NamedTuple
 import torch
 
 from gomavatar_tpu_torch.ops.mesh_ops import gather_rows, gather_vjp
-from gomavatar_tpu_torch.ops.splat.binning import CHUNK, bin_bboxes
+from gomavatar_tpu_torch.ops.splat.binning import CHUNK, bin_bboxes, crop_frame
 from gomavatar_tpu_torch.ops.splat.tiled_jnp import NCMAX, P, tile_pixels
 from gomavatar_tpu_torch.ops.transforms import mm
 
@@ -324,13 +324,13 @@ def rasterize_mesh(
     active_cap: int | None = None,
 ) -> MeshRasterOut:
     """Rasterize the mesh: verts (N, 3) in world space, vertex_normals (N, 3)
-    already rotated into camera space, faces (F, 3), img_size (W, H) in
-    multiples of 16.  ``soft_mask`` adds the sigmoid silhouette (training
-    only); ``sigma`` is its temperature in NDC^2 and ``blur_sigma`` sets the
-    blur radius, log(1/1e-4 - 1) * blur_sigma in NDC^2.  ``bins`` (a
-    TileBinning) replaces the binning of the triangle boxes; ``dual_faces``
-    (the DualIndex of ``faces`` over the vertices) transposes the vertex
-    gathers by gathers."""
+    already rotated into camera space, faces (F, 3), img_size (W, H) of any
+    size (the tiles' canvas is cropped to it).  ``soft_mask`` adds the
+    sigmoid silhouette (training only); ``sigma`` is its temperature in
+    NDC^2 and ``blur_sigma`` sets the blur radius, log(1/1e-4 - 1) *
+    blur_sigma in NDC^2.  ``bins`` (a TileBinning) replaces the binning of
+    the triangle boxes; ``dual_faces`` (the DualIndex of ``faces`` over the
+    vertices) transposes the vertex gathers by gathers."""
     from gomavatar_tpu_torch.ops.mesh_raster_pallas import mesh_composite
     from gomavatar_tpu_torch.ops.splat.render import cap_active_tiles
 
@@ -353,10 +353,10 @@ def rasterize_mesh(
             )
 
     entries, ent_valid = mesh_entries(tris_xy, tris_z, in_front, vertex_normals, faces, bins, dual_faces)
-    normal, mask, soft = mesh_composite(
+    normal, mask, soft = (crop_frame(x, img_size) for x in mesh_composite(
         entries, ent_valid, bins.tile_start, cap_active_tiles(bins.tile_count, active_cap),
         bins.num_tiles_x, bins.num_tiles_y, soft_mask, soft_sigma_px2(sigma, img_size),
-    )
+    ))
     return MeshRasterOut(normal=normal, mask=mask, soft_mask=soft if soft_mask else None)
 
 

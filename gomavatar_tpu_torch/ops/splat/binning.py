@@ -14,6 +14,12 @@ depth key, then by (primitive id << 2 | pass flags).  Two layouts follow:
 Shapes depend only on the inputs' shapes, so nothing here waits for the
 device.
 
+A frame whose side is not a multiple of 16 is covered by ceil(W / 16) x
+ceil(H / 16) tiles (:func:`tile_grid`): the kernels sweep the whole-tile
+canvas, and the renderers crop it to the frame (:func:`crop_frame`) before
+anything reads it.  A box that runs past the frame is clamped into the
+last, partial tile, as one past a whole-tile frame is into its last tile.
+
 The sort: the reference sorts the u32 key ``tile << 21 | depth21`` and then
 the payload (``lax.sort(num_keys=2)``).  The port packs both into one int64,
 ``key << 31 | payload``.  The payload stays below 2^31, so this is exact and
@@ -27,6 +33,8 @@ from __future__ import annotations
 from typing import Any, NamedTuple
 
 import torch
+
+from gomavatar_tpu_torch.utils.profiling import count
 
 TILE = 16  # pixels per tile side
 CHUNK = 128  # entries per sweep step of kernel B1; also the alignment unit
@@ -155,6 +163,36 @@ class SortedBinning(NamedTuple):
     telemetry: BinningTelemetry
 
 
+def tile_grid(img_size) -> tuple[int, int]:
+    """(TX, TY): the tiles that cover a (W, H) frame, the last column and
+    row partial where a side is not a multiple of TILE.  Their whole-tile
+    canvas is (TY * TILE, TX * TILE) pixels; what lies past the frame is no
+    part of it (:func:`crop_frame`)."""
+    W, H = img_size
+    return -(-int(W) // TILE), -(-int(H) // TILE)
+
+
+def crop_frame(x: torch.Tensor, img_size) -> torch.Tensor:
+    """The (H, W, ...) frame of a whole-tile canvas (Hc, Wc, ...): a view of
+    its first H rows and W columns, or ``x`` itself where the frame fills
+    the canvas, so whole-tile frames run as they did.  The pixels past the
+    frame take no part in any output, loss or gradient (autograd's backward
+    of the view pads their cotangent with zeros)."""
+    W, H = img_size
+    if x.shape[0] == H and x.shape[1] == W:
+        return x
+    return x[:H, :W]
+
+
+def count_frame(img_size) -> None:
+    """Count a frame's pixels, ``frame.px`` (W H), and the lanes that the
+    kernels sweep over its whole tiles, ``frame.swept_px`` (TX TY 256), when
+    spans and counters are recorded (``utils/profiling.py``)."""
+    TX, TY = tile_grid(img_size)
+    count("frame.px", int(img_size[0]) * int(img_size[1]))
+    count("frame.swept_px", TX * TY * TILE * TILE)
+
+
 def _most_tiles(n_cover: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """The most tiles a valid primitive covers, a 0-d int32 tensor."""
     return torch.max(torch.where(valid.to(torch.bool), n_cover, torch.zeros_like(n_cover))).to(torch.int32)
@@ -273,10 +311,7 @@ def bin_sorted(
     active-tile cap.  ``flag_boxes`` = (splat_box, mesh_box), each
     (bx0, bx1, by0, by1, valid), records per entry whether its tile lies in
     each pass's own box."""
-    W, H = img_size
-    if W % TILE or H % TILE:
-        raise ValueError(f"image size {img_size} must be a multiple of {TILE}")
-    TX, TY = W // TILE, H // TILE
+    TX, TY = tile_grid(img_size)
     T = TX * TY
     # the sort key holds tile_id (sentinel = T) in 11 bits above the depth
     if T >= 2048:
@@ -364,10 +399,7 @@ def bin_bboxes(
     clamped, and the telemetry counts what was dropped.  ``flag_boxes`` =
     (splat_box, mesh_box) records per-entry pass membership, as in
     :func:`bin_sorted`."""
-    W, H = img_size
-    if W % TILE or H % TILE:
-        raise ValueError(f"image size {img_size} must be a multiple of {TILE}")
-    TX, TY = W // TILE, H // TILE
+    TX, TY = tile_grid(img_size)
     T = TX * TY
     # the sort key holds tile_id (sentinel = T) in 11 bits above the depth
     if T >= 2048:

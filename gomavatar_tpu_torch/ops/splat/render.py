@@ -84,6 +84,7 @@ def render_gaussians(
             cap_active_tiles(bins.tile_count, active_cap),
             colors.shape[-1], bins.num_tiles_x, bins.num_tiles_y,
         )
+        img, alpha = _binning.crop_frame(img, img_size), _binning.crop_frame(alpha, img_size)
     else:
         raise ValueError(f"unknown implementation: {implementation}")
 

@@ -12,8 +12,10 @@ fails on a drop, a sync per step).  Under recording (``utils.profiling``)
 the telemetry is also counted every ``log_freq`` steps, the loop's cadence
 of reads: ``binning.most_tiles`` (the most tiles one splat covered since the
 last count), ``binning.dropped`` (the entries dropped since then) and
-``binning.budget`` (the per-splat budget in force); the first two stay
-device scalars until the records are read, so no step waits for them.
+``binning.budget`` (the per-splat budget in force), with the frame's
+``frame.px`` and ``frame.swept_px`` (``binning.count_frame``); the first
+two stay device scalars until the records are read, so no step waits for
+them.
 
 The per-splat tile budget follows the state (ROADMAP C5): training widens
 the splats, and a budget they outgrow drops binning entries.  The trainer
@@ -77,7 +79,7 @@ from gomavatar_tpu_torch.optim import (
     tree_leaves,
     tree_unflatten,
 )
-from gomavatar_tpu_torch.ops.splat.binning import CHUNK
+from gomavatar_tpu_torch.ops.splat.binning import CHUNK, count_frame
 from gomavatar_tpu_torch.ops.splat.tiled_jnp import NCMAX
 from gomavatar_tpu_torch.programs import Program
 from gomavatar_tpu_torch.utils.profiling import count, enabled, span
@@ -350,6 +352,7 @@ class Trainer:
             count("binning.most_tiles", most)
             count("binning.dropped", dropped)
             count("binning.budget", self.step_cfg.max_tiles_per_gaussian)
+            count_frame(self.step_cfg.img_size)
             self._binning = None
 
     def forward(self, batch: dict, train: bool = False):

@@ -343,8 +343,9 @@ def test_pose_refinement_records_its_spans_and_counters(snapshot):
     assert len(calls) == 2 and all(s.parent == "pose.refine" for s in calls)
     counts = {c.name: c.n for c in kept(t, P.Count)}
     budget = snapshot[2][2].max_tiles_per_gaussian
+    W, H = snapshot[2][2].img_size
     assert counts == {"pose.steps": 2, "binning.dropped": r.dropped, "binning.most_tiles": r.most_tiles,
-                      "binning.budget": budget}
+                      "binning.budget": budget, "frame.px": W * H, "frame.swept_px": W * H}
     assert r.dropped == 0 and 0 < r.most_tiles < budget
 
 
@@ -387,7 +388,8 @@ def _direct_most_tiles(snapshot, params, batch) -> int:
 def test_train_step_counts_the_binning_at_the_loops_reads(snapshot):
     """Under recording, ``Trainer.step`` counts every ``log_freq`` steps:
     the most tiles of its steps (a device scalar until read; equal to a
-    direct count of the first step's frame), their drops and the budget."""
+    direct count of the first step's frame), their drops, the budget and
+    the frame's pixels and swept lanes (equal at 80^2, whole tiles)."""
     from portbench.reference.step import leaves, rebuild
 
     tr = _trainer(snapshot, log_freq=2)
@@ -401,7 +403,9 @@ def test_train_step_counts_the_binning_at_the_loops_reads(snapshot):
             most.append(int(losses["bin_most_tiles"]))
     counts = kept(t, P.Count)
     assert [(c.name, type(c.n)) for c in counts] == [("binning.most_tiles", int), ("binning.dropped", int),
-                                                      ("binning.budget", int)] * 2
+                                                      ("binning.budget", int), ("frame.px", int),
+                                                      ("frame.swept_px", int)] * 2
+    assert {c.n for c in counts if c.name.startswith("frame.")} == {80 * 80}
     assert [c.n for c in counts if c.name == "binning.most_tiles"] == [max(most[:2]), max(most[2:])]
     assert [c.n for c in counts if c.name == "binning.dropped"] == [0, 0]
     assert {c.n for c in counts if c.name == "binning.budget"} == {tr.gom_cfg.max_tiles_per_gaussian}
@@ -421,3 +425,77 @@ def test_pose_and_train_counters_off_read_no_clock(snapshot, monkeypatch):
     _refine(snapshot, position=1)
     tr.step(batch)
     assert len(P._records) == before and tr._binning is None
+
+
+# -- the frame's counters at a frame that ends mid-tile ---------------------------------
+
+
+@pytest.fixture(scope="module")
+def partial(tmp_path_factory):
+    """The snapshot_m3c configuration at 40^2 (3 x 3 tiles, the last column
+    and row 8 px wide): (cell, the program's config and state, a test
+    frame, a trunk)."""
+    import torch_any_size_scene as A
+    import torch_snapshot_scene as S
+
+    a = A.AnyCell(tmp_path_factory.mktemp("tracing_partial"), (40, 40))
+    cfg, params, statics, gom_cfg = a.program()
+    return a.cell, cfg, (params, statics, gom_cfg), a.frames(1)[0], S.trunk()
+
+
+def _eval_call(snapshot):
+    from gomavatar_tpu_torch.models.gom import eval_program
+
+    _, _, (params, statics, gom_cfg), _, _ = snapshot
+    b = _train_batch(snapshot)
+    return eval_program()(params, statics, gom_cfg, b["K"], b["E"], b["cnl_gtfms"], b["dst_Rs"], b["dst_Ts"],
+                          b["dst_posevec"], 150000.0)
+
+
+def test_frame_counters_at_a_partial_tile_frame(partial, tmp_path):
+    """``frame.px`` (W H = 1,600) and ``frame.swept_px`` (9 tiles x 256 =
+    2,304), once a frame in ``refine_frame``, at each read of
+    ``Trainer.step`` and once per eval-program call, under ``recording()``;
+    and under a profiler session, where ``refine_frame``'s are taken inside
+    its ``gomavatar.pose.refine`` range."""
+    want = {"frame.px": 1600, "frame.swept_px": 2304}
+
+    def frame_counts(t):
+        return [(c.name, c.n) for c in kept(t, P.Count) if c.name.startswith("frame.")]
+
+    tr = _trainer(partial, log_freq=1)
+    t = time.perf_counter()
+    with P.recording():
+        _refine(partial, position=0)
+    assert frame_counts(t) == list(want.items())
+    t = time.perf_counter()
+    with P.recording():
+        _eval_call(partial)
+        tr.step(_train_batch(partial))
+    assert frame_counts(t) == list(want.items()) * 2
+    path = tmp_path / "trace.json"
+    t = time.perf_counter()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU],
+                                on_trace_ready=lambda p: p.export_chrome_trace(str(path))):
+        _refine(partial, position=1)
+    assert frame_counts(t) == list(want.items())
+    refine = kept(t, P.Span, "pose.refine")
+    assert len(refine) == 1 and all(refine[0].t0 <= c.t <= refine[0].t1 for c in kept(t, P.Count))
+    events = [e["name"] for e in json.loads(path.read_text())["traceEvents"] if e.get("ph") == "X"]
+    assert "gomavatar.pose.refine" in events and "gomavatar.program.call" in events
+
+
+def test_frame_counters_off_read_no_clock(partial, monkeypatch):
+    def boom(*a, **k):
+        raise AssertionError("called while recording is off")
+
+    tr = _trainer(partial, log_freq=1)
+    batch = _train_batch(partial)
+    before = len(P._records)
+    monkeypatch.setattr(P, "time", types.SimpleNamespace(perf_counter=boom))
+    monkeypatch.setattr(torch.profiler, "record_function", boom)
+    assert not P.enabled()
+    _refine(partial, position=1)
+    _eval_call(partial)
+    tr.step(batch)
+    assert len(P._records) == before
