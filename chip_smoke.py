@@ -60,6 +60,9 @@ Phases, each fatal on failure:
         device ms of the step's index transposes (torch.profiler: the
         gathers' backward through ``mesh_ops.gather_vjp``, the neighbour
         sums, the per-frame entry table's build) and each table's bytes;
+        the LPIPS trunk channels-last: ``lpips.trunk_nhwc`` counted at the
+        capture, and no cuDNN layout transpose (``nchwToNhwc``,
+        ``nhwcToNchw``) in a profiled stretch of captured steps;
      d. the eager and the captured train step timed (median and p90 over 20
         steps after 3 warm-up) with their device time and busy share
         (torch.profiler), and each kernel's work and bound; then the
@@ -118,7 +121,9 @@ Phases, each fatal on failure:
         loss below the first; the first and best loss, the joint-angle and
         posed-joint errors before and after; the 30 captured steps again
         from the same pose and the eager ones, losses and best pose
-        bit-equal to the first run's; every scatter op one eager pose step
+        bit-equal to the first run's; ``lpips.trunk_nhwc`` counted at the
+        capture and no cuDNN layout transpose in a profiled stretch of
+        captured steps; every scatter op one eager pose step
         reaches (none on float data); the captured and the eager step's
         mean (30 steps, one synchronize at the end) and s per test frame,
         and the captured median of 20 synchronised one-step calls;
@@ -263,7 +268,8 @@ Phases, each fatal on failure:
      random VGG16 trunk at 512^2, 544^2 and 540^2 (three odd taps) and of
      the AlexNet trunk at 512^2 (bfloat16, a textured target and the
      prediction a little off it),
-     and of VGG16 at 512^2 in float32: the value within 1e-5 relative of
+     and of VGG16 at 512^2 in float32, each with its taps NCHW and
+     channels-last (the trunk's layout on the card): the value within 1e-5 relative of
      ``lpips_head_plain``'s on the card and every bfloat16 gradient element
      within one bfloat16 ulp of the plain path's plus 2^-16 of the float32
      envelope of its terms (``HEAD_F32_ENV``; the counts past one ulp and
@@ -272,7 +278,15 @@ Phases, each fatal on failure:
      captured in a CUDA graph, 3 launches per capture, 50 replays bit-equal
      to each other and to the eager call; the kernel pair and the plain
      head (with its float32 casts) each captured and timed by CUDA events
-     over back-to-back replays, beside the bytes bound.
+     over back-to-back replays, beside the bytes bound.  Then the whole
+     LPIPS loss of a step (both trunks and the head, forward and the
+     backward into the prediction) captured and timed at VGG 512^2, 544^2,
+     540^2 and AlexNet 512^2 in the NCHW layout the trunk ran in before it
+     ran channels-last on the card (the layout rule patched off, the float32
+     weights cast per call) and channels-last: the values within 1e-2
+     relative, the channels-last input gradient no farther from the float32
+     trunk's than 1.1x the NCHW one's, and the device ms of cuDNN's layout
+     transposes in each (none channels-last).
      Alone: ``python3 -c "import chip_smoke as s; s.phase_lpips_head(s.card_line())"``.
 The programs' warm-up and capture are set-up: the launches they count are
 taken back, and every replay adds the captured call's launches, so a count
@@ -1531,6 +1545,51 @@ def scatter_ops(label: str, step) -> dict:
     return out
 
 
+# the kernels cuDNN launches to move a conv's tensors between NCHW and NHWC:
+# the LPIPS trunk runs channels-last on the card, so a step launches none
+LAYOUT_KERNELS = ("nchwToNhwc", "nhwcToNchw")
+
+
+def layout_kernels(fn) -> tuple[dict, int]:
+    """({kernel: device ms a call} of the kernels named in LAYOUT_KERNELS,
+    events with device time) over PROFILE_WINDOW calls of ``fn()`` by
+    torch.profiler, after one call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_WINDOW):
+            fn()
+        torch.cuda.synchronize()
+    found, kernels = {}, 0
+    for evt in prof.key_averages():
+        us = getattr(evt, "device_time_total", None)
+        us = evt.cuda_time_total if us is None else us
+        kernels += us > 0
+        if any(k in evt.key for k in LAYOUT_KERNELS):
+            found[evt.key] = us / 1e3 / PROFILE_WINDOW
+    return found, kernels
+
+
+def no_layout_transposes(label: str, fn) -> dict:
+    """:func:`layout_kernels` of ``fn()`` (a captured step); fails on any
+    such kernel, or where the profiler saw no device kernel."""
+    found, kernels = layout_kernels(fn)
+    print(f"  {label}: cuDNN layout transposes in {PROFILE_WINDOW} profiled calls: {found or 'none'} (of {kernels} "
+          f"events with device time)")
+    require(kernels > 0, f"{label}: the profiler saw no device kernel")
+    require(not found, f"{label}: the LPIPS trunk's convs transpose between NCHW and NHWC: {found}")
+    return found
+
+
+def trunk_calls(since: float) -> int:
+    """The ``lpips.trunk_nhwc`` counts recorded since ``since``."""
+    from gomavatar_tpu_torch.utils import profiling
+
+    return sum(1 for r in profiling.records(since) if isinstance(r, profiling.Count) and r.name == "lpips.trunk_nhwc")
+
+
 def transpose_costs(trainer, eager, batch) -> dict:
     """The device ms per step of the step's index transposes (torch.profiler
     over PROFILE_WINDOW eager steps from the trainer's state: the device
@@ -1736,6 +1795,7 @@ def phase_train_path(trained, card, child: bool = False):
         steps, launches, _ = counted(run)
     head_calls = sum(1 for r in profiling.records(t_rec) if isinstance(r, profiling.Count)
                      and r.name == "lpips.head_kernel")
+    nhwc_calls = trunk_calls(t_rec)
     for i, (total, losses) in enumerate(steps):
         terms = {k: float(v) for k, v in losses.items()}
         print(f"  step {i}: total {float(total):.6g}, " + ", ".join(f"{k} {v:.5g}" for k, v in terms.items()))
@@ -1751,7 +1811,10 @@ def phase_train_path(trained, card, child: bool = False):
     print(f"  lpips_head: {launches['lpips_head']} launches, lpips.head_kernel counted {head_calls} times")
     require(launches["lpips_head"] == 3 * TRAIN_STEPS, "the train path did not run the LPIPS head kernels per step")
     require(head_calls >= 1, "the captured train step did not record lpips.head_kernel")
+    print(f"  lpips.trunk_nhwc counted {nhwc_calls} times (two trunks a call: the warm-up calls and the capture)")
+    require(nhwc_calls >= 2, "the captured train step's LPIPS trunk did not run channels-last")
     require(trainer._step_fn.captures == 1, "the train program captured more than once in one phase")
+    layout = no_layout_transposes("the captured train step", lambda: trainer.step(batches[0]))
     for k in ("B2", "B3", "B4"):  # two kernels each: their launches
         launches[k] = launches[f"{k}a"] + launches[f"{k}b"]
     after = tree_leaves(trainer.params)
@@ -1811,7 +1874,7 @@ def phase_train_path(trained, card, child: bool = False):
     return launches, dict(timed, median_ms=cap["median_ms"], p90_ms=cap["p90_ms"],
                           steps_per_s=1e3 / cap["median_ms"], steps=TRAIN_ITERS, pool_mib=pool_mib,
                           bit_equal_default=True, probe_default_algorithms=probe, nondeterministic_ops=unlisted,
-                          scatter_ops=scatters,
+                          scatter_ops=scatters, layout_transposes=layout, lpips_trunk_nhwc=nhwc_calls,
                           transposes=transposes, deterministic=det)
 
 
@@ -2445,6 +2508,7 @@ def pose_on_trained(trained, device="cuda"):
     from gomavatar_tpu_torch.ops.skeleton import get_joints_from_pose
     from gomavatar_tpu_torch.ops.transforms import so3_exp
     from gomavatar_tpu_torch.scene import trained_train_cfg
+    from gomavatar_tpu_torch.utils import profiling
 
     params, statics, cfg, frame = trained
     pose_true, joints = packed_pose(frame)
@@ -2457,8 +2521,11 @@ def pose_on_trained(trained, device="cuda"):
     lpips_params = load_lpips(device=device, quiet=True)[0]
     optimize = make_pose_optimizer(cfg, loss_cfg, pose_cfg, POSE_STEPS)
     start = torch.as_tensor(pose0, device=device)
-    (best, best_loss, losses, dropped), launches, _ = counted(
-        lambda: clone_tree(optimize(params, statics, lpips_params, batch, start)))
+    t_rec = time.perf_counter()
+    with profiling.recording():
+        (best, best_loss, losses, dropped), launches, _ = counted(
+            lambda: clone_tree(optimize(params, statics, lpips_params, batch, start)))
+    nhwc_calls = trunk_calls(t_rec)
     first_run = (best, best_loss, losses)
     losses, dropped = losses.cpu().numpy(), dropped.cpu().numpy()
     best_pose = best["poses"].cpu().numpy()
@@ -2486,6 +2553,8 @@ def pose_on_trained(trained, device="cuda"):
     require(launches["B1a"] == launches["B1b"] == 0, "pose refinement launched the eval kernel")
 
     require(optimize.program.captures == 1, "pose refinement: the pose step was captured more than once")
+    print(f"  lpips.trunk_nhwc counted {nhwc_calls} times (two trunks a call: the warm-up calls and the capture)")
+    require(nhwc_calls >= 2, "pose refinement: the LPIPS trunk did not run channels-last")
 
     def eager_refine():
         """The same refinement with the pose step run eagerly: the carry."""
@@ -2538,6 +2607,8 @@ def pose_on_trained(trained, device="cuda"):
         torch.cuda.synchronize()
         single.append((time.perf_counter() - t0) * 1e3)
     med = statistics.median(single)
+    layout = no_layout_transposes("the captured pose step",
+                                  lambda: one_step(params, statics, lpips_params, batch, start))
     print(f"  pose step: captured mean {mean_ms:.3f} ms over {POSE_STEPS} steps (one synchronize at the end), eager "
           f"{per_step['eager']:.3f} ms ({per_step['eager'] / mean_ms:.2f}x); captured median {med:.3f} ms of "
           f"{POSE_TIMED} synchronised one-step calls; per test frame at {PROTOCOL_STEPS} steps: captured "
@@ -2547,7 +2618,8 @@ def pose_on_trained(trained, device="cuda"):
             "step_median_ms": med, "seconds_per_frame_300": mean_ms * PROTOCOL_STEPS / 1e3,
             "eager_step_mean_ms": per_step["eager"],
             "eager_seconds_per_frame_300": per_step["eager"] * PROTOCOL_STEPS / 1e3,
-            "bit_equal_default": same and twice, "scatter_ops": scatters, "launches": launches}
+            "bit_equal_default": same and twice, "scatter_ops": scatters, "launches": launches,
+            "layout_transposes": layout, "lpips_trunk_nhwc": nhwc_calls}
 
 
 def pose_yaml(cfg_path: str, it: int) -> str:
@@ -4289,11 +4361,22 @@ def phase_card_data(card: str) -> dict:
 
 # ---- phase 12: the LPIPS distance head -------------------------------------------
 
-# (trunk, image side, float32 trunk): the train and pose steps' taps at the
-# two recipes' frames, the PeopleSnapshot metric's AlexNet taps (odd sizes),
-# the float32 trunk of 5e and 10b
-HEAD_CASES = (("vgg", 512, False), ("vgg", 544, False), ("vgg", 540, False), ("alex", 512, False),
-              ("vgg", 512, True))
+# (trunk, image side, float32 trunk, channels-last taps): the train and pose
+# steps' taps at the two recipes' frames, the PeopleSnapshot metric's AlexNet
+# taps (odd sizes), the float32 trunk of 5e and 10b; each in the NCHW layout
+# and channels-last, the trunk's on the card
+HEAD_CASES = tuple((t, s, f, nhwc) for nhwc in (False, True)
+                   for t, s, f in (("vgg", 512, False), ("vgg", 544, False), ("vgg", 540, False), ("alex", 512, False),
+                                   ("vgg", 512, True)))
+# (trunk, image side) of the whole LPIPS loss timed in both layouts
+TRUNK_CASES = (("vgg", 512), ("vgg", 544), ("vgg", 540), ("alex", 512))
+# the two layouts' bfloat16 LPIPS loss on the card (cuDNN picks other
+# algorithms in NHWC): the values' relative difference (the card-vs-CPU
+# limit of 10b), and the channels-last input gradient's distance from the
+# float32 trunk's at most this many times the NCHW one's (relative L2; both
+# ~0.18 at VGG 544^2, 0.087 at AlexNet 512^2, as far apart as max-pool ties
+# in bfloat16 take them: 0.05-0.08 of the norm)
+TRUNK_VALUE_RTOL, TRUNK_GRAD_RATIO = 1e-2, 1.1
 HEAD_SEED, HEAD_REPLAYS = 12, 50
 # the kernel's value against the plain head's on the card, relative
 HEAD_VALUE_RTOL = 1e-5
@@ -4369,7 +4452,7 @@ def head_graph(fn):
     return graph, out, lpips_head.launches - before
 
 
-def head_case(trunk: str, side: int, f32: bool) -> dict:
+def head_case(trunk: str, side: int, f32: bool, nhwc: bool) -> dict:
     """One case of phase 12 (see the module docstring)."""
     from gomavatar_tpu_torch.models.lpips import (
         _alex_features,
@@ -4380,17 +4463,18 @@ def head_case(trunk: str, side: int, f32: bool) -> dict:
         lpips_head_plain,
     )
 
-    label = f"{trunk} {side}^2 {'float32' if f32 else 'bfloat16'}"
+    label = f"{trunk} {side}^2 {'float32' if f32 else 'bfloat16'} {'NHWC' if nhwc else 'NCHW'}"
     params = load_lpips(trunk, device="cuda", quiet=True)[0]
     heads = params["heads"]
     pred, gt = head_images(side)
     features = _alex_features if trunk == "alex" else _vgg_features
+    layout = torch.channels_last if nhwc else torch.contiguous_format
     with torch.no_grad():
-        f_p = [f.detach().requires_grad_() for f in features(params, pred, not f32)]
-        f_g = [f.detach() for f in features(params, gt, not f32)]
+        f_p = [f.contiguous(memory_format=layout).requires_grad_() for f in features(params, pred, not f32)]
+        f_g = [f.contiguous(memory_format=layout) for f in features(params, gt, not f32)]
     elem = f_p[0].element_size()
     shapes = [tuple(f.shape[1:]) for f in f_p]
-    plans = [head_plan(f.shape[1], f.shape[2] * f.shape[3], elem, [f.data_ptr()]) for f in f_p]
+    plans = [head_plan(f.shape[1], f.shape[2] * f.shape[3], elem, [f.data_ptr()], nhwc) for f in f_p]
     elements = sum(f.numel() for f in f_p)
     zero_px = sum(int((f.detach().float().abs().sum(dim=1) == 0).sum()) for f in f_p)
 
@@ -4412,6 +4496,7 @@ def head_case(trunk: str, side: int, f32: bool) -> dict:
     out = {"taps": shapes, "tile_vec": plans, "elements": elements, "zero_feature_pixels": zero_px,
            "value": float(kern[0]), "plain_value": float(plain[0]), "value_rel": rel, "eager_launches": eager_launches}
     require(eager_launches == 3, f"12 {label}: {eager_launches} launches for one forward and backward")
+    require(all(g.is_contiguous(memory_format=layout) for g in kern[1:]), f"12 {label}: gradients in another layout")
     require(rel <= HEAD_VALUE_RTOL, f"12 {label}: value {float(kern[0])!r} vs plain {float(plain[0])!r} ({rel:.3g})")
     if f32:
         worst = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(kern[1:], plain[1:]))
@@ -4464,10 +4549,69 @@ def head_case(trunk: str, side: int, f32: bool) -> dict:
     return dict(out, ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound, bytes=nbytes, replays_bit_equal=same)
 
 
+def trunk_case(trunk: str, side: int) -> dict:
+    """Phase 12's LPIPS loss of one step (see the module docstring) in the
+    NCHW layout and channels-last: {layout: ms, layout kernels' ms}, and
+    the two's differences."""
+    from gomavatar_tpu_torch.models import lpips as LP
+
+    label = f"{trunk} {side}^2"
+    params = LP.load_lpips(trunk, device="cuda", quiet=True)[0]
+    # the NCHW trunk's data: the float32 weights as loaded, cast per call
+    nchw = {**params, "convs": [{"w": c["w"].contiguous(), "b": c["b"]} for c in params["convs"]]}
+    pred, gt = head_images(side)
+    out, results = {}, {}
+    for name, p, rule in (("nchw", nchw, lambda device: False), ("nhwc", params, LP.channels_last)):
+        x = pred.clone().requires_grad_()
+
+        def loss_pair(p=p, x=x):
+            v = LP.lpips(p, x, gt)
+            return (v, *torch.autograd.grad(v, x))
+
+        program_rule, LP.channels_last = LP.channels_last, rule
+        try:
+            graph, outs, _ = head_graph(loss_pair)
+        finally:
+            LP.channels_last = program_rule
+        graph.replay()
+        torch.cuda.synchronize()
+        results[name] = [t.detach().clone() for t in outs]
+        ms = cuda_ms(graph.replay, KERNEL_ITERS)
+        found, _ = layout_kernels(graph.replay)
+        out[name] = {"ms": ms, "layout_kernels_ms": found}
+        print(f"  12 LPIPS loss {label} {name.upper()}: forward and backward {ms:.4f} ms (graph replays, CUDA events); "
+              f"cuDNN layout transposes {found or 'none'} (torch.profiler, ms a call)")
+        del graph
+    # the yardstick: the float32 trunk's value and input gradient
+    x = pred.clone().requires_grad_()
+    v32 = LP.lpips(params, x, gt, bf16=False)
+    g32 = torch.autograd.grad(v32, x)[0]
+    (v0, g0), (v1, g1) = results["nchw"], results["nhwc"]
+    rel = abs(float(v1) - float(v0)) / abs(float(v0))
+    grad_rel = float((g1 - g0).norm() / g0.norm())
+    errs = {k: (abs(float(v) - float(v32)) / abs(float(v32)), float((g - g32).norm() / g32.norm()))
+            for k, (v, g) in results.items()}
+    out.update(value_rel=rel, grad_rel=grad_rel, vs_float32=errs)
+    print(f"  12 LPIPS loss {label}: NHWC against NCHW value rel {rel:.3g}, input gradient {grad_rel:.3g} of its norm; "
+          f"against the float32 trunk's: " + ", ".join(f"{k.upper()} value {e[0]:.3g}, gradient {e[1]:.3g}"
+                                                      for k, e in errs.items())
+          + f"; {out['nchw']['ms'] - out['nhwc']['ms']:.4f} ms saved")
+    require(rel <= TRUNK_VALUE_RTOL, f"12 LPIPS loss {label}: the layouts' values disagree")
+    require(errs["nhwc"][1] <= TRUNK_GRAD_RATIO * errs["nchw"][1],
+            f"12 LPIPS loss {label}: the channels-last input gradient lies farther from the float32 trunk's")
+    require(not out["nhwc"]["layout_kernels_ms"], f"12 LPIPS loss {label}: the channels-last trunk transposes")
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_lpips_head(card: str) -> dict:
-    """Phase 12: :func:`head_case` for each of HEAD_CASES."""
+    """Phase 12: :func:`head_case` for each of HEAD_CASES, then
+    :func:`trunk_case` for each of TRUNK_CASES."""
     print(f"[12] the LPIPS head kernel against lpips_head_plain on the card ({card})")
-    return {f"{t} {s} {'f32' if f else 'bf16'}": head_case(t, s, f) for t, s, f in HEAD_CASES}
+    out = {f"{t} {s} {'f32' if f else 'bf16'} {'nhwc' if n else 'nchw'}": head_case(t, s, f, n)
+           for t, s, f, n in HEAD_CASES}
+    out["loss"] = {f"{t} {s}": trunk_case(t, s) for t, s in TRUNK_CASES}
+    return out
 
 
 def main() -> int:

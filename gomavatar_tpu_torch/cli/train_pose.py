@@ -205,8 +205,14 @@ class PoseOptimizer:
         self.tx = PoseAdam(pose_cfg)
         self.program = Program(make_pose_step(gom_cfg, loss_cfg, self.tx))
         self.most_tiles = self.last = None
+        self._trunk = (None, None)  # (the LPIPS params last given, them laid out)
 
     def __call__(self, params, statics, lpips_params, batch, init_poses):
+        if lpips_params is not None:
+            # the trunk's weights laid out for its device once per params given
+            if self._trunk[0] is not lpips_params:
+                self._trunk = (lpips_params, lpips_lib.laid_out(lpips_params))
+            lpips_params = self._trunk[1]
         args = (params, statics, lpips_params, batch, init_pose_carry(self.tx, init_poses, self.n_iters), 1e7)
         for _ in range(self.n_iters):
             carry = self.program(*args)

@@ -1,6 +1,7 @@
 // LPIPS's distance head on the card, after the trunk's taps: for each tap k
 // with the prediction's features fp and the target's fg ((1, C, h, w),
-// NCHW contiguous, bfloat16 or float32, straight out of the ReLU) and the
+// NCHW or channels-last (NHWC) contiguous, bfloat16 or float32, straight out
+// of the ReLU) and the
 // head's weights w (C float32, clamped at 0 here),
 //
 //   rp = rsqrt(sum_c fp^2 + 1e-20), rg likewise         (per pixel, float32)
@@ -31,11 +32,19 @@
 // per-tap entries, and a block owns `tile` consecutive pixels of one tap
 // (a power of two from 8 to 256, as large as fits both images' tiles in 48 KB
 // of shared memory: 128 pixels at C = 64 in bfloat16, 16 at C = 512).  It
-// copies the tile's C channel rows of both images into shared memory with
-// `vec`-byte loads along the pixel axis (16 where the rows allow it: h w a
-// multiple of 8 in bfloat16; narrower for 34^2 = 1,156 pixels, 8 B, or
-// AlexNet's odd sizes, 2 B), so the second sweep over the channels never
-// reads device memory again.  Thread (p, g) of the block sums the channels
+// copies the tile of both images into shared memory with `vec`-byte loads,
+// so the second sweep over the channels never reads device memory again.
+// An NCHW tap's tile is C channel rows of `tile` pixels, loaded along the
+// pixel axis (16 B where the rows allow it: h w a multiple of 8 in bfloat16;
+// narrower for 34^2 = 1,156 pixels, 8 B, or odd sizes, 2 B).  A
+// channels-last tap's tile is one contiguous run of tile x C elements, loaded
+// 16 B at a time whatever h w (C x 2 B is a multiple of 16 for every VGG and
+// AlexNet tap), and kept in shared memory as pixel rows R = C + 4 / (bytes an
+// element) apart: an odd number of 4-byte words, so the sweeps' reads down a
+// channel, a lane a pixel, fall in 32 banks; each lane writes the words of its
+// load in an order turned by its lane and address, so the stores do too.  The
+// sweeps read either layout through its two strides, in the same order, so
+// both give the same bits.  Thread (p, g) of the block sums the channels
 // c = g (mod 256 / tile) at pixel p; the groups' sums meet in shared memory
 // in a fixed order.  The forward keeps rp and rg per pixel for the backward
 // and writes one partial sum a block; a second launch of one block adds
@@ -63,6 +72,7 @@ struct Tap {
   const float* head;
   void* grad;
   int C, P, tile, vec;  // channels, pixels, pixels a block, bytes a load
+  int nhwc;             // 1: channels-last (each pixel's C channels contiguous); 0: NCHW
   int block0;           // the tap's first block
   long long r0;         // the tap's first pixel in rp (and in rg)
 };
@@ -73,10 +83,16 @@ struct Taps {
   long long pixels;  // every tap's pixels: rp at r[0, pixels), rg at r[pixels, 2 pixels)
 };
 
+// the elements of one image's tile in shared memory: C rows of `tile`
+// pixels (NCHW), or `tile` pixel rows of C + 4 / elem (channels-last)
+__host__ __device__ __forceinline__ int tile_elems(const Tap& tap, int elem) {
+  return tap.nhwc ? tap.tile * (tap.C + 4 / elem) : tap.C * tap.tile;
+}
+
 // the shared memory of a block of `tap`: both images' tiles, the clamped
 // head, the groups' sums
 int smem_bytes(const Tap& tap, int elem) {
-  return 2 * tap.C * tap.tile * elem + 4 * tap.C + 8 * THREADS;
+  return 2 * tile_elems(tap, elem) * elem + 4 * tap.C + 8 * THREADS;
 }
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -124,8 +140,110 @@ __device__ __forceinline__ void rows_out(const T* src, T* __restrict__ dst, int 
   }
 }
 
+__device__ __forceinline__ unsigned word(const uint4& v, int j) {
+  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+}
+__device__ __forceinline__ unsigned word(const uint2& v, int j) { return j == 0 ? v.x : v.y; }
+__device__ __forceinline__ void set_word(uint4& v, int j, unsigned x) {
+  v.x = j == 0 ? x : v.x;
+  v.y = j == 1 ? x : v.y;
+  v.z = j == 2 ? x : v.z;
+  v.w = j == 3 ? x : v.w;
+}
+__device__ __forceinline__ void set_word(uint2& v, int j, unsigned x) {
+  v.x = j == 0 ? x : v.x;
+  v.y = j == 1 ? x : v.y;
+}
+
+// Where a lane starts in the words of its vector at shared address `at`
+// (4-byte aligned): in round s it moves word (s + lane / 8 - at / 4) mod the
+// words, so in each round the warp's 32 lanes meet 32 banks.
+__device__ __forceinline__ int first_word(const void* at) {
+  const int a = static_cast<int>(__cvta_generic_to_shared(at) >> 2);
+  return ((threadIdx.x & 31) >> 3) - a;
+}
+
+// v into shared memory at `dst` (VB >= 4: 4-byte aligned), a word a store
+template <int VB>
+__device__ __forceinline__ void put(void* dst, const typename Vec<VB>::type& v) {
+  if constexpr (VB <= 4) {
+    *static_cast<typename Vec<VB>::type*>(dst) = v;
+  } else {
+    constexpr int W = VB / 4;
+    unsigned* d = static_cast<unsigned*>(dst);
+    const int r = first_word(dst);
+#pragma unroll
+    for (int s = 0; s < W; ++s) {
+      const int j = (s + r) & (W - 1);
+      d[j] = word(v, j);
+    }
+  }
+}
+
+// the VB-byte vector at `src` in shared memory, read as `put` wrote it
+template <int VB>
+__device__ __forceinline__ typename Vec<VB>::type take(const void* src) {
+  typename Vec<VB>::type v{};
+  if constexpr (VB <= 4) {
+    v = *static_cast<const typename Vec<VB>::type*>(src);
+  } else {
+    constexpr int W = VB / 4;
+    const unsigned* d = static_cast<const unsigned*>(src);
+    const int r = first_word(src);
+#pragma unroll
+    for (int s = 0; s < W; ++s) {
+      const int j = (s + r) & (W - 1);
+      set_word(v, j, d[j]);
+    }
+  }
+  return v;
+}
+
+// pixels [p0, p0 + tile) x channels [0, C) of the channels-last (P, C) array
+// `src`, one contiguous run, into the tile `dst` of pixel rows R apart, VB
+// bytes a load; pixels past P read as 0
+template <int VB, typename T>
+__device__ __forceinline__ void pixels_in(const T* __restrict__ src, T* dst, int C, int R, int P, int p0, int tile) {
+  using V = typename Vec<VB>::type;
+  constexpr int E = VB / static_cast<int>(sizeof(T));
+  const int per_px = C / E, n = tile * per_px;
+#pragma unroll 4
+  for (int i = threadIdx.x; i < n; i += THREADS) {
+    const int q = i / per_px, c = (i - q * per_px) * E;
+    V v{};
+    if (p0 + q < P) v = *reinterpret_cast<const V*>(src + (static_cast<long long>(p0) + q) * C + c);
+    put<VB>(dst + q * R + c, v);
+  }
+}
+
+// the tile `src` back into pixels [p0, min(p0 + tile, P)) of the
+// channels-last `dst`
+template <int VB, typename T>
+__device__ __forceinline__ void pixels_out(const T* src, T* __restrict__ dst, int C, int R, int P, int p0, int tile) {
+  using V = typename Vec<VB>::type;
+  constexpr int E = VB / static_cast<int>(sizeof(T));
+  const int per_px = C / E, n = tile * per_px;
+#pragma unroll 4
+  for (int i = threadIdx.x; i < n; i += THREADS) {
+    const int q = i / per_px, c = (i - q * per_px) * E;
+    if (p0 + q < P)
+      *reinterpret_cast<V*>(dst + (static_cast<long long>(p0) + q) * C + c) = take<VB>(src + q * R + c);
+  }
+}
+
 template <typename T>
 __device__ __forceinline__ void tile_in(const T* src, T* dst, const Tap& tap, int p0) {
+  if (tap.nhwc) {
+    const int R = tap.C + 4 / static_cast<int>(sizeof(T));
+    switch (tap.vec) {
+      case 16: pixels_in<16>(src, dst, tap.C, R, tap.P, p0, tap.tile); break;
+      case 8: pixels_in<8>(src, dst, tap.C, R, tap.P, p0, tap.tile); break;
+      case 4: pixels_in<4>(src, dst, tap.C, R, tap.P, p0, tap.tile); break;
+      default:
+        if constexpr (sizeof(T) == 2) pixels_in<2>(src, dst, tap.C, R, tap.P, p0, tap.tile);
+    }
+    return;
+  }
   switch (tap.vec) {
     case 16: rows_in<16>(src, dst, tap.C, tap.P, p0, tap.tile); break;
     case 8: rows_in<8>(src, dst, tap.C, tap.P, p0, tap.tile); break;
@@ -137,6 +255,17 @@ __device__ __forceinline__ void tile_in(const T* src, T* dst, const Tap& tap, in
 
 template <typename T>
 __device__ __forceinline__ void tile_out(const T* src, T* dst, const Tap& tap, int p0) {
+  if (tap.nhwc) {
+    const int R = tap.C + 4 / static_cast<int>(sizeof(T));
+    switch (tap.vec) {
+      case 16: pixels_out<16>(src, dst, tap.C, R, tap.P, p0, tap.tile); break;
+      case 8: pixels_out<8>(src, dst, tap.C, R, tap.P, p0, tap.tile); break;
+      case 4: pixels_out<4>(src, dst, tap.C, R, tap.P, p0, tap.tile); break;
+      default:
+        if constexpr (sizeof(T) == 2) pixels_out<2>(src, dst, tap.C, R, tap.P, p0, tap.tile);
+    }
+    return;
+  }
   switch (tap.vec) {
     case 16: rows_out<16>(src, dst, tap.C, tap.P, p0, tap.tile); break;
     case 8: rows_out<8>(src, dst, tap.C, tap.P, p0, tap.tile); break;
@@ -167,21 +296,25 @@ __device__ __forceinline__ int tap_of(const Taps& taps) {
 }
 
 // A block's view of its tile: its tap, first pixel, both images' tiles in
-// shared memory, the clamped head, the groups' scratch, and its thread's
-// pixel p and channel group g of G.
+// shared memory, the clamped head, the groups' scratch, its thread's pixel p
+// and channel group g of G, and the tile's strides: element (c, p) at
+// c cs + p ps (NCHW: cs = tile, ps = 1; channels-last: cs = 1, ps = R).
 template <typename T>
 struct Block {
   Tap tap;
-  int p0, p, g, G;
+  int p0, p, g, G, cs, ps;
   T *sp, *sg;
   float *w, *red;
 
   __device__ __forceinline__ Block(const Taps& taps, unsigned char* smem) {
     tap = taps.t[tap_of(taps)];
     p0 = (static_cast<int>(blockIdx.x) - tap.block0) * tap.tile;
+    const int n = tile_elems(tap, static_cast<int>(sizeof(T)));
+    cs = tap.nhwc ? 1 : tap.tile;
+    ps = tap.nhwc ? tap.C + 4 / static_cast<int>(sizeof(T)) : 1;
     sp = reinterpret_cast<T*>(smem);
-    sg = sp + tap.C * tap.tile;
-    w = reinterpret_cast<float*>(sg + tap.C * tap.tile);
+    sg = sp + n;
+    w = reinterpret_cast<float*>(sg + n);
     red = w + tap.C;
     p = threadIdx.x % tap.tile;
     g = threadIdx.x / tap.tile;
@@ -192,8 +325,9 @@ struct Block {
     __syncthreads();
   }
 
-  __device__ __forceinline__ float x(int c) const { return to_f(sp[c * tap.tile + p]); }
-  __device__ __forceinline__ float y(int c) const { return to_f(sg[c * tap.tile + p]); }
+  __device__ __forceinline__ int at(int c) const { return c * cs + p * ps; }
+  __device__ __forceinline__ float x(int c) const { return to_f(sp[at(c)]); }
+  __device__ __forceinline__ float y(int c) const { return to_f(sg[at(c)]); }
 
   // the sum over every group of each thread's `a` at this thread's pixel,
   // in group order (red[j THREADS ...] for j = 0, 1)
@@ -272,7 +406,7 @@ __global__ void __launch_bounds__(THREADS) lpips_head_bwd_kernel(const Taps taps
   for (int c = b.g; c < C; c += b.G) {
     const float x = b.x(c);
     const float gc = b.w[c] * (x * rp - b.y(c) * rg) * coef;
-    b.sp[c * b.tap.tile + b.p] = from_f<T>(rp * gc - r3 * x * S);  // the thread's own element of the tile
+    b.sp[b.at(c)] = from_f<T>(rp * gc - r3 * x * S);  // the thread's own element of the tile
   }
   __syncthreads();
   tile_out(b.sp, static_cast<T*>(b.tap.grad), b.tap, b.p0);
@@ -280,17 +414,19 @@ __global__ void __launch_bounds__(THREADS) lpips_head_bwd_kernel(const Taps taps
 
 // The per-tap table from the host's arrays; returns a CUDA error code.
 int make_taps(int n, int elem, const void* const* fp, const void* const* fg, const void* const* head,
-              void* const* grad, const int* C, const int* P, const int* tile, const int* vec, Taps* taps, int* smem) {
+              void* const* grad, const int* C, const int* P, const int* tile, const int* vec, const int* nhwc,
+              Taps* taps, int* smem) {
   if (n < 1 || n > MAX_TAPS || (elem != 2 && elem != 4)) return static_cast<int>(cudaErrorInvalidValue);
   long long blocks = 0, pixels = 0;
   *smem = 0;
   for (int k = 0; k < n; ++k) {
     Tap& t = taps->t[k];
     t = Tap{fp[k], fg[k], static_cast<const float*>(head[k]), grad ? grad[k] : nullptr, C[k], P[k], tile[k], vec[k],
-            static_cast<int>(blocks), pixels};
+            nhwc[k] != 0, static_cast<int>(blocks), pixels};
+    // a load runs along a channel's pixels (NCHW) or a pixel's channels
+    const long long run = static_cast<long long>(t.nhwc ? t.C : t.P) * elem;
     const bool pow2 = t.tile >= 8 && t.tile <= THREADS && (t.tile & (t.tile - 1)) == 0;
-    const bool vec_ok = (t.vec == 2 || t.vec == 4 || t.vec == 8 || t.vec == 16) && t.vec >= elem &&
-                        (static_cast<long long>(t.P) * elem) % t.vec == 0;
+    const bool vec_ok = (t.vec == 2 || t.vec == 4 || t.vec == 8 || t.vec == 16) && t.vec >= elem && run % t.vec == 0;
     if (t.C < 1 || t.P < 1 || !pow2 || !vec_ok || smem_bytes(t, elem) > SMEM_MAX)
       return static_cast<int>(cudaErrorInvalidValue);
     *smem = smem_bytes(t, elem) > *smem ? smem_bytes(t, elem) : *smem;
@@ -307,17 +443,18 @@ int make_taps(int n, int elem, const void* const* fp, const void* const* fg, con
 }  // namespace
 
 // The forward on `stream`: n taps (fp[k], fg[k] the two images' (1, C[k],
-// P[k]) features of `elem`-byte floats, 2 bfloat16 or 4 float32; head[k]
-// C[k] float32), tile[k] pixels a block and vec[k] bytes a load.  Writes
+// P[k]) features of `elem`-byte floats, 2 bfloat16 or 4 float32, NCHW or,
+// where nhwc[k], channels-last; head[k] C[k] float32), tile[k] pixels a
+// block and vec[k] bytes a load.  Writes
 // r (2 x the taps' pixels: rp then rg, float32), partial (one float32 a
 // block: sum over k of ceil(P[k] / tile[k])) and out (the total, one
 // float32).  Returns the CUDA error of the launches.
 extern "C" int gom_lpips_head_fwd(float* r, float* partial, float* out, int n, int elem, const void* const* fp,
                                   const void* const* fg, const void* const* head, const int* C, const int* P,
-                                  const int* tile, const int* vec, void* stream) {
+                                  const int* tile, const int* vec, const int* nhwc, void* stream) {
   Taps taps;
   int smem = 0;
-  const int err = make_taps(n, elem, fp, fg, head, nullptr, C, P, tile, vec, &taps, &smem);
+  const int err = make_taps(n, elem, fp, fg, head, nullptr, C, P, tile, vec, nhwc, &taps, &smem);
   if (err != 0) return err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (elem == 2)
@@ -332,13 +469,14 @@ extern "C" int gom_lpips_head_fwd(float* r, float* partial, float* out, int n, i
 
 // The backward on `stream`: the forward's r, gout (the upstream scalar,
 // one float32 on the card), taps and tiling; writes grad[k], the gradient
-// in fp[k], in fp[k]'s type and shape.  Returns the CUDA error of the launch.
+// in fp[k], in fp[k]'s type, shape and layout.  Returns the CUDA error of
+// the launch.
 extern "C" int gom_lpips_head_bwd(const float* r, const float* gout, void* const* grad, int n, int elem,
                                   const void* const* fp, const void* const* fg, const void* const* head, const int* C,
-                                  const int* P, const int* tile, const int* vec, void* stream) {
+                                  const int* P, const int* tile, const int* vec, const int* nhwc, void* stream) {
   Taps taps;
   int smem = 0;
-  const int err = make_taps(n, elem, fp, fg, head, grad, C, P, tile, vec, &taps, &smem);
+  const int err = make_taps(n, elem, fp, fg, head, grad, C, P, tile, vec, nhwc, &taps, &smem);
   if (err != 0) return err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (elem == 2)

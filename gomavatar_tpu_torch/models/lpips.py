@@ -30,6 +30,17 @@ normals take a few seconds; ``chip_smoke.py`` 9c times the draw).
 
 Convolutions run in bfloat16 by default, as in the reference.
 
+Layout (:func:`channels_last`, from the device): on a card the trunk runs
+channels-last (NHWC) from the image to the head, the layout in which cuDNN's
+bf16 tensor-core kernels run on Hopper, so no conv transposes its input,
+weights or output.  The weights are laid out once (:func:`laid_out`: each
+conv's float32 weight channels-last, and beside it its bfloat16 copy
+``w_bf16``, channels-last, and bias ``b_bf16``), wherever params are made
+for a card here and where ``Trainer`` and the pose optimizer take them, so
+a trunk call casts no weight; each such call counts ``lpips.trunk_nhwc``.
+The image's (H, W, 3) is NHWC in memory already, so its (1, 3, H, W) view
+is free.  On the CPU the trunk runs NCHW as the JAX package lays it out.
+
 The distance head after the taps (:func:`lpips_head`): on CUDA taps one
 hand-written forward and one backward over all five taps in the trunk's
 dtype (``csrc/lpips_head.cu``: 2 launches forward, 1 backward, counted in
@@ -115,9 +126,9 @@ def alex_shapes():
 
 def init_lpips(heads=None, device="cuda"):
     """JAX's random He-scaled VGG16 trunk (seed 1234; conv weights OIHW),
-    with ``heads`` (five (C,) arrays) or uniform 1/C heads.  Returns
-    (params, calibrated=False)."""
-    return {"convs": _convs(1234, vgg_shapes(), device), "heads": _heads(heads, _TAP_CHANNELS, device)}, False
+    with ``heads`` (five (C,) arrays) or uniform 1/C heads, :func:`laid_out`.
+    Returns (params, calibrated=False)."""
+    return laid_out({"convs": _convs(1234, vgg_shapes(), device), "heads": _heads(heads, _TAP_CHANNELS, device)}), False
 
 
 def _heads(heads, channels, device):
@@ -128,10 +139,10 @@ def _heads(heads, channels, device):
 
 def init_lpips_alex(heads=None, device="cuda"):
     """JAX's random He-scaled AlexNet trunk (seed 4321; conv weights OIHW),
-    with ``heads`` or uniform 1/C heads.  Returns (params,
+    with ``heads`` or uniform 1/C heads, :func:`laid_out`.  Returns (params,
     calibrated=False); the ``"alex"`` key marks the trunk."""
-    return {"alex": (), "convs": _convs(4321, alex_shapes(), device),
-            "heads": _heads(heads, _ALEX_TAP_CHANNELS, device)}, False
+    return laid_out({"alex": (), "convs": _convs(4321, alex_shapes(), device),
+                     "heads": _heads(heads, _ALEX_TAP_CHANNELS, device)}), False
 
 
 def save_npz(path: str, params) -> None:
@@ -155,7 +166,7 @@ def save_npz(path: str, params) -> None:
 def load_npz(path: str, device="cuda"):
     """LPIPS params from a converted-trunk npz in the JAX package's format
     (``conv_w_{i}`` HWIO, ``conv_b_{i}``, ``head_{i}`` (C, 1), an ``alex``
-    marker for the AlexNet trunk)."""
+    marker for the AlexNet trunk), :func:`laid_out`."""
     with np.load(path) as z:
         n_convs = sum(1 for k in z.files if k.startswith("conv_w_"))
         params = {
@@ -168,7 +179,7 @@ def load_npz(path: str, device="cuda"):
         }
         if "alex" in z.files:
             params = {"alex": (), **params}
-    return params
+    return laid_out(params)
 
 
 _STATUS_LOGGED: set[str] = set()
@@ -211,6 +222,46 @@ def load_lpips(trunk: str = "vgg", weights_dir: str | None = None, quiet: bool =
     return out
 
 
+def channels_last(device) -> bool:
+    """Whether the trunk runs channels-last on ``device``: on a card, where
+    cuDNN's bf16 tensor-core kernels run NHWC and transpose NCHW tensors in
+    and out of every conv; elsewhere it runs NCHW."""
+    return torch.device(device).type == "cuda"
+
+
+def laid_out(params):
+    """``params`` with the trunk's weights laid out for its device: where
+    :func:`channels_last`, each conv's float32 weight ``w`` channels-last (the
+    same values) and beside it ``w_bf16``, its bfloat16 copy channels-last,
+    and ``b_bf16``, its bias in bfloat16: made once here, so the trunk casts
+    nothing per call.  ``params`` themselves elsewhere or where laid out
+    already."""
+    convs = params["convs"]
+    if "w_bf16" in convs[0] or not channels_last(convs[0]["w"].device):
+        return params
+    cl = torch.channels_last
+    with torch.no_grad():
+        convs = [{**c, "w": c["w"].contiguous(memory_format=cl), "w_bf16": c["w"].to(torch.bfloat16, memory_format=cl),
+                  "b_bf16": c["b"].to(torch.bfloat16)} for c in convs]
+    return {**params, "convs": convs}
+
+
+def _trunk_input(params, x: torch.Tensor, bf16: bool):
+    """The trunk's input, (1, 3, H, W) in its dtype (bfloat16 when
+    ``bf16``), from x (H, W, 3), and each conv's (weight, bias) in that
+    dtype.  Channels-last (:func:`channels_last`): the normalised image's
+    (1, 3, H, W) view of its NHWC memory and :func:`laid_out`'s weights,
+    counted as ``lpips.trunk_nhwc``; else NCHW, the weights cast per call."""
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    if channels_last(x.device):
+        count("lpips.trunk_nhwc")
+        convs = laid_out(params)["convs"]
+        h = _normalize(x)[None].permute(0, 3, 1, 2).to(dtype, memory_format=torch.channels_last)
+        return h, [(c["w_bf16"], c["b_bf16"]) if bf16 else (c["w"], c["b"]) for c in convs]
+    h = _normalize(x).permute(2, 0, 1)[None].to(dtype)
+    return h, [(c["w"].to(dtype), c["b"].to(dtype)) for c in params["convs"]]
+
+
 def _channel_constant(values, like: torch.Tensor) -> torch.Tensor:
     """(3,) ``values`` made on ``like``'s device: filled there, since a copy
     from the host would block a captured step."""
@@ -224,10 +275,8 @@ def _normalize(x: torch.Tensor) -> torch.Tensor:
 
 def _vgg_features(params, x: torch.Tensor, bf16: bool):
     """x (H, W, 3) in [-1, 1] -> the five tap feature maps, (1, C, h, w) in
-    the trunk's dtype (bfloat16 when ``bf16``)."""
-    h = _normalize(x).permute(2, 0, 1)[None]  # (1, 3, H, W)
-    dtype = torch.bfloat16 if bf16 else torch.float32
-    h = h.to(dtype)
+    the trunk's dtype (bfloat16 when ``bf16``) and layout."""
+    h, convs = _trunk_input(params, x, bf16)
     feats = []
     conv_i = 0
     for c in _VGG_CFG:
@@ -235,9 +284,9 @@ def _vgg_features(params, x: torch.Tensor, bf16: bool):
             # 2x2/2 max pool; odd edges are cropped, as torch does
             h = F.max_pool2d(h, 2)
             continue
-        conv = params["convs"][conv_i]
-        h = F.conv2d(h, conv["w"].to(dtype), padding=1)
-        h = torch.relu(h + conv["b"].to(dtype)[None, :, None, None])
+        w, b = convs[conv_i]
+        h = F.conv2d(h, w, padding=1)
+        h = torch.relu(h + b[None, :, None, None])
         if conv_i in _TAPS:
             feats.append(h)
         conv_i += 1
@@ -246,15 +295,14 @@ def _vgg_features(params, x: torch.Tensor, bf16: bool):
 
 def _alex_features(params, x: torch.Tensor, bf16: bool):
     """x (H, W, 3) in [-1, 1] -> the five AlexNet relu taps, (1, C, h, w) in
-    the trunk's dtype."""
-    dtype = torch.bfloat16 if bf16 else torch.float32
-    h = _normalize(x).permute(2, 0, 1)[None].to(dtype)
+    the trunk's dtype and layout."""
+    h, convs = _trunk_input(params, x, bf16)
     feats = []
-    for conv, (_, _, stride, pad, pool_before) in zip(params["convs"], _ALEX_CONVS):
+    for (w, b), (_, _, stride, pad, pool_before) in zip(convs, _ALEX_CONVS):
         if pool_before:
             h = F.max_pool2d(h, 3, 2)  # no padding, floor output size
-        h = F.conv2d(h, conv["w"].to(dtype), stride=stride, padding=pad)
-        h = torch.relu(h + conv["b"].to(dtype)[None, :, None, None])
+        h = F.conv2d(h, w, stride=stride, padding=pad)
+        h = torch.relu(h + b[None, :, None, None])
         feats.append(h)
     return feats
 
@@ -289,7 +337,8 @@ def lpips_head_plain(f_p, f_g, heads) -> torch.Tensor:
 def lpips_head(f_p, f_g, heads) -> torch.Tensor:
     """:func:`lpips_head_plain` of the taps ``f_p`` (the prediction's) and
     ``f_g`` (the target's), differentiable in ``f_p`` only: on CUDA taps
-    (bfloat16 or float32, each (1, C, h, w) contiguous) by the kernels of
+    (bfloat16 or float32, each (1, C, h, w) contiguous, NCHW or
+    channels-last) by the kernels of
     ``csrc/lpips_head.cu``, on CPU taps by the plain version on their
     float32 copies."""
     dev = f_p[0].device
@@ -309,28 +358,33 @@ _HEAD_SMEM = 48 * 1024
 _HEAD_DTYPES = {torch.bfloat16: 2, torch.float32: 4}
 
 
-def head_plan(C: int, P: int, elem: int, ptrs=()) -> tuple[int, int]:
+def head_plan(C: int, P: int, elem: int, ptrs=(), nhwc: bool = False) -> tuple[int, int]:
     """(tile, vec) of a tap of C channels and P pixels of ``elem``-byte
-    floats: a block's pixels, the largest power of two up to 256 whose two
-    (C, tile) tiles fit the block's shared memory beside the head and its
-    scratch, and the bytes a load, the widest of 16, 8, 4 and 2 (not below
-    ``elem``) that divides a channel row's bytes and every address in
-    ``ptrs``."""
-    room = (_HEAD_SMEM - 4 * C - 8 * _HEAD_THREADS) // (2 * C * elem)
+    floats, NCHW or (``nhwc``) channels-last: a block's pixels, the largest
+    power of two up to 256 whose two tiles fit the block's shared memory
+    beside the head and its scratch (a tile: C rows of ``tile`` pixels, or
+    ``tile`` pixel rows of C + 4 / ``elem``, whose pad keeps the kernels'
+    reads off shared bank conflicts), and the bytes a load, the widest of 16,
+    8, 4 and 2 (not below ``elem``) that divides every address in ``ptrs``
+    and the run a load walks: a channel row's P pixels, or a pixel's C
+    channels."""
+    pad = 4 // elem if nhwc else 0
+    room = (_HEAD_SMEM - 4 * C - 8 * _HEAD_THREADS) // (2 * (C + pad) * elem)
     if room < 8:
-        raise ValueError(f"the LPIPS head kernel takes at most {(_HEAD_SMEM - 8 * _HEAD_THREADS) // (16 * elem + 4)} "
-                         f"channels of {elem}-byte floats, not {C}")
+        most = (_HEAD_SMEM - 8 * _HEAD_THREADS - 16 * pad * elem) // (16 * elem + 4)
+        raise ValueError(f"the LPIPS head kernel takes at most {most} channels of {elem}-byte floats, not {C}")
     tile = min(_HEAD_THREADS, 1 << (room.bit_length() - 1))
+    run = (C if nhwc else P) * elem
     for vec in (16, 8, 4, 2):
-        if vec >= elem and (P * elem) % vec == 0 and all(p % vec == 0 for p in ptrs):
+        if vec >= elem and run % vec == 0 and all(p % vec == 0 for p in ptrs):
             return tile, vec
     raise ValueError(f"the LPIPS head kernel reads {elem}-byte floats at {elem}-byte aligned addresses")
 
 
 # the taps' arrays of both launchers: taps, bytes an element, fp, fg, head,
-# C, P, tile, vec (csrc/lpips_head.cu)
+# C, P, tile, vec, nhwc (csrc/lpips_head.cu)
 _TAP_ARGTYPES = [ctypes.c_int, ctypes.c_int, *[ctypes.POINTER(ctypes.c_void_p)] * 3,
-                 *[ctypes.POINTER(ctypes.c_int)] * 4]
+                 *[ctypes.POINTER(ctypes.c_int)] * 5]
 
 
 @functools.lru_cache(maxsize=None)
@@ -346,25 +400,31 @@ def _head_fns():
 
 
 def _head_table(f_p, f_g, heads, grads=()):
-    """((n, elem, fp, fg, head, C, P, tile, vec): the taps' arguments of a
-    launch, blocks, pixels); raises on what the kernels do not take."""
+    """((n, elem, fp, fg, head, C, P, tile, vec, nhwc): the taps' arguments
+    of a launch, blocks, pixels); raises on what the kernels do not take.  A
+    tap's layout is read from ``fp``: NCHW where it is contiguous, else
+    channels-last where it is that, which ``fg`` then shares."""
     elem = _HEAD_DTYPES.get(f_p[0].dtype)
     if elem is None:
         raise ValueError(f"the LPIPS head kernel takes bfloat16 or float32 taps, not {f_p[0].dtype}")
     n, dev = len(f_p), f_p[0].device
-    Cs, Ps, tiles, vecs = [], [], [], []
+    Cs, Ps, tiles, vecs, layouts = [], [], [], [], []
     for k, (fp, fg, head) in enumerate(zip(f_p, f_g, heads)):
         if fp.dim() != 4 or fp.shape[0] != 1 or fg.shape != fp.shape:
             raise ValueError(f"taps must be two (1, C, h, w) tensors of one shape, got {tuple(fp.shape)} and "
                              f"{tuple(fg.shape)}")
         C, P = fp.shape[1], fp.shape[2] * fp.shape[3]
+        nhwc = not fp.is_contiguous() and fp.is_contiguous(memory_format=torch.channels_last)
+        layout = torch.channels_last if nhwc else torch.contiguous_format
         for name, t in (("fp", fp), ("fg", fg)):
-            if t.dtype != f_p[0].dtype or not t.is_contiguous() or t.device != dev:
-                raise ValueError(f"{name} must be a contiguous {f_p[0].dtype} tensor on {dev}")
+            if t.dtype != f_p[0].dtype or not t.is_contiguous(memory_format=layout) or t.device != dev:
+                raise ValueError(f"{name} must be a {f_p[0].dtype} tensor on {dev}, contiguous NCHW or both "
+                                 f"taps channels-last")
         if head.dtype != torch.float32 or head.numel() != C or not head.is_contiguous() or head.device != dev:
             raise ValueError(f"a head must be a contiguous float32 tensor of {C} values on {dev}")
-        tile, vec = head_plan(C, P, elem, [fp.data_ptr(), fg.data_ptr()] + [g.data_ptr() for g in grads[k:k + 1]])
-        Cs.append(C), Ps.append(P), tiles.append(tile), vecs.append(vec)
+        tile, vec = head_plan(C, P, elem, [fp.data_ptr(), fg.data_ptr()] + [g.data_ptr() for g in grads[k:k + 1]],
+                              nhwc)
+        Cs.append(C), Ps.append(P), tiles.append(tile), vecs.append(vec), layouts.append(int(nhwc))
 
     def ptrs(ts):
         return (ctypes.c_void_p * n)(*(t.data_ptr() for t in ts))
@@ -373,7 +433,8 @@ def _head_table(f_p, f_g, heads, grads=()):
         return (ctypes.c_int * n)(*v)
 
     blocks = sum(-(-P // t) for P, t in zip(Ps, tiles))
-    return (n, elem, ptrs(f_p), ptrs(f_g), ptrs(heads), ints(Cs), ints(Ps), ints(tiles), ints(vecs)), blocks, sum(Ps)
+    return ((n, elem, ptrs(f_p), ptrs(f_g), ptrs(heads), ints(Cs), ints(Ps), ints(tiles), ints(vecs), ints(layouts)),
+            blocks, sum(Ps))
 
 
 class _LpipsHead(torch.autograd.Function):
@@ -442,12 +503,13 @@ def load_torch_heads(path: str) -> list[np.ndarray]:
 def _load_torch_trunk(trunk: str, path: str, heads_path, channels, device):
     """The convs of a torchvision state dict at ``torch_conv_indices(trunk)``
     (weights stay OIHW; every other key, such as ``classifier.*``, is
-    ignored), with LPIPS heads from ``heads_path`` or uniform 1/C heads."""
+    ignored), with LPIPS heads from ``heads_path`` or uniform 1/C heads,
+    :func:`laid_out`."""
     sd = torch.load(path, map_location="cpu", weights_only=True)
     convs = [{"w": sd[f"features.{i}.weight"].float().to(device), "b": sd[f"features.{i}.bias"].float().to(device)}
              for i in torch_conv_indices(trunk)]
     heads = load_torch_heads(heads_path) if heads_path is not None else None
-    return {"convs": convs, "heads": _heads(heads, channels, device)}, heads_path is not None
+    return laid_out({"convs": convs, "heads": _heads(heads, channels, device)}), heads_path is not None
 
 
 def load_torch_vgg16(path: str, heads_path: str | None = None, device="cuda"):

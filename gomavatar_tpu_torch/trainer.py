@@ -64,6 +64,7 @@ import torch
 from gomavatar_tpu_torch import checkpoint as ckpt_lib
 from gomavatar_tpu_torch import prng
 from gomavatar_tpu_torch.losses import compute_loss, unpack
+from gomavatar_tpu_torch.models import lpips as lpips_lib
 from gomavatar_tpu_torch.models.gom import (
     GoMConfig,
     GoMStatics,
@@ -213,7 +214,8 @@ class Trainer:
         self.cfg = cfg
         self.group = group
         self.loss_cfg = cfg["train"]["losses"]
-        self.lpips_params = lpips_params
+        # the trunk's weights laid out for its device once, whoever made them
+        self.lpips_params = None if lpips_params is None else lpips_lib.laid_out(lpips_params)
         self.lpips_calibrated = lpips_calibrated
         self.subdivide_iters = sorted(cfg["model"].get("subdivide_iters", []))
         self.device = torch.device(device)

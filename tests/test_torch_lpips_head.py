@@ -199,6 +199,28 @@ def test_tiling_follows_the_tap_shapes(trunk, side, elem):
     assert L.head_plan(64, 512 * 512, 2) == (128, 16)
 
 
+@pytest.mark.parametrize("trunk, side", [("vgg", 512), ("vgg", 540), ("vgg", 544), ("alex", 512)])
+@pytest.mark.parametrize("elem", [2, 4])
+def test_channels_last_tiling(trunk, side, elem):
+    """Channels-last taps (a tile: ``tile`` pixel rows of C + 4 / elem in
+    shared memory): 16-byte loads along each pixel's channels at every tap,
+    540^2's odd ones (135^2, 67^2, 33^2) and AlexNet's included, the same
+    tile rule as the NCHW taps' (the same tile at these widths), both tiles
+    within 48 KB beside the head and scratch; and the NCHW plans as they
+    were."""
+    for C, h, w in (vgg_taps if trunk == "vgg" else alex_taps)(side):
+        P = h * w
+        tile, vec = L.head_plan(C, P, elem, [0x1000, 0x2000], nhwc=True)
+        assert vec == 16 and tile == L.head_plan(C, P, elem)[0]
+        smem = 2 * tile * (C + 4 // elem) * elem + 4 * C + 8 * 256
+        assert smem <= 48 * 1024 and (tile == 256 or smem + 2 * tile * (C + 4 // elem) * elem > 48 * 1024)
+    assert L.head_plan(512, 34 * 34, 2, nhwc=True) == (16, 16)
+    assert L.head_plan(64, 135 * 135, 2, nhwc=True) == (128, 16)
+    assert L.head_plan(64, 127 * 127, 2, nhwc=True) == (128, 16)
+    assert L.head_plan(512, 34 * 34, 2, [0x1000, 0x1004], nhwc=True) == (16, 4)
+    assert L.head_plan(512, 1156, 2) == (16, 8) and L.head_plan(64, 127 * 127, 2) == (128, 2)
+
+
 def test_tiling_refuses_what_the_kernels_do_not_take():
     """Too many channels for two 8-pixel tiles in 48 KB, and a float32 tap
     at an address off 4 bytes, raise."""
@@ -206,3 +228,5 @@ def test_tiling_refuses_what_the_kernels_do_not_take():
         L.head_plan(4096, 64, 2)
     with pytest.raises(ValueError, match="aligned"):
         L.head_plan(64, 64, 4, [0x1002])
+    with pytest.raises(ValueError, match="channels"):
+        L.head_plan(4096, 64, 2, nhwc=True)
